@@ -1,0 +1,238 @@
+"""Frequent Directions (FD) matrix sketching — port of ``mused_tpu/ops/fd.py``.
+
+Maintain a sketch B with ell rows; absorbing a block C stacks S = [B; C] and
+shrinks its spectrum so at most ell rows remain.  After any number of
+absorbs ``0 <= x^T(A^T A - B^T B)x <= ||A||_F^2 / ell`` for unit x (Liberty
+2013; Ghashami et al. 2015).  Zero rows are FD no-ops, so partial blocks
+are zero-padded and an all-zero block skips its shrink.
+
+Shrinks:
+  ``shrink``        exact, from the eigendecomposition of the small Gram S S^T
+  ``shrink_rr``     Rayleigh-Ritz: randomized subspace iteration with QR
+                    orthonormalization and a small eigh; the engine's fold
+  ``shrink_rr_pair`` shrink_rr on the implicit stack [sketch; rows]
+
+The randomized shrinks take an optional ``probe`` (m2, r) tensor.  Without
+it the probe is drawn from a ``torch.Generator`` seeded 7 on the tensor's
+device, the counterpart of the JAX package's fixed ``jax.random.key(7)``
+(the two generators give different numbers; tests inject one draw into
+both).  Products the JAX package marks ``Precision.HIGHEST`` are plain fp32
+matmuls here: the engine turns TF32 off, so they run in true fp32.
+
+``shrink_fast`` (Newton-Schulz subspace shrink) and the ``"subspace_ns"``
+mode belong to slice 2 of the port and raise ``NotImplementedError``.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+PROBE_SEED = 7
+
+
+class FDState(NamedTuple):
+    """Frequent-Directions sketch state."""
+
+    sketch: torch.Tensor        # (ell, d) float32 — current sketch B
+    sq_frobenius: torch.Tensor  # () float32 — running ||A||_F^2 of absorbed rows
+    shrink_loss: torch.Tensor   # () float32 — sum of shrink deltas
+    count: torch.Tensor         # () int32 — rows absorbed
+
+    @property
+    def ell(self) -> int:
+        return self.sketch.shape[0]
+
+    @property
+    def d(self) -> int:
+        return self.sketch.shape[1]
+
+
+def init(ell: int, d: int, device, dtype=torch.float32) -> FDState:
+    """Fresh empty sketch of ``ell`` rows over ``d`` columns on ``device``."""
+    return FDState(
+        sketch=torch.zeros((ell, d), dtype=dtype, device=device),
+        sq_frobenius=torch.zeros((), dtype=dtype, device=device),
+        shrink_loss=torch.zeros((), dtype=dtype, device=device),
+        count=torch.zeros((), dtype=torch.int32, device=device),
+    )
+
+
+def default_probe(m2: int, r: int, device) -> torch.Tensor:
+    """The fixed (m2, r) standard-normal probe of the randomized shrinks."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed(PROBE_SEED)
+    return torch.randn((m2, r), generator=gen, device=device, dtype=torch.float32)
+
+
+def shrink(stacked: torch.Tensor, ell: int, *, eps: float = 1e-30):
+    """Exact FD shrink of an (m, d) stack to ``ell`` rows -> (B', delta).
+
+    A stack with m <= ell rows passes through unchanged."""
+    m = stacked.shape[0]
+    if m <= ell:
+        return stacked, torch.zeros((), dtype=stacked.dtype, device=stacked.device)
+    gram = stacked @ stacked.T
+    lam, u = torch.linalg.eigh(gram)              # ascending
+    lam = torch.clamp(lam.flip(0), min=0.0)       # descending, clamped
+    u = u.flip(1)
+    delta = lam[ell]                              # (ell+1)-th squared singular value
+    scale = torch.sqrt(torch.clamp(lam - delta, min=0.0) / torch.clamp(lam, min=eps))
+    shrunk = (u.T * scale[:, None]) @ stacked     # rows >= ell are zero
+    return shrunk[:ell].to(stacked.dtype), delta.to(stacked.dtype)
+
+
+def shrink_fast(stacked: torch.Tensor, ell: int, **_):
+    raise NotImplementedError(
+        "shrink_fast (Newton-Schulz subspace shrink) is ported in slice 2; "
+        "use mode 'eigh' or 'rr'")
+
+
+def _check_power_iters(power_iters: int) -> None:
+    if power_iters < 1:
+        raise ValueError(
+            "power_iters must be >= 1: the never-overestimate guarantee "
+            "comes from the final iteration's orthonormal Q (Q Q^T <= I)")
+
+
+def _rr_finish(y: torch.Tensor, ell: int, sq_total: torch.Tensor):
+    """Rayleigh-Ritz tail shared by the rr shrinks: y = S^T Q (d, r)."""
+    h = y.T @ y                                   # == Q^T G Q
+    h = 0.5 * (h + h.T)
+    _, p = torch.linalg.eigh(h)                   # ascending
+    b = p.flip(1)[:, :ell].T @ y.T                # (ell, d)
+    delta = torch.clamp(sq_total - torch.sum(b * b), min=0.0)
+    return b, delta
+
+
+def shrink_rr(stacked: torch.Tensor, ell: int, *, oversample: int = 16,
+              power_iters: int = 1, probe: torch.Tensor | None = None):
+    """Rayleigh-Ritz shrink of an (m2, d) stack -> (B' (ell, d), delta).
+
+    delta is the exact trace residual ||S||_F^2 - ||B'||_F^2, which upper
+    bounds the step's spectral error (Q Q^T <= I), so summed deltas bound
+    ||A^T A - B^T B||_2 like the classic FD deltas."""
+    _check_power_iters(power_iters)
+    m2 = stacked.shape[0]
+    if m2 <= ell:
+        return stacked, torch.zeros((), dtype=stacked.dtype, device=stacked.device)
+    r = min(ell + oversample, m2)
+    v = default_probe(m2, r, stacked.device) if probe is None else probe
+    for _ in range(power_iters):
+        # orthonormalize between applications of G = S S^T (no rank collapse)
+        v = torch.linalg.qr(stacked @ (stacked.T @ v))[0]
+    b, delta = _rr_finish(stacked.T @ v, ell, torch.sum(stacked * stacked))
+    return b.to(stacked.dtype), delta.to(stacked.dtype)
+
+
+def shrink_rr_pair(sketch: torch.Tensor, rows: torch.Tensor, ell: int, *,
+                   oversample: int = 16, power_iters: int = 1,
+                   probe: torch.Tensor | None = None):
+    """shrink_rr on the implicit stack [sketch; rows]; the operands are never
+    concatenated and ``rows`` may arrive in a narrower dtype."""
+    _check_power_iters(power_iters)
+    ellr = sketch.shape[0]
+    m2 = ellr + rows.shape[0]
+    r = min(ell + oversample, m2)
+    rows_f = rows.float()
+
+    def st(v):      # S^T v: (d, r)
+        return sketch.T @ v[:ellr] + rows_f.T @ v[ellr:]
+
+    def s(y):       # S y: (m2, r)
+        return torch.cat([sketch @ y, rows_f @ y], dim=0)
+
+    v = default_probe(m2, r, sketch.device) if probe is None else probe
+    for _ in range(power_iters):
+        v = torch.linalg.qr(s(st(v)))[0]
+    sq = torch.sum(sketch * sketch) + torch.sum(rows_f * rows_f)
+    b, delta = _rr_finish(st(v), ell, sq)
+    return b.to(sketch.dtype), delta.to(sketch.dtype)
+
+
+MODES = ("eigh", "subspace", "subspace_ns", "rr")
+
+
+def resolve_fold_mode(mode: str) -> str:
+    """Shrink mode for fold-scale consumers (the engine's whole-window
+    summary sketch): "subspace" routes to the Rayleigh-Ritz shrink there,
+    "eigh" / "rr" / "subspace_ns" pass through."""
+    if mode not in MODES:
+        raise ValueError(f"unknown fd shrink mode {mode!r}: expected one of {sorted(MODES)}")
+    return "rr" if mode == "subspace" else mode
+
+
+def update_block(state: FDState, rows: torch.Tensor, valid: torch.Tensor | None = None,
+                 mode: str = "eigh", probe: torch.Tensor | None = None) -> FDState:
+    """Absorb a block of rows (c, d); ``valid`` (c,) bool zeroes padding rows.
+
+    An all-zero block is an exact no-op and skips the shrink (one host
+    sync on the block's nonzero test)."""
+    if mode not in MODES:
+        raise ValueError(f"unknown fd shrink mode {mode!r}: expected one of {sorted(MODES)}")
+    if mode not in ("eigh", "rr"):
+        raise NotImplementedError(
+            f"fd mode {mode!r} (Newton-Schulz subspace shrink) is ported in "
+            "slice 2; use 'eigh' or 'rr' (resolve_fold_mode maps 'subspace')")
+    if mode != "rr":
+        rows = rows.to(state.sketch.dtype)
+    if valid is not None:
+        rows = torch.where(valid[:, None], rows, torch.zeros((), dtype=rows.dtype,
+                                                             device=rows.device))
+        n_new = torch.sum(valid.to(torch.int32))
+    else:
+        n_new = torch.tensor(rows.shape[0], dtype=torch.int32, device=rows.device)
+    if bool(torch.any(rows != 0)):
+        if mode == "rr":
+            sketch, delta = shrink_rr_pair(state.sketch, rows, state.ell, probe=probe)
+        else:
+            sketch, delta = shrink(torch.cat([state.sketch, rows], dim=0), state.ell)
+    else:
+        sketch, delta = state.sketch, torch.zeros_like(state.shrink_loss)
+    return FDState(
+        sketch=sketch,
+        sq_frobenius=state.sq_frobenius + torch.sum(rows.float() ** 2).to(
+            state.sq_frobenius.dtype),
+        shrink_loss=state.shrink_loss + delta,
+        count=state.count + n_new,
+    )
+
+
+def update_stream(state: FDState, rows: torch.Tensor, *, block_rows: int | None = None,
+                  mode: str = "eigh", probe: torch.Tensor | None = None) -> FDState:
+    """Absorb (m, d) rows in blocks of ``block_rows`` (zero-padded tail).
+
+    Default block: ell for eigh (its cost grows with the stack); for rr the
+    biggest block available, up to 4096, so a window's Gram-free products
+    run once."""
+    m, d = rows.shape
+    block = block_rows or (state.ell if mode == "eigh" else max(state.ell, min(m, 4096)))
+    n_blocks = -(-m // block)
+    pad = n_blocks * block - m
+    if pad:
+        rows = torch.cat([rows, torch.zeros((pad, d), dtype=rows.dtype,
+                                            device=rows.device)], dim=0)
+    idx = torch.arange(n_blocks * block, device=rows.device).reshape(n_blocks, block)
+    for i in range(n_blocks):
+        state = update_block(state, rows[i * block:(i + 1) * block], idx[i] < m,
+                             mode=mode, probe=probe)
+    return state
+
+
+def fold_sketch(rows: torch.Tensor, *, ell: int, mode: str = "eigh",
+                probe: torch.Tensor | None = None):
+    """One-shot FD sketch of (m, d) rows -> (sketch (ell, d), sq_frobenius,
+    shrink_loss)."""
+    st = update_stream(init(ell, rows.shape[1], rows.device), rows, mode=mode,
+                       probe=probe)
+    return st.sketch, st.sq_frobenius, st.shrink_loss
+
+
+def error_bound(state: FDState) -> torch.Tensor:
+    """Current upper bound on ||A^T A - B^T B||_2 (the tighter of the two)."""
+    return torch.minimum(state.shrink_loss, state.sq_frobenius / state.ell)
+
+
+def covariance_error(a: torch.Tensor, sketch: torch.Tensor) -> torch.Tensor:
+    """Exact ||A^T A - B^T B||_2 (test-size inputs only)."""
+    return torch.linalg.matrix_norm(a.T @ a - sketch.T @ sketch, ord=2)

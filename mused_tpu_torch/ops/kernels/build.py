@@ -1,0 +1,111 @@
+"""Build and load the port's CUDA kernels (``mused_tpu_torch/csrc/*.cu``).
+
+Route: ``nvcc`` compiles every source into one shared library with a plain C
+interface, loaded with ``ctypes``.  Nothing includes PyTorch's headers, so a
+build takes seconds rather than the minutes a ``torch.utils.cpp_extension``
+build of the same kernels costs.  The library lands in ``_build/`` beside
+this package (git-ignored), named by a hash of the sources and flags, so an
+edited kernel is rebuilt and an unchanged one is reused.
+
+Each C entry point returns ``cudaGetLastError()`` after its launch;
+:func:`check` turns a nonzero code into an exception.  The build happens at
+first use, never at import: CPU-only installs import this module freely.
+"""
+from __future__ import annotations
+
+import ctypes
+import glob
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+
+_PKG = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+CSRC = os.path.join(_PKG, "csrc")
+BUILD_DIR = os.path.join(_PKG, "_build")
+ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+                           "-Xptxas", "-v"]
+
+_lock = threading.Lock()
+_lib = None
+build_seconds: float | None = None   # wall time of the last build (None: reused)
+build_log: str = ""                  # nvcc's output for the loaded library
+
+
+def _sources() -> list[str]:
+    return sorted(glob.glob(os.path.join(CSRC, "*.cu")))
+
+
+def _nvcc() -> str:
+    from torch.utils.cpp_extension import CUDA_HOME
+    cand = os.path.join(CUDA_HOME, "bin", "nvcc") if CUDA_HOME else None
+    if cand and os.path.exists(cand):
+        return cand
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA "
+                           "toolkit (set CUDA_HOME or put nvcc on PATH)")
+    return found
+
+
+def library_path() -> str:
+    """Path of the shared library for the current sources and flags."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in _sources():
+        h.update(os.path.basename(src).encode())
+        with open(src, "rb") as f:
+            h.update(f.read())
+    return os.path.join(BUILD_DIR, f"libmused_kernels_{h.hexdigest()[:16]}.so")
+
+
+def _build(path: str) -> None:
+    global build_seconds, build_log
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f"{path}.{os.getpid()}.tmp"
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *_sources()]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    build_seconds = time.perf_counter() - t0
+    build_log = proc.stdout + proc.stderr
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{build_log}")
+    with open(path + ".log", "w") as f:
+        f.write(build_log)
+    os.replace(tmp, path)   # atomic: a concurrent loader never sees half a file
+
+
+def _configure(lib) -> None:
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.mused_knn_adjacency.argtypes = [p, p, p, i, i, i, i, p]
+    lib.mused_knn_adjacency.restype = i
+    lib.mused_knn_rows_per_block.argtypes = [i]
+    lib.mused_knn_rows_per_block.restype = i
+    lib.mused_cuda_error_string.argtypes = [i]
+    lib.mused_cuda_error_string.restype = ctypes.c_char_p
+
+
+def load():
+    """The loaded kernel library, building it first if needed."""
+    global _lib, build_log
+    with _lock:
+        if _lib is None:
+            path = library_path()
+            if not os.path.exists(path):
+                _build(path)
+            elif os.path.exists(path + ".log"):
+                with open(path + ".log") as f:
+                    build_log = f.read()
+            lib = ctypes.CDLL(path)
+            _configure(lib)
+            _lib = lib
+        return _lib
+
+
+def check(code: int, what: str) -> None:
+    """Raise if a C entry point reported a CUDA error."""
+    if code != 0:
+        msg = load().mused_cuda_error_string(code).decode()
+        raise RuntimeError(f"{what} failed: CUDA error {code} ({msg})")

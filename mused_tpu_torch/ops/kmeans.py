@@ -1,0 +1,124 @@
+"""k-means family — port of ``mused_tpu/ops/kmeans.py``.
+
+Replaces sklearn KMeans / MiniBatchKMeans (reference matrix_operations.py:
+149-153; main.py:82-85).  The cluster count is dynamic per window (the
+reference's unique-ground-truth-label count, main.py:41/97), so centroids
+are padded to a static ``k_max`` and dead centres sit at +inf distance.
+Lloyd iterates until the centre shift drops below ``tol`` (one host sync
+per iteration to test it); an empty live cluster moves to the worst-fit
+point, sklearn's relocation rule.
+
+Random draws come from the caller's ``torch.Generator``; ``init`` injects
+the starting centroids instead.  ``mark_background`` (the label-free
+background bucket) belongs to the serving slice and raises.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+
+def _sq_dists(x: torch.Tensor, centroids: torch.Tensor) -> torch.Tensor:
+    """(n, k) squared Euclidean distances via the expanded-norm form."""
+    xn = torch.sum(x * x, dim=1)
+    cn = torch.sum(centroids * centroids, dim=1)
+    return torch.clamp(xn[:, None] + cn[None, :] - 2.0 * (x @ centroids.T), min=0.0)
+
+
+def kmeanspp_init(x: torch.Tensor, k_max: int, k, generator: torch.Generator | None):
+    """k-means++ seeding of ``k_max`` centres; centres at index >= k are zero
+    and do not update the running distances."""
+    n = x.shape[0]
+    first = torch.randint(n, (1,), generator=generator, device=x.device)
+    cents = [x[first[0]]]
+    min_d2 = _sq_dists(x, cents[0][None, :])[:, 0]
+    for j in range(1, k_max):
+        total = torch.sum(min_d2)
+        probs = torch.where(total > 0, min_d2 / torch.clamp(total, min=1e-30),
+                            torch.full_like(min_d2, 1.0 / n))
+        c = x[torch.multinomial(probs, 1, generator=generator)[0]]
+        use = torch.as_tensor(j < k, device=x.device)
+        min_d2 = torch.where(use, torch.minimum(min_d2, torch.sum((x - c) ** 2, dim=1)),
+                             min_d2)
+        cents.append(torch.where(use, c, torch.zeros_like(c)))
+    return torch.stack(cents)
+
+
+def kmeans(x: torch.Tensor, k, generator: torch.Generator | None = None, *,
+           k_max: int, max_iters: int = 100, tol: float = 1e-4,
+           init: torch.Tensor | None = None):
+    """Lloyd k-means on (n, d) points with cluster count ``k <= k_max``
+    (int or () tensor).  Returns (labels (n,) int64 in [0, k),
+    centroids (k_max, d))."""
+    n = x.shape[0]
+    x = x.float()
+    k = torch.as_tensor(k, device=x.device)
+    alive = torch.arange(k_max, device=x.device) < k
+    c = kmeanspp_init(x, k_max, k, generator) if init is None else init.float()
+    arange_k = torch.arange(k_max, device=x.device)
+
+    def assign(cent):
+        return torch.argmin(torch.where(alive[None, :], _sq_dists(x, cent), torch.inf),
+                            dim=1)
+
+    for _ in range(max_iters):
+        labels = assign(c)
+        onehot = (labels[:, None] == arange_k[None, :]).float()
+        counts = torch.sum(onehot, dim=0)
+        new_c = torch.where((counts > 0)[:, None],
+                            (onehot.T @ x) / torch.clamp(counts, min=1.0)[:, None], c)
+        empty = alive & (counts == 0)
+        if bool(torch.any(empty)):
+            # the i-th empty live cluster moves to the i-th worst-fit point
+            dist_own = torch.gather(_sq_dists(x, new_c), 1, labels[:, None])[:, 0]
+            k_eff = min(k_max, n)
+            far = torch.sort(dist_own, descending=True, stable=True)[1][:k_eff]
+            slot = torch.clamp(torch.cumsum(empty.long(), 0) - 1, 0, k_eff - 1)
+            new_c = torch.where(empty[:, None], x[far[slot]], new_c)
+        shift = torch.sum((new_c - c) ** 2)
+        c = new_c
+        if not bool(shift > tol):
+            break
+    return assign(c), c
+
+
+class MiniBatchState(NamedTuple):
+    """Streaming MiniBatchKMeans state persisted across windows."""
+
+    centroids: torch.Tensor   # (k, d)
+    counts: torch.Tensor      # (k,) float32 — cumulative per-centre mass
+    initialized: bool
+
+
+def minibatch_init(k: int, d: int, device) -> MiniBatchState:
+    return MiniBatchState(
+        centroids=torch.zeros((k, d), dtype=torch.float32, device=device),
+        counts=torch.zeros((k,), dtype=torch.float32, device=device),
+        initialized=False)
+
+
+def minibatch_step(state: MiniBatchState, x: torch.Tensor,
+                   generator: torch.Generator | None = None):
+    """partial_fit + predict on one window (per-centre rate 1/count).
+    Returns (new_state, labels)."""
+    k = state.centroids.shape[0]
+    x = x.float()
+    centroids = (state.centroids if state.initialized
+                 else kmeanspp_init(x, k, k, generator))
+    labels = torch.argmin(_sq_dists(x, centroids), dim=1)
+    onehot = (labels[:, None] == torch.arange(k, device=x.device)[None, :]).float()
+    batch_counts = torch.sum(onehot, dim=0)
+    new_counts = state.counts + batch_counts
+    eta = torch.where(new_counts > 0, batch_counts / torch.clamp(new_counts, min=1.0), 0.0)
+    batch_mean = (onehot.T @ x) / torch.clamp(batch_counts, min=1.0)[:, None]
+    new_centroids = centroids * (1.0 - eta[:, None]) + batch_mean * eta[:, None]
+    new_state = MiniBatchState(new_centroids, new_counts, True)
+    # labels re-predicted against the updated centres (.partial_fit().predict())
+    return new_state, torch.argmin(_sq_dists(x, new_centroids), dim=1)
+
+
+def mark_background(*_, **__):
+    raise NotImplementedError(
+        "mark_background (the label-free background bucket) is ported with "
+        "the serving slice (slice 2)")

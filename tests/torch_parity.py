@@ -1,0 +1,76 @@
+"""Helpers shared by the JAX-vs-port parity tests (tests/test_torch_*.py).
+
+Inputs are made with numpy from a seed and handed to both the JAX package
+(on the CPU; Pallas kernels in interpret mode) and the PyTorch port.  Where
+the two frameworks draw different random numbers from the same seed, the
+port is fed the JAX side's draws (:func:`inject_jax_draws`).
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import torch
+
+# six xdist workers share the machine: one intra-op thread per worker
+torch.set_num_threads(1)
+
+
+def t(a) -> torch.Tensor:
+    """numpy -> CPU tensor (contiguous copy)."""
+    return torch.from_numpy(np.array(a))
+
+
+def n(x) -> np.ndarray:
+    """JAX array or tensor -> numpy."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    return np.asarray(x)
+
+
+def jax_probe(m2: int, r: int) -> np.ndarray:
+    """The JAX package's fixed FD probe: normal(key(7), (m2, r))."""
+    return np.asarray(jax.random.normal(jax.random.key(7), (m2, r), jnp.float32))
+
+
+def inject_jax_draws(monkeypatch) -> None:
+    """Make the port's streaming engine draw the JAX engine's random numbers:
+    the FD probe (key 7), and per window w the randomized-SVD test matrix and
+    the k-means++ init from ``fold_in(key(seed), w)``."""
+    from mused_tpu.ops import kmeans as jkmeans
+    from mused_tpu_torch.engine import streaming as ts
+    from mused_tpu_torch.ops import fd as tfd
+
+    current = {}
+    orig_gen, orig_svd, orig_kmeans = ts.window_generator, ts.reduction.svd_reduce, \
+        ts.kmeans.kmeans
+
+    def window_generator(seed, window_index, device):
+        current["key"] = jax.random.fold_in(jax.random.key(seed), window_index)
+        return orig_gen(seed, window_index, device)
+
+    def svd_reduce(matrix, reduced_dim, generator=None, *, omega=None):
+        rows, d = matrix.shape
+        k = min(min(reduced_dim, d - 1) + 10, min(rows, d))
+        omega = jax.random.normal(current["key"], (d, k), jnp.float32)
+        return orig_svd(matrix, reduced_dim, generator, omega=t(omega))
+
+    def kmeans(x, k, generator=None, *, k_max, **kw):
+        init = jkmeans._kmeanspp_init(jnp.asarray(n(x), jnp.float32), k_max,
+                                      jnp.int32(int(k)), current["key"])
+        return orig_kmeans(x, k, generator, k_max=k_max, init=t(init), **kw)
+
+    monkeypatch.setattr(tfd, "default_probe",
+                        lambda m2, r, device: t(jax_probe(m2, r)).to(device))
+    monkeypatch.setattr(ts, "window_generator", window_generator)
+    monkeypatch.setattr(ts.reduction, "svd_reduce", svd_reduce)
+    monkeypatch.setattr(ts.kmeans, "kmeans", kmeans)
+
+
+def synthetic_window_stream(n_rows=420, n_events=4, noise_rate=0.5, subset=256,
+                            seed=1):
+    """mused_tpu's own seeded SED-like stream, prepared like the reference."""
+    from mused_tpu.data.sed2012 import prepare_modalities
+    from mused_tpu.data.synthetic import synthetic_events_dataframe
+    df = synthetic_events_dataframe(n_rows=n_rows, n_events=n_events,
+                                    noise_rate=noise_rate, seed=seed)
+    return prepare_modalities(df, subset_size=subset, sort_by_uploaded=True,
+                              binary=True, noise_rate=noise_rate, seed=seed)
