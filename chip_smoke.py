@@ -18,13 +18,30 @@ Phases (any failure exits non-zero; no phase is skipped):
       reduced_dim 50, binary labels, noise 0.95, sorted) for SWFDMC and
       sSVDMC, with exactly 4 kernel launches per window;
   (d) for the first 3 windows, the kernel-path and plain-path fused
-      adjacencies agree on >= 99.9% of edges.
+      adjacencies agree on >= 99.9% of edges;
+  (e) the huge-window kernels K2-K5 against their plain versions on the
+      first 2048-row block of the first window of a separate seeded
+      196,608-record stream (window 98,304, nbins 1536): K2 per metric
+      (location chord3, time l1, tags jaccard, text dot, and chord on a
+      128-wide random generic panel), K3 against two K2 launches, K4 / K5
+      on that block's real candidate block with r = 128 and 256; times of
+      each kernel and its plain version (tolerances at the constants below);
+  (f) ``api.process_streaming_data`` on the card over that stream at
+      window 98,304: SWFDMC with the candidate-native fold (exactly 96 K2,
+      48 K3, 96 K4 and 48 K5 launches per window) and sSVDMC on the binned
+      blocked SVD (576 K2 and 288 K3 per window); metrics in [0, 1];
+  (g) on 3 blocks of the first huge window, the kernel route's candidate
+      rows agree with the plain route's fused rows on >= 99.9% of edges,
+      and the candidate fold's sq_frobenius equals the dense binned fold's.
 
+Every phase prints its seconds.  ``--phases`` runs a subset (for
+development; the result lines are printed only when all phases ran).
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 from __future__ import annotations
 
+import argparse
 import json
 import subprocess
 import sys
@@ -37,15 +54,29 @@ from mused_tpu_torch import api
 from mused_tpu_torch.data.ingest import to_device
 from mused_tpu_torch.data.synthetic import make_stream
 from mused_tpu_torch.engine import streaming
-from mused_tpu_torch.ops import affinity
+from mused_tpu_torch.ops import affinity, fd
+from mused_tpu_torch.ops import blocked_affinity as ba
 from mused_tpu_torch.ops.kernels import affinity_kernel as ak
+from mused_tpu_torch.ops.kernels import blocked_select as bs
 from mused_tpu_torch.ops.kernels import build
+from mused_tpu_torch.ops.kernels import cand_matvec as cm
 from mused_tpu.utils.config import PipelineConfig
 
 WINDOW, K_BASIS, REDUCED_DIM = 2000, 50, 50     # reference default_params
 N_RECORDS, NOISE_RATE, SEED = 150_000, 0.95, 0
 EDGE_AGREEMENT = 0.999       # float-sum-order metrics: kernel vs plain edges
 BIT_EQUAL = ("l1", "jaccard")   # exact integer / unfused sums: must match exactly
+
+# huge-window slice (BASELINE.md #3): 98,304 = 48 blocks of 2048 rows
+HUGE_WINDOW, HUGE_BLOCK, HUGE_NBINS = 98_304, 2_048, 1_536
+HUGE_RECORDS = 2 * HUGE_WINDOW
+HUGE_BIT_EQUAL = ("jaccard", "l1", "chord3")   # K2 vals and grp bit-equal
+# dot / chord: f32 sums in another order; |error| <= K * 2**-24 * sum|a_i b_i|,
+# held at 1e-4 of the block's largest |value| (K = 4096 gives 2.4e-4 worst
+# case, ~1e-6 typical), with budgeted_keep's masks >= 99.9% equal and every
+# row's kept count identical
+DOT_RTOL, KEEP_AGREEMENT = 1e-4, 0.999
+PROBE_RTOL = 1e-5            # K4 / K5 on the real FD probe: max|err| / max|want|
 
 
 def nvidia_smi_line() -> str:
@@ -71,8 +102,9 @@ def cuda_ms(fn, reps: int = 10, warmup: int = 2) -> float:
 
 def edge_agreement(a: torch.Tensor, b: torch.Tensor) -> float:
     """|A and B| / |A or B| over the 0/1 entries (1.0 when both are empty)."""
-    union = int(torch.count_nonzero(torch.maximum(a, b)))
-    inter = int(torch.count_nonzero(torch.minimum(a, b)))
+    a, b = a.bool(), b.bool()
+    union = int(torch.count_nonzero(a | b))
+    inter = int(torch.count_nonzero(a & b))
     return 1.0 if union == 0 else inter / union
 
 
@@ -185,15 +217,238 @@ def phase_d(mods, mtypes, device, n_windows: int = 3) -> list[float]:
     return agreements
 
 
+# ---------------------------------------------------------------------------
+# huge-window slice: phases (e)-(g)
+# ---------------------------------------------------------------------------
+
+def huge_cfg(approach: str = "SWFDMC", n_records: int = HUGE_RECORDS) -> PipelineConfig:
+    return PipelineConfig(seed=SEED, subset_size=n_records, noise_rate=NOISE_RATE,
+                          label_mode="binary", sorting=True, window_size=HUGE_WINDOW,
+                          reduced_dim=REDUCED_DIM, k_basis=K_BASIS, approach=approach,
+                          n_clusters_override=2)
+
+
+def huge_columns(mods, device) -> ba.Columns:
+    """Column panels of the huge stream's first window, as the engine builds them."""
+    engine = streaming.StreamingEngine(huge_cfg(), device)
+    host = engine.featurize([m[:HUGE_WINDOW] for m in mods], streaming.STANDARD_TYPES)
+    return engine.columns(host, to_device(host, device), streaming.STANDARD_TYPES)
+
+
+def reset_counts() -> None:
+    ak.reset_launches()
+    bs.reset_launches()
+    cm.reset_launches()
+
+
+def huge_counts() -> dict:
+    return {"K2": bs.launches, "K3": bs.pair_launches, "K4": cm.launches_t,
+            "K5": cm.launches}
+
+
+def phase_e(cols: ba.Columns, device) -> dict:
+    n, block, start, nbins = cols.n, HUGE_BLOCK, 0, HUGE_NBINS
+    if bs.default_nbins(n, k_max=3 * K_BASIS) != nbins:
+        raise AssertionError(f"default_nbins({n}) != {nbins}")
+    rows = slice(start, start + block)
+    by_kind = dict(zip(cols.kinds, zip(cols.tensors, cols.valids)))
+    (xyz, lv), (tim, tv) = by_kind["location_xyz"], by_kind["time"]
+    ((tags, sums), tagv), (text, textv) = by_kind["tags"], by_kind["text_bf16"]
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    generic = ba.generic_columns([torch.randn((n, 128), generator=gen, device=device)],
+                                 ("default",), device)
+    (dft, sq), dv = generic.tensors[0], generic.valids[0]
+    out = {"K2": {}}
+    for name, metric, x, valid, row_sums, k in [
+            ("location", "chord3", xyz, lv, None, K_BASIS),
+            ("time", "l1", tim, tv, None, 3 * K_BASIS),
+            ("tags", "jaccard", tags, tagv, sums, K_BASIS),
+            ("text", "dot", text, textv, None, K_BASIS),
+            ("generic_default", "chord", dft, dv, sq, K_BASIS - 1)]:
+        x = x.contiguous()
+
+        def run(fn, x=x, valid=valid, row_sums=row_sums, metric=metric):
+            return fn(x, x[rows], valid, start, metric=metric, nbins=nbins, block=block,
+                      row_sums=row_sums)
+
+        got, want = run(bs.binned_candidates), run(bs.binned_candidates_plain)
+        torch.cuda.synchronize()
+        real = want[0] > bs.NEG / 2
+        keep_got = bs.budgeted_keep(got[0], valid[rows], k)
+        keep_want = bs.budgeted_keep(want[0], valid[rows], k)
+        row = {"case": name, "metric": metric, "n": n, "block": block, "nbins": nbins,
+               "K": x.shape[1], "dtype": str(x.dtype).replace("torch.", ""),
+               "bit_equal": bool(torch.equal(got[0], want[0])
+                                 and torch.equal(got[1], want[1])),
+               "same_real_mask": bool(torch.equal(real, got[0] > bs.NEG / 2)),
+               "max_abs_err": float((got[0] - want[0])[real].abs().max()) if real.any()
+               else 0.0,
+               "value_scale": float(want[0][real].abs().max()) if real.any() else 0.0,
+               "grp_agreement": float((got[1] == want[1]).float().mean()),
+               "keep_agreement": edge_agreement(keep_got, keep_want),
+               "same_kept_counts": bool(torch.equal(keep_got.sum(1), keep_want.sum(1))),
+               "ms": cuda_ms(lambda: run(bs.binned_candidates), reps=5, warmup=1),
+               "plain_ms": cuda_ms(lambda: run(bs.binned_candidates_plain), reps=3,
+                                   warmup=1)}
+        print("[e] K2", json.dumps(row), flush=True)
+        ok = (row["bit_equal"] if metric in HUGE_BIT_EQUAL else
+              row["same_real_mask"] and row["max_abs_err"] <= DOT_RTOL * row["value_scale"]
+              and row["keep_agreement"] >= KEEP_AGREEMENT and row["same_kept_counts"])
+        if not ok:
+            raise AssertionError(f"K2 disagrees with its plain version: {row}")
+        out["K2"][name] = row
+
+    def pair():
+        return bs.binned_candidates_pair(xyz, tim, xyz[rows], tim[rows], lv, tv, start,
+                                         metricA="chord3", metricB="l1", nbins=nbins,
+                                         block=block)
+
+    def two_k2(fn):
+        return (*fn(xyz, xyz[rows], lv, start, metric="chord3", nbins=nbins, block=block),
+                *fn(tim, tim[rows], tv, start, metric="l1", nbins=nbins, block=block))
+
+    got, singles, plain = pair(), two_k2(bs.binned_candidates), two_k2(bs.binned_candidates_plain)
+    torch.cuda.synchronize()
+    row = {"case": "location+time", "bit_equal_to_two_k2": all(
+               torch.equal(a, b) for a, b in zip(got, singles)),
+           "bit_equal_to_plain": all(torch.equal(a, b) for a, b in zip(got, plain)),
+           "ms": cuda_ms(pair, reps=5, warmup=1),
+           "plain_ms": cuda_ms(lambda: two_k2(bs.binned_candidates_plain), reps=3, warmup=1)}
+    print("[e] K3", json.dumps(row), flush=True)
+    if not (row["bit_equal_to_two_k2"] and row["bit_equal_to_plain"]):
+        raise AssertionError(f"K3 disagrees with two K2 launches: {row}")
+    out["K3"] = row
+
+    cand = ba.candidate_rowblock(cols, start, block, K_BASIS, nbins)
+    edges_dense = float(cm.dense_rows_reference(cand).sum())
+    ell = min(REDUCED_DIM, n)
+    r = ell + 16
+    rp = -(-r // 128) * 128
+    v = fd.default_probe(ell + block, r, device)
+    v_r = v[ell:]
+    v_hi = v_r.to(torch.bfloat16)
+    v_lo = (v_r - v_hi.float()).to(torch.bfloat16)
+
+    def pad_rows(x, m):
+        return torch.nn.functional.pad(x, (0, 0, 0, m - x.shape[0]))
+
+    probe_t = pad_rows(v_hi.T, rp).contiguous()                   # power step, r = 128
+    hilo_t = torch.cat([pad_rows(v_hi.T, rp), pad_rows(v_lo.T, rp)]).contiguous()
+    y0 = cm.matvec_t(cand, probe_t)[0][:r].T                      # rows^T v, as the fold
+    probe_y = torch.nn.functional.pad(y0, (0, rp - r)).to(torch.bfloat16).contiguous()
+    ints = torch.Generator(device=device).manual_seed(SEED + 1)
+    checks = []
+    for name, fn, ref, x in [
+            ("K4", cm.matvec_t, cm.matvec_t_reference, probe_t),
+            ("K4", cm.matvec_t, cm.matvec_t_reference, hilo_t),
+            ("K5", cm.matvec, cm.matvec_reference, probe_y)]:
+        xi = torch.randint(-4, 5, tuple(x.shape), generator=ints, device=device).to(
+            torch.bfloat16)
+        gi, wi = fn(cand, xi), ref(cand, xi)
+        gp, wp = fn(cand, x), ref(cand, x)
+        torch.cuda.synchronize()
+        if name == "K4":
+            (gi, ge), (wi, we), (gp, _), (wp, _) = gi, wi, gp, wp
+        row = {"kernel": name, "r": x.shape[1] if name == "K5" else x.shape[0],
+               "exact_on_integers": bool(torch.equal(gi, wi)),
+               "probe_max_abs_err": float((gp - wp).abs().max()),
+               "probe_rel_err": float((gp - wp).abs().max() / wp.abs().max().clamp(min=1e-30)),
+               "ms": cuda_ms(lambda: fn(cand, x), reps=5, warmup=1),
+               "plain_ms": cuda_ms(lambda: ref(cand, x), reps=3, warmup=1)}
+        if name == "K4":
+            row["edges"] = float(ge)
+            row["edges_exact"] = float(ge) == float(we) == edges_dense
+        print(f"[e] {name}", json.dumps(row), flush=True)
+        if not (row["exact_on_integers"] and row["probe_rel_err"] <= PROBE_RTOL
+                and row.get("edges_exact", True)):
+            raise AssertionError(f"{name} disagrees with its plain version: {row}")
+        checks.append(row)
+    out["K4"] = [c for c in checks if c["kernel"] == "K4"]
+    out["K5"] = [c for c in checks if c["kernel"] == "K5"]
+    return out
+
+
+def phase_f(mods, mtypes, labels, device, approach: str, n_records: int) -> dict:
+    cfg = huge_cfg(approach, n_records)
+    engine = streaming.StreamingEngine(cfg, device)
+    windows = len(streaming.window_triggers(n_records, HUGE_WINDOW, 1))
+    reset_counts()
+    t0 = time.perf_counter()
+    res = api.process_streaming_data(
+        results=api.get_initial_results()[0], data_modalities=[m[:n_records] for m in mods],
+        modality_types=mtypes, window_size=HUGE_WINDOW, reduced_dim=REDUCED_DIM,
+        k_basis=K_BASIS, n_clusters_total=2, seed=SEED, approach=approach,
+        complete_true_labels=labels[:n_records], step_window_ratio=1,
+        noise_rate=NOISE_RATE, label_mode="binary", sorting=True, eps=1.5,
+        min_samples=2, device=device, cfg=cfg, engine=engine)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = huge_counts()
+    blocks = HUGE_WINDOW // HUGE_BLOCK
+    per_window = ({"K2": 2 * blocks, "K3": blocks, "K4": 2 * blocks, "K5": blocks}
+                  if approach == "SWFDMC" else
+                  {"K2": 2 * 6 * blocks, "K3": 6 * blocks, "K4": 0, "K5": 0})
+    out = {"approach": approach, "records": n_records, "windows": windows,
+           "launches": counts, "k1_launches": ak.launches, "seconds": secs,
+           "windows_per_s": windows / secs, "rows_per_s": windows * HUGE_WINDOW / secs,
+           "nmi": res["nmi_score"][0], "nmi_e": res["nmi_e_score"][0],
+           "f1": res["f1_score"][0], "f1_aligned": res["f1_aligned"][0],
+           "spans": engine.timer.summary()}
+    print("[f]", json.dumps(out), flush=True)
+    want = {k: v * windows for k, v in per_window.items()}
+    if counts != want or ak.launches:
+        raise AssertionError(f"{approach}: launches {counts} (K1 {ak.launches}), "
+                             f"expected {want} and no K1")
+    metric_vals = [out[k] for k in ("nmi", "nmi_e", "f1", "f1_aligned")]
+    if not all(np.isfinite(v) and 0.0 <= v <= 1.0 for v in metric_vals):
+        raise AssertionError(f"metrics out of range: {metric_vals}")
+    return out
+
+
+def phase_g(cols: ba.Columns) -> dict:
+    n, block, nbins = cols.n, HUGE_BLOCK, HUGE_NBINS
+    agreements = []
+    for start in (0, n // 2, n - block):
+        cand = ba.candidate_rowblock(cols, start, block, K_BASIS, nbins)
+        got = cm.dense_rows_reference(cand)
+        want = ba.fused_rowblock(cols, start, block, K_BASIS, select="binned", nbins=nbins,
+                                 out_dtype=torch.bool, use_kernel=False)
+        agree = edge_agreement(got, want)
+        print(f"[g] block at row {start}: edges kernel {int(got.sum())} plain "
+              f"{int(want.sum())} mismatched {int((got != want).sum())} agreement "
+              f"{agree:.6f}", flush=True)
+        if agree < EDGE_AGREEMENT:
+            raise AssertionError(f"block {start}: agreement {agree} < {EDGE_AGREEMENT}")
+        agreements.append(agree)
+    ell = min(REDUCED_DIM, n)
+    kw = dict(ell=ell, block=block, k_basis=K_BASIS, select="binned", nbins=nbins)
+    _, sq_cand, loss_cand = ba.blocked_fd_sketch(cols, cand_fold=True, **kw)
+    _, sq_dense, loss_dense = ba.blocked_fd_sketch(cols, cand_fold=False, **kw)
+    out = {"agreements": agreements, "sq_frobenius_cand": float(sq_cand),
+           "sq_frobenius_dense": float(sq_dense), "shrink_loss_cand": float(loss_cand),
+           "shrink_loss_dense": float(loss_dense)}
+    print("[g]", json.dumps(out), flush=True)
+    if out["sq_frobenius_cand"] != out["sq_frobenius_dense"]:
+        raise AssertionError(f"cand fold sq_frobenius != dense fold's: {out}")
+    return out
+
+
 def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--phases", default="abcdefg",
+                        help="phases to run (a always runs); the result lines print "
+                             "only when all ran")
+    phases = set(parser.parse_args().phases) | {"a"}
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
               file=sys.stderr)
         return 1
     device = torch.device("cuda")
+    streaming.configure_precision()
     smi = nvidia_smi_line()
     print(f"[a] device {torch.cuda.get_device_name(0)}; torch {torch.__version__} "
           f"cuda {torch.version.cuda}", flush=True)
+    seconds = {}
 
     t0 = time.perf_counter()
     build.load()
@@ -202,29 +457,73 @@ def main() -> int:
           f"block at n={WINDOW}: {build.load().mused_knn_rows_per_block(WINDOW)}",
           flush=True)
     for line in build.build_log.splitlines():
-        if "registers" in line or "spill" in line:
+        if "registers" in line or "spill" in line or line.startswith("=="):
             print("[a] ptxas:", line.strip())
+    seconds["a"] = time.perf_counter() - t0
 
-    t0 = time.perf_counter()
-    mods, mtypes, labels = make_stream(N_RECORDS, noise_rate=NOISE_RATE, binary=True,
-                                       sort_by_uploaded=True, seed=SEED)
-    print(f"[c] synthetic stream: {len(labels)} records, {int(labels.sum())} event rows, "
-          f"{time.perf_counter() - t0:.1f} s", flush=True)
-    probe_engine = streaming.StreamingEngine(
-        PipelineConfig(window_size=WINDOW, k_basis=K_BASIS, reduced_dim=REDUCED_DIM),
-        device)
-    rows_b = phase_b(kernel_cases(mods, probe_engine, device))
+    rows_b, runs, main_launches = [], [], 0
+    if phases & set("bcd"):
+        t0 = time.perf_counter()
+        mods, mtypes, labels = make_stream(N_RECORDS, noise_rate=NOISE_RATE, binary=True,
+                                           sort_by_uploaded=True, seed=SEED)
+        print(f"[c] synthetic stream: {len(labels)} records, {int(labels.sum())} event "
+              f"rows, {time.perf_counter() - t0:.1f} s", flush=True)
+    if "b" in phases:
+        t0 = time.perf_counter()
+        probe_engine = streaming.StreamingEngine(
+            PipelineConfig(window_size=WINDOW, k_basis=K_BASIS, reduced_dim=REDUCED_DIM),
+            device)
+        rows_b = phase_b(kernel_cases(mods, probe_engine, device))
+        seconds["b"] = time.perf_counter() - t0
+    if "c" in phases:
+        t0 = time.perf_counter()
+        phase_c(mods, mtypes, labels, device, "sSVDMC", 4 * WINDOW)   # warm-up, not counted
+        reset_counts()
+        runs = [phase_c(mods, mtypes, labels, device, a, N_RECORDS)
+                for a in ("SWFDMC", "sSVDMC")]
+        main_launches = ak.launches
+        seconds["c"] = time.perf_counter() - t0
+    if "d" in phases:
+        t0 = time.perf_counter()
+        phase_d(mods, mtypes, device)
+        seconds["d"] = time.perf_counter() - t0
 
-    phase_c(mods, mtypes, labels, device, "sSVDMC", 4 * WINDOW)   # warm-up, not counted
-    ak.reset_launches()
-    runs = [phase_c(mods, mtypes, labels, device, a, N_RECORDS)
-            for a in ("SWFDMC", "sSVDMC")]
-    main_launches = ak.launches
-
-    phase_d(mods, mtypes, device)
+    kernels_e, huge_runs, huge_launches = {}, [], {"K2": 0, "K3": 0, "K4": 0, "K5": 0}
+    if phases & set("efg"):
+        t0 = time.perf_counter()
+        hmods, hmtypes, hlabels = make_stream(HUGE_RECORDS, noise_rate=NOISE_RATE,
+                                              binary=True, sort_by_uploaded=True,
+                                              seed=SEED)
+        cols = huge_columns(hmods, device)
+        torch.cuda.synchronize()
+        print(f"[e] huge stream: {len(hlabels)} records, {int(hlabels.sum())} event rows; "
+              f"first window's columns {cols.kinds}, {time.perf_counter() - t0:.1f} s",
+              flush=True)
+        seconds["huge_stream"] = time.perf_counter() - t0
+    if "e" in phases:
+        t0 = time.perf_counter()
+        kernels_e = phase_e(cols, device)
+        seconds["e"] = time.perf_counter() - t0
+    if "f" in phases:
+        t0 = time.perf_counter()
+        for approach in ("SWFDMC", "sSVDMC"):
+            huge_runs.append(phase_f(hmods, hmtypes, hlabels, device, approach,
+                                     HUGE_RECORDS))
+            for k, v in huge_runs[-1]["launches"].items():
+                huge_launches[k] += v
+        seconds["f"] = time.perf_counter() - t0
+    if "g" in phases:
+        t0 = time.perf_counter()
+        phase_g(cols)
+        seconds["g"] = time.perf_counter() - t0
+    print("[seconds]", json.dumps(seconds), flush=True)
+    if phases != set("abcdefg"):
+        return 0
 
     main_rows = [r for r in rows_b if r["case"] in ("location", "time", "tags", "text")]
-    kernel = {
+    k2 = kernels_e["K2"]
+    wps = {f"huge_{r['approach']}": r["windows_per_s"] for r in huge_runs}
+    kernels = [{
         "name": "knn_adjacency", "route": "cuda",
         "source": "mused_tpu_torch/csrc/knn_adjacency.cu",
         "replaces": "mused_tpu/ops/pallas/affinity_kernel.py:185",
@@ -236,9 +535,49 @@ def main() -> int:
         "per_metric": {r["case"]: {"ms": r["ms"], "plain_ms": r["plain_ms"]}
                        for r in rows_b},
         "e2e_windows_per_s": {r["approach"]: r["windows_per_s"] for r in runs},
-    }
+    }, {
+        "name": "binned_candidates", "route": "cuda",
+        "source": "mused_tpu_torch/csrc/blocked_select.cu",
+        "replaces": "mused_tpu/ops/pallas/blocked_select.py:169",
+        "launches": huge_launches["K2"],
+        "max_abs_err": max(r["max_abs_err"] for r in k2.values()),
+        "ms": k2["tags"]["ms"] + k2["text"]["ms"],
+        "plain_ms": k2["tags"]["plain_ms"] + k2["text"]["plain_ms"],
+        "timed": "one 2048-row block's two main-path calls (tags, text)",
+        "per_metric": {name: {"ms": r["ms"], "plain_ms": r["plain_ms"]}
+                       for name, r in k2.items()},
+        "e2e_windows_per_s": wps,
+    }, {
+        "name": "binned_candidates_pair", "route": "cuda",
+        "source": "mused_tpu_torch/csrc/blocked_select.cu",
+        "replaces": "mused_tpu/ops/pallas/blocked_select.py:305",
+        "launches": huge_launches["K3"], "max_abs_err": 0.0,
+        "ms": kernels_e["K3"]["ms"], "plain_ms": kernels_e["K3"]["plain_ms"],
+        "timed": "one block's call (location chord3 + time l1)",
+    }, {
+        "name": "matvec_t", "route": "cuda",
+        "source": "mused_tpu_torch/csrc/cand_matvec.cu",
+        "replaces": "mused_tpu/ops/pallas/cand_matvec.py:176",
+        "launches": huge_launches["K4"],
+        "max_abs_err": max(r["probe_max_abs_err"] for r in kernels_e["K4"]),
+        "ms": sum(r["ms"] for r in kernels_e["K4"]),
+        "plain_ms": sum(r["plain_ms"] for r in kernels_e["K4"]),
+        "timed": "one block's two fold calls (r = 128 probe, r = 256 hi/lo)",
+    }, {
+        "name": "matvec", "route": "cuda",
+        "source": "mused_tpu_torch/csrc/cand_matvec.cu",
+        "replaces": "mused_tpu/ops/pallas/cand_matvec.py:219",
+        "launches": huge_launches["K5"],
+        "max_abs_err": max(r["probe_max_abs_err"] for r in kernels_e["K5"]),
+        "ms": sum(r["ms"] for r in kernels_e["K5"]),
+        "plain_ms": sum(r["plain_ms"] for r in kernels_e["K5"]),
+        "timed": "one block's fold call (r = 128)",
+    }]
+    missing = [k["name"] for k in kernels if k["launches"] <= 0]
+    if missing:
+        raise AssertionError(f"kernels never launched on their main path: {missing}")
     print(smi, flush=True)
-    print(json.dumps({"kernels": [kernel]}), flush=True)
+    print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}),

@@ -6,11 +6,16 @@ port imports ``torch`` and never ``jax``.  It reuses the framework-free host
 tier of ``mused_tpu`` (``utils/config``, ``data/features``, ``native/``,
 ``ops/matching``, ``utils/metrics``) instead of copying it.
 
-Layer map (slice 1, the dense-window streaming path):
+Layer map (slice 1, dense windows; slice 3, huge windows on one device):
   api.py       reference-compatible facade (process_streaming_data)
-  engine/      streaming engine: featurize -> fuse -> reduce -> cluster -> match
-  ops/         affinity graphs, FD / SWFD sketch, randomized SVD, k-means
-  ops/kernels/ hand-written Hopper kernels (CUDA C++ in csrc/) and their build
+  engine/      streaming engine: featurize -> fuse -> reduce -> cluster -> match;
+               huge windows rebuild row blocks inside the reduction
+  ops/         affinity graphs, FD / SWFD sketch, randomized SVD, k-means,
+               blocked_affinity (column panels, rebuilt blocks, blocked
+               FD fold and SVD)
+  ops/kernels/ hand-written Hopper kernels (CUDA C++ in csrc/: K1 kNN
+               adjacency, K2 / K3 binned candidates, K4 / K5 candidate
+               products), their plain versions and their build
   data/        numpy synthetic stream, threaded host->device prefetch
   utils/       span timer, JAX-state conversion
 

@@ -16,6 +16,8 @@ from typing import Callable, Iterator
 import numpy as np
 import torch
 
+from mused_tpu.data import features as feat
+
 
 def to_device(arrays, device: torch.device) -> tuple:
     """numpy arrays -> tensors on ``device`` (pinned, non-blocking for CUDA)."""
@@ -28,6 +30,24 @@ def to_device(arrays, device: torch.device) -> tuple:
             t = t.to(device)
         out.append(t)
     return tuple(out)
+
+
+def pad_window_features(wf, pad: int):
+    """Append ``pad`` invalid rows to featurized rows (NaN coordinates, zero
+    times, -1 ids, no tokens), so a huge window divides into row blocks;
+    port of ``mused_tpu/engine/batch._pad_window_features``."""
+    rows = ((0, pad), (0, 0))
+    common = dict(location=np.pad(wf.location, rows, constant_values=np.nan),
+                  times=np.pad(wf.times, rows),
+                  user_ids=np.pad(wf.user_ids, (0, pad), constant_values=-1),
+                  tags_valid=np.pad(wf.tags_valid, (0, pad), constant_values=False))
+    if isinstance(wf, feat.SparseWindowFeatures):
+        return feat.SparseWindowFeatures(
+            tags_ids=np.pad(wf.tags_ids, rows, constant_values=-1),
+            text_ids=np.pad(wf.text_ids, rows, constant_values=-1),
+            text_cnt=np.pad(wf.text_cnt, rows), **common)
+    return feat.WindowFeatures(tags=np.pad(wf.tags, rows), text=np.pad(wf.text, rows),
+                               **common)
 
 
 class WindowPrefetcher:

@@ -57,6 +57,31 @@ def knn_adjacency(sim: torch.Tensor, valid: torch.Tensor, k: int,
     return adj.scatter_(1, idx, edge.float())
 
 
+def knn_adjacency_block(sim: torch.Tensor, row_valid: torch.Tensor,
+                        col_valid: torch.Tensor, k: int, row_offset: int,
+                        approx: bool = False, out_dtype=torch.float32) -> torch.Tensor:
+    """Rectangular (m, n) kNN adjacency for a row block of a larger matrix;
+    ``row_offset`` is the global index of local row 0 (self exclusion).
+
+    Same selection as :func:`knn_adjacency`: the k largest in IEEE total
+    order, lowest column first on ties.  ``approx=True`` (the JAX package's
+    ``lax.approx_max_k``, a TPU partial reduction) runs exactly here, as the
+    JAX package itself does off the TPU, so the JAX run on the CPU is the
+    parity target."""
+    del approx
+    m, n = sim.shape
+    k = max(0, min(k, n - 1))
+    adj = torch.zeros((m, n), dtype=out_dtype, device=sim.device)
+    if k == 0:
+        return adj
+    cols = torch.arange(n, device=sim.device)
+    is_self = (row_offset + torch.arange(m, device=sim.device))[:, None] == cols[None, :]
+    sim = torch.where(col_valid[None, :] & ~is_self, sim.float(), NEG)
+    idx = torch.sort(order_keys(sim), dim=1, descending=True, stable=True)[1][:, :k]
+    edge = (torch.gather(sim, 1, idx) > NEG / 2) & row_valid[:, None]
+    return adj.scatter_(1, idx, edge.to(out_dtype))
+
+
 # ---------------------------------------------------------------------------
 # modality similarity kernels
 # ---------------------------------------------------------------------------

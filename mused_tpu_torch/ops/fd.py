@@ -11,6 +11,8 @@ Shrinks:
   ``shrink_rr``     Rayleigh-Ritz: randomized subspace iteration with QR
                     orthonormalization and a small eigh; the engine's fold
   ``shrink_rr_pair`` shrink_rr on the implicit stack [sketch; rows]
+  ``shrink_rr_cands`` the same with the rows in candidate form (the
+                    huge-window fold; products through kernels K4 / K5)
 
 The randomized shrinks take an optional ``probe`` (m2, r) tensor.  Without
 it the probe is drawn from a ``torch.Generator`` seeded 7 on the tensor's
@@ -27,6 +29,8 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
+
+from mused_tpu_torch.ops.kernels import cand_matvec as cm
 
 PROBE_SEED = 7
 
@@ -148,6 +152,57 @@ def shrink_rr_pair(sketch: torch.Tensor, rows: torch.Tensor, ell: int, *,
     sq = torch.sum(sketch * sketch) + torch.sum(rows_f * rows_f)
     b, delta = _rr_finish(st(v), ell, sq)
     return b.to(sketch.dtype), delta.to(sketch.dtype)
+
+
+def shrink_rr_cands(sketch: torch.Tensor, cand, ell: int, *, oversample: int = 16,
+                    power_iters: int = 1, probe: torch.Tensor | None = None):
+    """shrink_rr_pair where the rows are a candidate-form block
+    (``ops/kernels/cand_matvec.CandBlock``): every product with the rows
+    runs off the int8 slabs (K4 / K5), the dense (block, n) block never
+    exists.  Returns (B' (ell, d), delta, edges), edges the exact fused edge
+    count (== ||rows||_F^2).
+
+    Precisions follow the JAX package: the power products only pick the
+    probe direction, so their row operands are bf16; the bound-carrying
+    y = S^T Q splits the rows' operand into bf16 [hi | lo] halves (one K4
+    launch, summed after), about 16 mantissa bits; the sketch's products
+    are fp32.  A block with no kept candidate and no valid uid row is an
+    exact FD no-op and skips everything (one host sync per block)."""
+    _check_power_iters(power_iters)
+    nonzero = torch.any(cand.slabs != -1)
+    if cand.uid_rows is not None:
+        nonzero = nonzero | torch.any(cand.uid_rows >= 0)
+    zero = torch.zeros((), dtype=torch.float32, device=sketch.device)
+    if not bool(nonzero):
+        return sketch, zero, zero
+    ellr = sketch.shape[0]
+    m2 = ellr + cand.block
+    r = min(ell + oversample, m2)
+    rp = -(-r // 128) * 128          # kernel operand padding, as the JAX package
+
+    def pad_rows(x, rows):
+        return torch.nn.functional.pad(x, (0, 0, 0, rows - x.shape[0]))
+
+    def at_rows(v_r):                # probe-precision rows^T v_r: (m, r) -> (d, r)
+        out_t, _ = cm.matvec_t(cand, pad_rows(v_r.T.to(torch.bfloat16), rp).contiguous())
+        return out_t[:r].T
+
+    def a_rows(y):                   # probe-precision rows @ y: (d, r) -> (m, r)
+        yb = torch.nn.functional.pad(y, (0, rp - r)).to(torch.bfloat16).contiguous()
+        return cm.matvec(cand, yb)[:, :r]
+
+    v = default_probe(m2, r, sketch.device) if probe is None else probe
+    for _ in range(power_iters):
+        y0 = sketch.T @ v[:ellr] + at_rows(v[ellr:])
+        v = torch.linalg.qr(torch.cat([sketch @ y0, a_rows(y0)], dim=0))[0]
+    v_r = v[ellr:]
+    v_hi = v_r.to(torch.bfloat16)
+    v_lo = (v_r - v_hi.float()).to(torch.bfloat16)
+    x_t = torch.cat([pad_rows(v_hi.T, rp), pad_rows(v_lo.T, rp)], dim=0).contiguous()
+    out_t, edges = cm.matvec_t(cand, x_t)
+    y = sketch.T @ v[:ellr] + (out_t[:r] + out_t[rp:rp + r]).T          # (d, r)
+    b, delta = _rr_finish(y, ell, torch.sum(sketch * sketch) + edges)
+    return b.to(sketch.dtype), delta.float(), edges.float()
 
 
 MODES = ("eigh", "subspace", "subspace_ns", "rr")

@@ -1,0 +1,325 @@
+"""Stride-binned kNN candidates: the hand-written Hopper kernels K2 / K3 and
+their plain versions.
+
+Replaces the TPU kernels ``mused_tpu/ops/pallas/blocked_select.py:
+binned_candidates_pallas`` (K2) and ``binned_candidates_pair_pallas`` (K3).
+The CUDA source is ``mused_tpu_torch/csrc/blocked_select.cu`` (its header
+note gives the design and what bounds it on an H100).
+
+For rows [start, start+block) of an n-column window, the similarity against
+every column is masked (invalid and self columns rank at -1e30) and
+max-accumulated into ``nbins`` residue bins: column c = g * nbins + slot
+lands in bin ``slot``, and the bin keeps the largest value and its group id
+``g``; on equal values the lowest group wins.  Only the (block, nbins)
+candidates leave the kernel, never the (block, n) similarity strip.
+
+Metrics and the operand types the kernels take:
+  dot      bf16 panels (pre-scaled / normalized text rows, embeddings)
+  jaccard  int8 count panels with hoisted f32 row sums (tags)
+  chord    bf16 panels with hoisted squared norms (generic ``default_safe``)
+  chord3   f32 unit-xyz panels, (n, >= 3) (location)
+  l1       f32 time panels, (n, >= 2)
+
+``binned_candidates`` / ``binned_candidates_pair`` launch the kernels for
+CUDA tensors and raise on anything they do not take; for tensors on the CPU
+they run :func:`binned_candidates_plain`, the same function in plain
+PyTorch (similarity strip, then :func:`binned_candidates_reference`).
+"""
+from __future__ import annotations
+
+import torch
+
+from mused_tpu_torch.ops.kernels import build
+
+NEG = -1e30
+METRICS = ("dot", "jaccard", "chord", "chord3", "l1")
+MMA_METRICS = ("dot", "jaccard", "chord")       # tensor-core tiles
+PAIR_METRICS = ("chord3", "l1")                 # coordinate metrics K3 pairs
+STAT_METRICS = ("jaccard", "chord")             # take hoisted row statistics
+_DTYPE = {"dot": torch.bfloat16, "chord": torch.bfloat16, "jaccard": torch.int8,
+          "chord3": torch.float32, "l1": torch.float32}
+_MIN_K = {"chord3": 3, "l1": 2}
+
+launches = 0        # K2 launches so far (plain-version calls not counted)
+pair_launches = 0   # K3 launches so far
+
+
+def reset_launches() -> None:
+    global launches, pair_launches
+    launches = pair_launches = 0
+
+
+# ---------------------------------------------------------------------------
+# plain versions
+# ---------------------------------------------------------------------------
+
+def _row_stats(metric, row_sums, start: int, block: int):
+    """(s_r (block, 1), s_c (1, n)) f32 hoisted statistics, or (None, None)."""
+    if metric not in STAT_METRICS:
+        return None, None
+    if row_sums is None:
+        raise ValueError(f"metric {metric!r} needs row_sums (hoisted column statistics)")
+    return (row_sums[start:start + block].float().reshape(block, 1),
+            row_sums.float().reshape(1, -1))
+
+
+def sim_strip(cols: torch.Tensor, rows: torch.Tensor, metric: str, s_r=None,
+              s_c=None) -> torch.Tensor:
+    """(block, n) f32 similarity of ``rows`` against ``cols`` (the kernel's
+    tile formula; the unfused sums of chord3 / l1 run in the JAX package's
+    order, so they agree bit for bit).  bf16 and int8 operands are upcast
+    to f32 before the product: bf16 products and small-int counts are exact
+    in f32, and torch's own bf16 product would round its result."""
+    if metric in ("dot", "chord", "jaccard"):
+        dot = rows.float() @ cols.float().T
+        if metric == "dot":
+            return dot
+        if metric == "jaccard":
+            return dot / torch.clamp(s_r + s_c - dot, min=1e-9)
+        return -torch.clamp(s_r + s_c - 2.0 * dot, min=0.0)
+    if metric in ("chord3", "l1"):
+        acc = None
+        for c in range(_MIN_K[metric]):
+            d = rows[:, c, None] - cols[None, :, c]
+            term = d * d if metric == "chord3" else torch.abs(d)
+            acc = term if acc is None else acc + term
+        return -acc
+    raise ValueError(f"unknown metric {metric!r}: expected one of {METRICS}")
+
+
+def binned_candidates_reference(sim: torch.Tensor, col_valid: torch.Tensor, start: int,
+                                nbins: int):
+    """Candidates of a materialized (block, n) similarity strip: mask, then
+    max / first-argmax over the groups of each residue bin.  Returns
+    (vals (block, nbins) f32, grp (block, nbins) int8)."""
+    block, n = sim.shape
+    cols = torch.arange(n, device=sim.device)
+    rows = start + torch.arange(block, device=sim.device)
+    keep = col_valid.to(torch.bool)[None, :] & (rows[:, None] != cols[None, :])
+    s = torch.where(keep, sim, NEG).reshape(block, n // nbins, nbins)
+    # torch.argmax returns the first maximal index: the lowest group wins
+    return torch.amax(s, dim=1), torch.argmax(s, dim=1).to(torch.int8)
+
+
+def binned_candidates_plain(cols, rows, col_valid, start: int, *, metric: str,
+                            nbins: int, block: int, row_sums=None):
+    """Plain PyTorch version of K2: similarity strip + reference binning."""
+    s_r, s_c = _row_stats(metric, row_sums, start, block)
+    return binned_candidates_reference(sim_strip(cols, rows, metric, s_r, s_c),
+                                       col_valid, start, nbins)
+
+
+# ---------------------------------------------------------------------------
+# kernel wrappers
+# ---------------------------------------------------------------------------
+
+def _check(cols, rows, col_valid, metric, nbins, block, row_sums) -> None:
+    if metric not in METRICS:
+        raise ValueError(f"unknown metric {metric!r}: expected one of {METRICS}")
+    want = _DTYPE[metric]
+    if cols.ndim != 2 or rows.ndim != 2 or cols.dtype != want or rows.dtype != want:
+        raise TypeError(f"{metric} takes 2-D {want} cols and rows, got cols "
+                        f"{cols.dtype} {tuple(cols.shape)}, rows {rows.dtype} "
+                        f"{tuple(rows.shape)}")
+    n, k = cols.shape
+    if rows.shape != (block, k):
+        raise ValueError(f"rows must be ({block}, {k}), got {tuple(rows.shape)}")
+    if k < _MIN_K.get(metric, 1):
+        raise ValueError(f"{metric} needs >= {_MIN_K[metric]} features, got {k}")
+    if col_valid.shape != (n,) or col_valid.dtype != torch.bool:
+        raise TypeError(f"col_valid must be a ({n},) bool tensor, got "
+                        f"{col_valid.dtype} {tuple(col_valid.shape)}")
+    if nbins <= 0 or n % nbins or n // nbins > 127:
+        raise ValueError(f"nbins={nbins} must divide n={n} into <= 127 groups "
+                         "(int8 group ids)")
+    tensors = [cols, rows, col_valid]
+    if metric in STAT_METRICS:
+        if row_sums is None or row_sums.shape != (n,) or row_sums.dtype != torch.float32:
+            raise TypeError(f"{metric} needs ({n},) float32 row_sums")
+        tensors.append(row_sums)
+    if any(t.device != cols.device for t in tensors):
+        raise ValueError("cols, rows, col_valid and row statistics must share a device")
+
+
+def _check_cuda(tensors, metric: str) -> None:
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("the kernel takes contiguous tensors")
+    if metric in MMA_METRICS:
+        kbytes = tensors[0].shape[1] * tensors[0].element_size()
+        if kbytes % 64 or any(t.data_ptr() % 16 for t in tensors[:2]):
+            raise ValueError(f"{metric} panels need a feature width of a multiple of "
+                             f"64 bytes and 16-byte aligned rows (pad to 128 "
+                             f"features: pad_features_128), got {kbytes} bytes")
+
+
+def _stats_for_kernel(metric, row_sums, start, block, device):
+    if metric not in STAT_METRICS:
+        dummy = torch.zeros(1, dtype=torch.float32, device=device)
+        return dummy, dummy
+    return row_sums[start:start + block].contiguous(), row_sums.contiguous()
+
+
+def binned_candidates(cols: torch.Tensor, rows: torch.Tensor, col_valid: torch.Tensor,
+                      start: int, *, metric: str, nbins: int, block: int,
+                      row_sums: torch.Tensor | None = None):
+    """Stride-binned kNN candidates for rows [start, start+block) (K2).
+
+    cols: (n, K) column panel; rows: (block, K) the row slice; col_valid:
+    (n,) bool; ``rows`` is the slice [start, start+block) of ``cols``.
+    ``row_sums`` are the (n,) hoisted statistics of jaccard / chord (token
+    sums, squared norms); the row side is their slice.  (The JAX package's
+    ``row_stats``, for column-sharded callers, comes with the multi-device
+    layouts.)  Returns (vals (block, nbins) f32, grp (block,
+    nbins) int8); global column = grp * nbins + slot.  CUDA tensors run the
+    kernel, CPU tensors the plain version."""
+    start = int(start)
+    _check(cols, rows, col_valid, metric, nbins, block, row_sums)
+    if cols.device.type == "cpu":
+        return binned_candidates_plain(cols, rows, col_valid, start, metric=metric,
+                                       nbins=nbins, block=block, row_sums=row_sums)
+    if cols.device.type != "cuda":
+        raise ValueError(f"binned_candidates runs on cuda or cpu tensors, not {cols.device}")
+    s_r, s_c = _stats_for_kernel(metric, row_sums, start, block, cols.device)
+    _check_cuda([cols, rows, col_valid, s_r, s_c], metric)
+    n, k = cols.shape
+    vals = torch.empty((block, nbins), dtype=torch.float32, device=cols.device)
+    grp = torch.empty((block, nbins), dtype=torch.int8, device=cols.device)
+    lib = build.load()
+    with torch.cuda.device(cols.device):
+        stream = torch.cuda.current_stream(cols.device).cuda_stream
+        code = lib.mused_binned_candidates(
+            cols.data_ptr(), rows.data_ptr(), col_valid.data_ptr(), s_r.data_ptr(),
+            s_c.data_ptr(), vals.data_ptr(), grp.data_ptr(), n, block, k, nbins, start,
+            METRICS.index(metric), stream)
+    build.check(code, f"binned_candidates[{metric}] n={n} block={block} K={k} "
+                      f"nbins={nbins}")
+    global launches
+    launches += 1
+    return vals, grp
+
+
+def binned_candidates_pair(colsA, colsB, rowsA, rowsB, colvA, colvB, start: int, *,
+                           metricA: str, metricB: str, nbins: int, block: int):
+    """Candidates of TWO coordinate metrics over the same rows in one launch
+    (K3; the production pair is location chord3 + time l1).  Returns
+    (valsA, grpA, valsB, grpB), each pair identical to a
+    :func:`binned_candidates` call on its own operands."""
+    start = int(start)
+    for m in (metricA, metricB):
+        if m not in PAIR_METRICS:
+            raise ValueError(f"the pair kernel takes metrics {PAIR_METRICS}, got {m!r}")
+    _check(colsA, rowsA, colvA, metricA, nbins, block, None)
+    _check(colsB, rowsB, colvB, metricB, nbins, block, None)
+    if colsA.shape[0] != colsB.shape[0] or colsA.device != colsB.device:
+        raise ValueError("the pair's panels need the same rows and device, got "
+                         f"{tuple(colsA.shape)} on {colsA.device} and "
+                         f"{tuple(colsB.shape)} on {colsB.device}")
+    if colsA.device.type == "cpu":
+        return (*binned_candidates_plain(colsA, rowsA, colvA, start, metric=metricA,
+                                         nbins=nbins, block=block),
+                *binned_candidates_plain(colsB, rowsB, colvB, start, metric=metricB,
+                                         nbins=nbins, block=block))
+    if colsA.device.type != "cuda":
+        raise ValueError(f"binned_candidates_pair runs on cuda or cpu tensors, "
+                         f"not {colsA.device}")
+    _check_cuda([colsA, rowsA, colvA, colsB, rowsB, colvB], metricA)
+    n = colsA.shape[0]
+    dev = colsA.device
+    outs = [torch.empty((block, nbins), dtype=dt, device=dev)
+            for dt in (torch.float32, torch.int8, torch.float32, torch.int8)]
+    lib = build.load()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        code = lib.mused_binned_candidates_pair(
+            colsA.data_ptr(), rowsA.data_ptr(), colvA.data_ptr(), colsA.shape[1],
+            METRICS.index(metricA), colsB.data_ptr(), rowsB.data_ptr(), colvB.data_ptr(),
+            colsB.shape[1], METRICS.index(metricB), *(o.data_ptr() for o in outs),
+            n, block, nbins, start, stream)
+    build.check(code, f"binned_candidates_pair[{metricA},{metricB}] n={n} "
+                      f"block={block} nbins={nbins}")
+    global pair_launches
+    pair_launches += 1
+    return tuple(outs)
+
+
+# ---------------------------------------------------------------------------
+# candidates -> adjacency, and sizing
+# ---------------------------------------------------------------------------
+
+def budgeted_keep(vals: torch.Tensor, row_valid: torch.Tensor, k: int) -> torch.Tensor:
+    """Exact-k candidate mask: the k-th candidate value thresholds the bins,
+    and ties at the threshold are admitted in slot order up to the
+    remaining budget (at nbins == n this is lax.top_k's lowest-index rule).
+    Only the top-k VALUES are read, so torch.topk's tie order is moot."""
+    kk = min(k, vals.shape[1])
+    thr = torch.topk(vals, kk, dim=1).values[:, -1:]
+    real = vals > NEG / 2
+    above = (vals > thr) & real
+    tie = (vals == thr) & real
+    budget = kk - torch.sum(above, dim=1, keepdim=True, dtype=torch.int32)
+    order = torch.cumsum(tie.to(torch.int32), dim=1)
+    keep = above | (tie & (order <= budget))
+    return keep & row_valid[:, None]
+
+
+def adjacency_from_candidates(keeps, grps, n: int) -> torch.Tensor:
+    """(block, n) bool adjacency from per-modality candidate masks: candidate
+    (r, slot) of group g IS column g * nbins + slot, so the union is one
+    broadcast over (block, groups, nbins), no scatter."""
+    block, nbins = keeps[0].shape
+    gids = torch.arange(n // nbins, dtype=torch.int8, device=keeps[0].device)
+    adj = None
+    for keep, grp in zip(keeps, grps):
+        m = keep[:, None, :] & (grp[:, None, :] == gids[None, :, None])
+        adj = m if adj is None else adj | m
+    return adj.reshape(block, n)
+
+
+def pad_features_128(x: torch.Tensor) -> torch.Tensor:
+    """Pad the feature axis to a multiple of 128 with zeros (they vanish in
+    dot / chord)."""
+    pad = (-x.shape[1]) % 128
+    return x if pad == 0 else torch.nn.functional.pad(x, (0, pad))
+
+
+def resolve_select(cfg, n: int, device) -> tuple[str, int]:
+    """(select, nbins) for an n-column blocked sweep from
+    ``cfg.huge_window_fused_select``: None = binned on a CUDA device, strip
+    elsewhere (the plain binning saves nothing on a CPU); True / False force
+    the binned / strip route."""
+    fuse_sel = cfg.huge_window_fused_select
+    if fuse_sel is None:
+        fuse_sel = torch.device(device).type == "cuda"
+    nbins = default_nbins(n, k_max=3 * cfg.k_basis) if fuse_sel else 0
+    return ("binned" if nbins else "strip"), nbins
+
+
+def pick_tn(n: int, nbins: int) -> int:
+    """Column-tile width dividing both nbins and n (the JAX package's rule;
+    the binned route's eligibility follows from it)."""
+    for tn in (512, 256, 128):
+        if nbins % tn == 0 and n % tn == 0:
+            return tn
+    return nbins
+
+
+def default_nbins(n: int, tn: int = 512, target_reduction: int = 64,
+                  k_max: int = 0) -> int:
+    """nbins = n / g with g | (n // tn), g <= target_reduction, and at least
+    ~8 * k_max bins when feasible (0: n % tn, the strip route).  1536 at
+    n = 98,304 with k_max = 150."""
+    if n % tn != 0:
+        return 0
+    groups = n // tn
+    g = 1
+    for cand in range(min(target_reduction, groups), 0, -1):
+        if groups % cand == 0:
+            g = cand
+            break
+    nbins = n // g
+    while k_max and nbins < 8 * k_max and g > 1:
+        g //= 2
+        while groups % g != 0:
+            g -= 1
+        nbins = n // g
+    return nbins

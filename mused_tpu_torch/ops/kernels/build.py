@@ -1,6 +1,7 @@
 """Build and load the port's CUDA kernels (``mused_tpu_torch/csrc/*.cu``).
 
-Route: ``nvcc`` compiles every source into one shared library with a plain C
+Route: ``nvcc`` compiles every source into an object file, all sources at
+once in parallel, and links them into one shared library with a plain C
 interface, loaded with ``ctypes``.  Nothing includes PyTorch's headers, so a
 build takes seconds rather than the minutes a ``torch.utils.cpp_extension``
 build of the same kernels costs.  The library lands in ``_build/`` beside
@@ -26,8 +27,7 @@ _PKG = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
-NVCC_FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-                           "-Xptxas", "-v"]
+NVCC_FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _lock = threading.Lock()
 _lib = None
@@ -64,14 +64,34 @@ def library_path() -> str:
 def _build(path: str) -> None:
     global build_seconds, build_log
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{path}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *_sources()]
+    nvcc, tmp = _nvcc(), f"{path}.{os.getpid()}.tmp"
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    jobs = []
+    for src in _sources():
+        obj = f"{tmp}.{os.path.basename(src)}.o"
+        jobs.append((src, obj, subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-c", "-o", obj, src], stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True)))
+    logs, failed = [], []
+    for src, _, proc in jobs:
+        out = proc.communicate()[0]
+        logs.append(f"== {os.path.basename(src)}\n{out}")
+        if proc.returncode != 0:
+            failed.append(os.path.basename(src))
+    if not failed:
+        link = subprocess.run([nvcc, *ARCH_FLAGS, "-shared", "-o", tmp,
+                               *(obj for _, obj, _ in jobs)],
+                              capture_output=True, text=True)
+        logs.append(f"== link\n{link.stdout}{link.stderr}")
+        if link.returncode != 0:
+            failed.append("link")
+    for _, obj, _ in jobs:
+        if os.path.exists(obj):
+            os.remove(obj)
     build_seconds = time.perf_counter() - t0
-    build_log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{build_log}")
+    build_log = "\n".join(logs)
+    if failed:
+        raise RuntimeError(f"nvcc failed ({', '.join(failed)}):\n{build_log}")
     with open(path + ".log", "w") as f:
         f.write(build_log)
     os.replace(tmp, path)   # atomic: a concurrent loader never sees half a file
@@ -83,6 +103,17 @@ def _configure(lib) -> None:
     lib.mused_knn_adjacency.restype = i
     lib.mused_knn_rows_per_block.argtypes = [i]
     lib.mused_knn_rows_per_block.restype = i
+    lib.mused_binned_candidates.argtypes = [p] * 7 + [i] * 6 + [p]
+    lib.mused_binned_candidates.restype = i
+    lib.mused_binned_candidates_pair.argtypes = ([p, p, p, i, i] * 2 + [p] * 4
+                                                 + [i] * 4 + [p])
+    lib.mused_binned_candidates_pair.restype = i
+    lib.mused_cand_matvec_splits.argtypes = [i, i, i]
+    lib.mused_cand_matvec_splits.restype = i
+    lib.mused_cand_matvec_t.argtypes = [p, p, p] + [i] * 6 + [p, i, p, p, p]
+    lib.mused_cand_matvec_t.restype = i
+    lib.mused_cand_matvec.argtypes = [p, p, p] + [i] * 6 + [p, i, p, p, i, p]
+    lib.mused_cand_matvec.restype = i
     lib.mused_cuda_error_string.argtypes = [i]
     lib.mused_cuda_error_string.restype = ctypes.c_char_p
 

@@ -1,9 +1,15 @@
-"""Carry stream state across from the JAX package.
+"""Carry state across from the JAX package.
 
-``stream_state_from_jax`` takes a ``mused_tpu`` ``StreamState`` whose leaves
-were pulled to numpy (``jax.tree_util.tree_map(np.asarray, state)``) and
-builds the port's ``StreamState`` on ``device``, so a stream started in the
-JAX package continues here.  It reads fields by name and never imports JAX.
+Each function takes a ``mused_tpu`` structure whose leaves were pulled to
+numpy (``jax.tree_util.tree_map(np.asarray, x)``) and builds the port's
+counterpart on ``device``.  They read fields by name and never import JAX:
+
+  stream_state_from_jax  ``StreamState``: a stream continues here
+  columns_from_jax       huge-window ``blocked_affinity.Columns``
+  cand_block_from_jax    a candidate-form block, ``cand_matvec.CandBlock``
+
+JAX bf16 leaves arrive as ``ml_dtypes.bfloat16`` arrays, which
+``torch.from_numpy`` refuses; they cross as their uint16 bits.
 """
 from __future__ import annotations
 
@@ -11,11 +17,34 @@ import numpy as np
 import torch
 
 from mused_tpu_torch.engine.streaming import StreamState
-from mused_tpu_torch.ops import fd, kmeans, swfd
+from mused_tpu_torch.ops import blocked_affinity as ba, fd, kmeans, swfd
+from mused_tpu_torch.ops.kernels import cand_matvec as cm
 
 
 def _t(a, device) -> torch.Tensor:
-    return torch.from_numpy(np.array(a)).to(device)
+    a = np.array(a)
+    if a.dtype.name == "bfloat16":       # ml_dtypes: cross as the raw bits
+        return torch.from_numpy(a.view(np.uint16).view(np.int16)).view(
+            torch.bfloat16).to(device)
+    return torch.from_numpy(a).to(device)
+
+
+def columns_from_jax(cols, device) -> ba.Columns:
+    """JAX ``blocked_affinity.Columns`` (numpy leaves) -> the port's."""
+    def leaf(x):
+        return tuple(_t(y, device) for y in x) if isinstance(x, tuple) else _t(x, device)
+    return ba.Columns(kinds=tuple(str(k) for k in cols.kinds),
+                      tensors=tuple(leaf(x) for x in cols.tensors),
+                      valids=tuple(_t(v, device) for v in cols.valids),
+                      idf=None if cols.idf is None else _t(cols.idf, device))
+
+
+def cand_block_from_jax(cand, device) -> cm.CandBlock:
+    """JAX ``cand_matvec.CandBlock`` (numpy leaves) -> the port's."""
+    return cm.CandBlock(
+        slabs=_t(cand.slabs, device),
+        uid_rows=None if cand.uid_rows is None else _t(cand.uid_rows, device),
+        uid_cols=_t(cand.uid_cols, device), start=int(cand.start), g0=int(cand.g0))
 
 
 def stream_state_from_jax(tree_of_numpy, device) -> StreamState:

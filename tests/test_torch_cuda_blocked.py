@@ -1,0 +1,162 @@
+"""The huge-window kernels K2-K5 against their plain versions on a CUDA device.
+
+Every test here needs a card and skips without one.  The file imports no
+JAX, so it runs on a machine without it; there, skip the JAX conftest:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda_blocked.py
+
+Tolerances: bit-equal.  Operands are multiples of 1/4 (dot, chord, K4, K5)
+or 0/1 counts (jaccard), whose f32 sums are exact in any order, and chord3 /
+l1 run unfused in the plain version's order.  Random unit rows (dot) are
+held to f32 reassociation: |error| <= 1e-5 on values in [-1, 1].
+"""
+import pytest
+import torch
+
+from mused_tpu_torch.ops.kernels import blocked_select as bs
+from mused_tpu_torch.ops.kernels import cand_matvec as cm
+
+# (n, nbins, block, start, K): an aligned case and a ragged one
+SHAPES = [(1024, 256, 256, 256, 128), (960, 320, 200, 100, 192)]
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA device: the hand-written kernels run only on the card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _operands(metric, n, k, device, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    if metric == "jaccard":
+        x = (torch.rand((n, k), generator=g) < 0.08).to(torch.int8)
+        return x.to(device), x.float().sum(1).to(device)
+    if metric in ("dot", "chord"):
+        x = (torch.randint(-3, 4, (n, k), generator=g) / 4).to(torch.bfloat16)
+        sq = x.float().pow(2).sum(1).to(device) if metric == "chord" else None
+        return x.to(device), sq
+    cols = 3 if metric == "chord3" else 2
+    x = torch.rand((n, cols), generator=g) * 100
+    x[5] = x[5 + n // 2]                     # equal values in two groups
+    return x.to(device), None
+
+
+def _valid(n, device):
+    v = torch.rand(n, generator=torch.Generator().manual_seed(1)) > 0.1
+    return v.to(device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("metric", ["jaccard", "dot", "chord", "chord3", "l1"])
+def test_k2_matches_plain_on_cuda(metric, shape, cuda):
+    n, nbins, block, start, k = shape
+    x, sums = _operands(metric, n, k if metric in bs.MMA_METRICS else 0, cuda)
+    valid = _valid(n, cuda)
+    rows = x[start:start + block]
+    before = bs.launches
+    got = bs.binned_candidates(x, rows, valid, start, metric=metric, nbins=nbins,
+                               block=block, row_sums=sums)
+    want = bs.binned_candidates_plain(x, rows, valid, start, metric=metric, nbins=nbins,
+                                      block=block, row_sums=sums)
+    torch.cuda.synchronize()
+    assert bs.launches == before + 1
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.cuda
+def test_k2_dot_on_random_unit_rows(cuda):
+    n, nbins, block, start = 1024, 256, 256, 512
+    x = torch.randn((n, 256), generator=torch.Generator().manual_seed(2))
+    x = (x / x.norm(dim=1, keepdim=True)).to(torch.bfloat16).to(cuda)
+    valid = _valid(n, cuda)
+    got = bs.binned_candidates(x, x[start:start + block], valid, start, metric="dot",
+                               nbins=nbins, block=block)
+    want = bs.binned_candidates_plain(x, x[start:start + block], valid, start,
+                                      metric="dot", nbins=nbins, block=block)
+    assert (got[0] - want[0]).abs().max().item() <= 1e-5
+    assert (got[1] == want[1]).float().mean().item() >= 0.99
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", SHAPES)
+def test_k3_equals_two_k2_launches(shape, cuda):
+    n, nbins, block, start, _ = shape
+    xyz, _ = _operands("chord3", n, 0, cuda, seed=3)
+    tim, _ = _operands("l1", n, 0, cuda, seed=4)
+    va, vb = _valid(n, cuda), _valid(n, cuda).roll(7)
+    rows = slice(start, start + block)
+    before = bs.pair_launches
+    pair = bs.binned_candidates_pair(xyz, tim, xyz[rows], tim[rows], va, vb, start,
+                                     metricA="chord3", metricB="l1", nbins=nbins,
+                                     block=block)
+    singles = (*bs.binned_candidates(xyz, xyz[rows], va, start, metric="chord3",
+                                     nbins=nbins, block=block),
+               *bs.binned_candidates(tim, tim[rows], vb, start, metric="l1",
+                                     nbins=nbins, block=block))
+    torch.cuda.synchronize()
+    assert bs.pair_launches == before + 1
+    for p, s in zip(pair, singles):
+        assert torch.equal(p, s)
+
+
+def _cand(device, block, nbins, groups, n_mod=4, with_user=True, seed=5):
+    g = torch.Generator().manual_seed(seed)
+    slabs = torch.randint(-1, groups, (n_mod, block, nbins), generator=g).to(torch.int8)
+    slabs[torch.rand(slabs.shape, generator=g) < 0.7] = -1
+    uid_r = (torch.randint(-1, 9, (block, 1), generator=g).to(torch.int32)
+             if with_user else None)
+    uid_c = (torch.randint(-2, 9, (groups, nbins), generator=g) if with_user
+             else torch.full((groups, nbins), -2)).to(torch.int32)
+    return cm.CandBlock(slabs.to(device), None if uid_r is None else uid_r.to(device),
+                        uid_c.to(device), start=nbins // 2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_user", [True, False])
+@pytest.mark.parametrize("dims", [(256, 256, 4, 128), (200, 320, 3, 100), (128, 128, 40, 256)])
+def test_k4_k5_match_plain_on_cuda(dims, with_user, cuda):
+    block, nbins, groups, r = dims
+    cand = _cand(cuda, block, nbins, groups, with_user=with_user)
+    g = torch.Generator().manual_seed(6)
+    x_t = torch.randint(-4, 5, (r, block), generator=g).to(torch.bfloat16).to(cuda)
+    y = torch.randint(-4, 5, (groups * nbins, r), generator=g).to(torch.bfloat16).to(cuda)
+    before = (cm.launches_t, cm.launches)
+    out_t, edges = cm.matvec_t(cand, x_t)
+    out = cm.matvec(cand, y)
+    want_t, want_edges = cm.matvec_t_reference(cand, x_t)
+    want = cm.matvec_reference(cand, y)
+    torch.cuda.synchronize()
+    assert (cm.launches_t, cm.launches) == (before[0] + 1, before[1] + 1)
+    assert torch.equal(out_t, want_t) and torch.equal(out, want)
+    assert edges.item() == want_edges.item() == cm.dense_rows_reference(cand).sum().item()
+
+
+@pytest.mark.cuda
+def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
+    x = torch.zeros((256, 128), dtype=torch.bfloat16, device=cuda)
+    v = torch.ones(256, dtype=torch.bool, device=cuda)
+    kw = dict(metric="dot", nbins=64, block=64)
+    with pytest.raises(TypeError):                    # dtype
+        bs.binned_candidates(x.float(), x[:64].float(), v, 0, **kw)
+    with pytest.raises(ValueError):                   # device
+        bs.binned_candidates(x, x[:64], v.cpu(), 0, **kw)
+    with pytest.raises(ValueError):                   # shape
+        bs.binned_candidates(x, x[:32], v, 0, **kw)
+    with pytest.raises(ValueError):                   # contiguity
+        wide = torch.zeros((256, 256), dtype=torch.bfloat16, device=cuda)
+        bs.binned_candidates(wide[:, :128], wide[:64, :128], v, 0, **kw)
+    with pytest.raises(ValueError):                   # feature width not 64 bytes
+        odd = torch.zeros((256, 40), dtype=torch.bfloat16, device=cuda)
+        bs.binned_candidates(odd, odd[:64], v, 0, **kw)
+    cand = _cand(cuda, 64, 64, 4)
+    with pytest.raises(TypeError):                    # dtype
+        cm.matvec_t(cand, torch.zeros((128, 64), device=cuda))
+    with pytest.raises(ValueError):                   # device
+        cm.matvec_t(cand, torch.zeros((128, 64), dtype=torch.bfloat16))
+    with pytest.raises(ValueError):                   # shape
+        cm.matvec(cand, torch.zeros((100, 128), dtype=torch.bfloat16, device=cuda))
+    with pytest.raises(ValueError):                   # contiguity
+        cm.matvec(cand, torch.zeros((128, 256), dtype=torch.bfloat16, device=cuda).T)

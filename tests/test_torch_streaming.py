@@ -9,7 +9,10 @@ reduced_dim 8:
     the frameworks (see the test);
   * with the JAX side's random draws injected (FD probe, SVD test matrix,
     k-means++ init), the stream's NMI is within 0.05 of the JAX package's,
-    for SWFDMC and sSVDMC.
+    for SWFDMC and sSVDMC;
+  * on the huge-window blocked path (forced at window 512, binned
+    candidates), with the same draws injected, NMI is within 0.02 of the JAX
+    engine for SWFDMC (candidate-native fold) and sSVDMC (blocked SVD).
 """
 import contextlib
 import io
@@ -30,6 +33,8 @@ from mused_tpu_torch.data import synthetic as tsyn
 from mused_tpu_torch.data.ingest import WindowPrefetcher, to_device
 from mused_tpu_torch.engine import streaming as ts
 from mused_tpu_torch.ops.kernels import affinity_kernel as ak
+from mused_tpu_torch.ops.kernels import blocked_select as tbs
+from mused_tpu_torch.ops.kernels import cand_matvec as tcm
 from mused_tpu_torch.utils.profiling import SpanTimer
 from torch_parity import inject_jax_draws, n, synthetic_window_stream
 
@@ -103,15 +108,116 @@ def test_other_slice_approaches_run(approach, stream):
     assert all(np.isfinite(v) and 0.0 <= v <= 1.0 for v in vals)
 
 
+HUGE = dict(window_size=512, reduced_dim=8, k_basis=3, n_clusters_total=2, seed=0,
+            step_window_ratio=1, noise_rate=0.5, label_mode="binary", sorting=True,
+            eps=1.5, min_samples=2)
+
+
+@pytest.fixture(scope="module")
+def huge_stream():
+    return synthetic_window_stream(n_rows=1200, subset=1024, seed=0)
+
+
+@pytest.mark.parametrize("approach", ["SWFDMC", "sSVDMC"])
+def test_huge_window_nmi_matches_jax(approach, huge_stream, monkeypatch):
+    mods, mtypes, labels = huge_stream
+    cfg = PipelineConfig(window_size=512, k_basis=3, reduced_dim=8, approach=approach,
+                         n_clusters_override=2, subset_size=1024, seed=0,
+                         force_blocked_window=True, huge_window_fused_select=True,
+                         huge_window_cand_fold=True if approach == "SWFDMC" else None)
+    runs = {}
+    for name, api, extra in (("jax", japi, {}), ("port", tapi, {"device": "cpu"})):
+        if name == "port":
+            inject_jax_draws(monkeypatch)
+        with contextlib.redirect_stdout(io.StringIO()):
+            runs[name] = api.process_streaming_data(
+                results=api.get_initial_results()[0], data_modalities=mods,
+                modality_types=mtypes, approach=approach, complete_true_labels=labels,
+                cfg=cfg, **HUGE, **extra)
+    launches = (tbs.launches, tbs.pair_launches, tcm.launches_t, tcm.launches)
+    for key in ("nmi_score", "f1_score"):
+        assert abs(runs["port"][key][0] - runs["jax"][key][0]) <= 0.02
+    assert launches == (tbs.launches, tbs.pair_launches, tcm.launches_t, tcm.launches)
+
+
+def _generic_stream(rows=1024, seed=0):
+    """Numeric modalities with 4 planted clusters: location, time, a 40-wide
+    embedding and a 7-wide default panel (some rows invalid in each)."""
+    rng = np.random.default_rng(seed)
+    labels = rng.integers(0, 4, rows)
+    centre = rng.normal(size=(4, 40)) * 3
+    emb = centre[labels] + rng.normal(size=(rows, 40))
+    loc = np.stack([40 + labels + rng.normal(0, 0.3, rows),
+                    2 + labels + rng.normal(0, 0.3, rows)], 1)
+    tim = np.stack([1e4 * labels + rng.normal(0, 900, rows) + 1e5,
+                    1e4 * labels + rng.normal(0, 900, rows) + 1e5], 1)
+    dft = centre[labels, :7] + rng.normal(size=(rows, 7))
+    loc[::17] = np.nan
+    tim[::23, 0] = 0.0
+    dft[::29, 3] = np.inf
+    return [loc, tim, emb, dft], ["location", "time", "embedding", "default"], labels
+
+
+@pytest.mark.parametrize("approach", ["SWFDMC", "sSVDMC"])
+def test_huge_window_generic_stream_matches_jax(approach, monkeypatch):
+    mods, mtypes, labels = _generic_stream()
+    cfg = PipelineConfig(window_size=512, k_basis=3, reduced_dim=8, approach=approach,
+                         n_clusters_override=4, subset_size=1024, seed=0,
+                         force_blocked_window=True, huge_window_fused_select=True,
+                         huge_window_cand_fold=True if approach == "SWFDMC" else None)
+    kw = dict(HUGE, n_clusters_total=4, label_mode="all")
+    runs = {}
+    for name, api, extra in (("jax", japi, {}), ("port", tapi, {"device": "cpu"})):
+        if name == "port":
+            inject_jax_draws(monkeypatch)
+        with contextlib.redirect_stdout(io.StringIO()):
+            runs[name] = api.process_streaming_data(
+                results=api.get_initial_results()[0], data_modalities=mods,
+                modality_types=mtypes, approach=approach, complete_true_labels=labels,
+                cfg=cfg, **kw, **extra)
+    for key in ("nmi_score", "f1_score"):
+        assert abs(runs["port"][key][0] - runs["jax"][key][0]) <= 0.02
+
+
+def test_huge_window_minibatch_runs(huge_stream):
+    mods, mtypes, labels = huge_stream
+    cfg = PipelineConfig(window_size=512, k_basis=3, reduced_dim=8, approach="sSVDMC_mini",
+                         n_clusters_override=2, subset_size=1024, seed=0,
+                         force_blocked_window=True, huge_window_fused_select=True)
+    with contextlib.redirect_stdout(io.StringIO()):
+        res = tapi.process_streaming_data(
+            results=tapi.get_initial_results()[0], data_modalities=mods,
+            modality_types=mtypes, approach="sSVDMC_mini", complete_true_labels=labels,
+            cfg=cfg, device="cpu", **HUGE)
+    vals = [res[k][0] for k in ("nmi_score", "f1_score", "f1_aligned")]
+    assert all(np.isfinite(v) and 0.0 <= v <= 1.0 for v in vals)
+
+
+def test_huge_window_engine_layout():
+    eng = ts.StreamingEngine(PipelineConfig(window_size=40_000, approach="SWFDMC"), "cpu")
+    assert eng.huge and (eng.block, eng.pad) == (2048, 960)
+    assert eng.state.swfd.blocks.shape[-1] == 1          # no ring for the huge fold
+    dense = ts.StreamingEngine(PipelineConfig(window_size=3000), "cpu")
+    assert not dense.huge and dense.pad == 0
+    mods, mtypes, _ = tsyn.make_stream(300, noise_rate=0.5, seed=1)
+    small = ts.StreamingEngine(PipelineConfig(window_size=300, force_blocked_window=True),
+                               "cpu")
+    assert small.featurize(mods, mtypes).location.shape == (300, 2)
+    eng.pad = 20
+    assert eng.featurize(mods, mtypes).location.shape == (320, 2)
+
+
 def test_engine_refuses_what_the_slice_does_not_run():
     cfg = PipelineConfig(window_size=64)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             ts.StreamingEngine(cfg, "cuda")
     for bad in [dict(approach="sSpectral"), dict(approach="DBSCAN_incr"),
-                dict(window_size=40_000), dict(data_shards=2),
-                dict(matching="centroid"), dict(background_bucket=True),
-                dict(windows_per_batch=4)]:
+                dict(window_size=40_000, approach="sSpectral"),
+                dict(force_blocked_window=True, approach="DBSCAN_centr"),
+                dict(force_blocked_window=True, huge_window_layout="columns"),
+                dict(data_shards=2), dict(matching="centroid"),
+                dict(background_bucket=True), dict(windows_per_batch=4)]:
         with pytest.raises(NotImplementedError):
             ts.StreamingEngine(cfg.replace(**bad), "cpu")
     with pytest.raises(NotImplementedError, match="slice 2"):
@@ -166,6 +272,9 @@ def test_neither_jax_nor_pandas_is_imported():
     code = ("import sys; sys.path.insert(0, %r); import mused_tpu_torch.api; "
             "import chip_smoke; import mused_tpu_torch.utils.convert; "
             "import mused_tpu_torch.data.synthetic; "
+            "import mused_tpu_torch.ops.blocked_affinity; "
+            "import mused_tpu_torch.ops.kernels.blocked_select; "
+            "import mused_tpu_torch.ops.kernels.cand_matvec; "
             "print([m for m in sys.modules if m.split('.')[0] in ('jax', 'pandas')])"
             % REPO)
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,

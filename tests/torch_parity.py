@@ -33,15 +33,17 @@ def jax_probe(m2: int, r: int) -> np.ndarray:
 
 def inject_jax_draws(monkeypatch) -> None:
     """Make the port's streaming engine draw the JAX engine's random numbers:
-    the FD probe (key 7), and per window w the randomized-SVD test matrix and
-    the k-means++ init from ``fold_in(key(seed), w)``."""
+    the FD probe (key 7), and per window w the randomized-SVD test matrix
+    (dense or blocked) and the k-means++ init from ``fold_in(key(seed), w)``."""
     from mused_tpu.ops import kmeans as jkmeans
     from mused_tpu_torch.engine import streaming as ts
+    from mused_tpu_torch.ops import blocked_affinity as tba
     from mused_tpu_torch.ops import fd as tfd
 
     current = {}
     orig_gen, orig_svd, orig_kmeans = ts.window_generator, ts.reduction.svd_reduce, \
         ts.kmeans.kmeans
+    orig_blocked_svd = tba.randomized_svd_from_products
 
     def window_generator(seed, window_index, device):
         current["key"] = jax.random.fold_in(jax.random.key(seed), window_index)
@@ -53,6 +55,14 @@ def inject_jax_draws(monkeypatch) -> None:
         omega = jax.random.normal(current["key"], (d, k), jnp.float32)
         return orig_svd(matrix, reduced_dim, generator, omega=t(omega))
 
+    def blocked_svd(mul_a, mul_at, generator, *, n, rank, oversample=8, n_iter=2,
+                    device=None, omega=None):
+        omega = jax.random.normal(current["key"], (n, min(rank + oversample, n)),
+                                  jnp.float32)
+        return orig_blocked_svd(mul_a, mul_at, generator, n=n, rank=rank,
+                                oversample=oversample, n_iter=n_iter, device=device,
+                                omega=t(omega).to(device))
+
     def kmeans(x, k, generator=None, *, k_max, **kw):
         init = jkmeans._kmeanspp_init(jnp.asarray(n(x), jnp.float32), k_max,
                                       jnp.int32(int(k)), current["key"])
@@ -62,6 +72,7 @@ def inject_jax_draws(monkeypatch) -> None:
                         lambda m2, r, device: t(jax_probe(m2, r)).to(device))
     monkeypatch.setattr(ts, "window_generator", window_generator)
     monkeypatch.setattr(ts.reduction, "svd_reduce", svd_reduce)
+    monkeypatch.setattr(tba, "randomized_svd_from_products", blocked_svd)
     monkeypatch.setattr(ts.kmeans, "kmeans", kmeans)
 
 
