@@ -5,14 +5,18 @@
 
 Phases (any failure exits non-zero; no phase is skipped):
   (a) a CUDA device is present; print ``nvidia-smi`` name and power limit;
-      build the kNN-adjacency kernel from ``mused_tpu_torch/csrc`` and print
-      the build seconds and ptxas' register / shared-memory report;
-  (b) the kernel against its plain PyTorch version on the card, per metric at
-      the main path's shapes (window 2000, k_basis 50; first window of the
+      build the kernels from ``mused_tpu_torch/csrc`` and print the build
+      seconds and ptxas' register / shared-memory report per kernel, and the
+      dynamic shared memory of K1's kernels at window 2000;
+  (b) K1 against its plain PyTorch version on the card, per metric at the
+      main path's shapes (window 2000, k_basis 50; first window of the
       stream for location / time / tags / text, random rows for euclidean),
-      plus 40 duplicate rows and a 200 m-spaced city-scale location cluster:
-      l1 and jaccard bit-equal, dot / chord3 / euclidean >= 99.9% of edges
-      with every row's degree identical; times of both;
+      plus 40 duplicate rows, a 200 m-spaced city-scale location cluster,
+      dense random unit rows at d = 4096 (no zero steps to skip), text in
+      512-row chunks and text with bf16 operands: l1, jaccard and
+      chord3 bit-equal, dot and euclidean >= 99.9% of edges with every
+      row's degree identical; each case's route (tensor-core or
+      coordinate), mismatched entries and the times of both;
   (c) ``api.process_streaming_data`` on the card over a seeded 150,000-record
       synthetic stream at the reference defaults (window 2000, k_basis 50,
       reduced_dim 50, binary labels, noise 0.95, sorted) for SWFDMC and
@@ -65,7 +69,7 @@ from mused_tpu.utils.config import PipelineConfig
 WINDOW, K_BASIS, REDUCED_DIM = 2000, 50, 50     # reference default_params
 N_RECORDS, NOISE_RATE, SEED = 150_000, 0.95, 0
 EDGE_AGREEMENT = 0.999       # float-sum-order metrics: kernel vs plain edges
-BIT_EQUAL = ("l1", "jaccard")   # exact integer / unfused sums: must match exactly
+BIT_EQUAL = ("l1", "jaccard", "chord3")   # exact integer / unfused sums
 
 # huge-window slice (BASELINE.md #3): 98,304 = 48 blocks of 2048 rows
 HUGE_WINDOW, HUGE_BLOCK, HUGE_NBINS = 98_304, 2_048, 1_536
@@ -109,7 +113,7 @@ def edge_agreement(a: torch.Tensor, b: torch.Tensor) -> float:
 
 
 def kernel_cases(mods, engine: streaming.StreamingEngine, device) -> list[tuple]:
-    """(name, metric, x, valid, k) at the main path's shapes."""
+    """(name, metric, x, valid, k, options) at the main path's shapes."""
     host = engine.featurize([m[:WINDOW] for m in mods], streaming.STANDARD_TYPES)
     loc, tim, _, tags_ids, text_ids, text_cnt, tags_valid = to_device(host, device)
     fc = engine.cfg.features
@@ -122,6 +126,8 @@ def kernel_cases(mods, engine: streaming.StreamingEngine, device) -> list[tuple]
                                                              fc.text_hash_dim))
     gen = torch.Generator(device=device).manual_seed(SEED)
     emb = torch.randn((WINDOW, 128), generator=gen, device=device)
+    dense = torch.randn((WINDOW, 4096), generator=gen, device=device)
+    dense /= torch.linalg.norm(dense, dim=1, keepdim=True)
     dup = emb / torch.linalg.norm(emb, dim=1, keepdim=True)
     dup[10:50] = dup[10]                                   # 40 exact duplicates
     side = int(np.ceil(np.sqrt(WINDOW)))                   # ~200 m grid in Barcelona
@@ -129,32 +135,39 @@ def kernel_cases(mods, engine: streaming.StreamingEngine, device) -> list[tuple]
     city = torch.stack([41.39 + (ij // side) * 0.0018,
                         2.16 + (ij % side) * 0.0024], dim=1).float()
     ones = torch.ones(WINDOW, dtype=torch.bool, device=device)
+    xt = xt.contiguous()
     return [
-        ("location", "chord3", xyz, lv, K_BASIS),
-        ("time", "l1", t, tv, 3 * K_BASIS),
-        ("tags", "jaccard", tags.contiguous(), tags_valid, K_BASIS),
-        ("text", "dot", xt.contiguous(), xv, K_BASIS),
-        ("generic_euclidean", "euclidean", emb, ones, K_BASIS - 1),
-        ("duplicates_dot", "dot", dup.contiguous(), ones, K_BASIS),
+        ("location", "chord3", xyz, lv, K_BASIS, {}),
+        ("time", "l1", t, tv, 3 * K_BASIS, {}),
+        ("tags", "jaccard", tags.contiguous(), tags_valid, K_BASIS, {}),
+        ("text", "dot", xt, xv, K_BASIS, {}),
+        ("generic_euclidean", "euclidean", emb, ones, K_BASIS - 1, {}),
+        ("duplicates_dot", "dot", dup.contiguous(), ones, K_BASIS, {}),
         ("city_200m_chord3", "chord3", ak.location_to_unit_xyz(city).contiguous(), ones,
-         K_BASIS),
+         K_BASIS, {}),
+        ("dense_dot_4096", "dot", dense, ones, K_BASIS, {}),
+        ("text_512_row_chunks", "dot", xt, xv, K_BASIS, {"chunk_rows": 512}),
+        ("text_bf16", "dot", xt, xv, K_BASIS, {"input_dtype": "bfloat16"}),
     ]
 
 
 def phase_b(cases) -> list[dict]:
     rows = []
-    for name, metric, x, valid, k in cases:
-        got = ak.knn_adjacency(x, valid, k, metric)
-        want = ak.knn_adjacency_reference(x, valid, k, metric)
+    for name, metric, x, valid, k, opts in cases:
+        plain_opts = {o: v for o, v in opts.items() if o == "input_dtype"}
+        got = ak.knn_adjacency(x, valid, k, metric, **opts)
+        want = ak.knn_adjacency_reference(x, valid, k, metric, **plain_opts)
         torch.cuda.synchronize()
         agree = edge_agreement(got, want)
         same_degree = bool(torch.equal(got.sum(1), want.sum(1)))
-        row = {"case": name, "metric": metric, "n": x.shape[0], "d": x.shape[1], "k": k,
+        row = {"case": name, "metric": metric, "route": ak.route(metric), **opts,
+               "n": x.shape[0], "d": x.shape[1], "k": k,
                "edges": int(want.sum()), "mismatched_entries": int((got != want).sum()),
                "edge_agreement": agree, "same_degree": same_degree,
                "max_abs_err": float((got - want).abs().max()),
-               "ms": cuda_ms(lambda: ak.knn_adjacency(x, valid, k, metric)),
-               "plain_ms": cuda_ms(lambda: ak.knn_adjacency_reference(x, valid, k, metric))}
+               "ms": cuda_ms(lambda: ak.knn_adjacency(x, valid, k, metric, **opts)),
+               "plain_ms": cuda_ms(lambda: ak.knn_adjacency_reference(x, valid, k, metric,
+                                                                      **plain_opts))}
         print("[b]", json.dumps(row), flush=True)
         ok = (row["mismatched_entries"] == 0 if metric in BIT_EQUAL
               else agree >= EDGE_AGREEMENT and same_degree)
@@ -451,13 +464,15 @@ def main() -> int:
     seconds = {}
 
     t0 = time.perf_counter()
-    build.load()
+    lib = build.load()
     print(f"[a] kernel library {build.library_path()} ready in "
-          f"{time.perf_counter() - t0:.2f} s (nvcc {build.build_seconds} s); rows per "
-          f"block at n={WINDOW}: {build.load().mused_knn_rows_per_block(WINDOW)}",
-          flush=True)
+          f"{time.perf_counter() - t0:.2f} s (nvcc {build.build_seconds} s); K1 at "
+          f"n={WINDOW}: coordinate kernel {lib.mused_knn_rows_per_block(WINDOW)} rows per "
+          f"block; dynamic shared memory sim_keys {lib.mused_knn_tc_smem_bytes(WINDOW, 0)} "
+          f"B, select_keys {lib.mused_knn_tc_smem_bytes(WINDOW, 1)} B", flush=True)
     for line in build.build_log.splitlines():
-        if "registers" in line or "spill" in line or line.startswith("=="):
+        if any(w in line for w in ("entry function", "registers", "spill")) or \
+                line.startswith("=="):
             print("[a] ptxas:", line.strip())
     seconds["a"] = time.perf_counter() - t0
 
@@ -528,11 +543,13 @@ def main() -> int:
         "source": "mused_tpu_torch/csrc/knn_adjacency.cu",
         "replaces": "mused_tpu/ops/pallas/affinity_kernel.py:185",
         "launches": main_launches,
-        "max_abs_err": max(r["max_abs_err"] for r in rows_b),
+        "max_abs_err": max(r["max_abs_err"] for r in main_rows),
         "ms": sum(r["ms"] for r in main_rows),
         "plain_ms": sum(r["plain_ms"] for r in main_rows),
         "timed": "one window's four main-path calls (location, time, tags, text)",
-        "per_metric": {r["case"]: {"ms": r["ms"], "plain_ms": r["plain_ms"]}
+        "per_metric": {r["case"]: {"route": r["route"], "ms": r["ms"],
+                                   "plain_ms": r["plain_ms"],
+                                   "mismatched_entries": r["mismatched_entries"]}
                        for r in rows_b},
         "e2e_windows_per_s": {r["approach"]: r["windows_per_s"] for r in runs},
     }, {

@@ -1,4 +1,4 @@
-"""Fused kNN adjacency: the hand-written Hopper kernel and its plain version.
+"""Fused kNN adjacency: the hand-written Hopper kernels and their plain version.
 
 Replaces the TPU kernel ``mused_tpu/ops/pallas/affinity_kernel.py:
 knn_adjacency_pallas``.  The CUDA source is ``mused_tpu_torch/csrc/
@@ -8,13 +8,20 @@ anything it does not take; for tensors on the CPU it runs
 :func:`knn_adjacency_reference`, the same function in plain PyTorch.  There
 is no fallback from a CUDA tensor to the plain version.
 
-Metrics (every modality of the standard path, plus the generic types):
-  dot        cosine / TF-IDF cosine on pre-normalized rows
-  euclidean  negative squared distance
-  jaccard    inter / union over 0/1 incidence, set sizes reduced in the kernel
-  l1         negative |dt_taken| + |dt_upload| (time, d = 2)
-  chord3     negative squared chord of unit-xyz differences (location; unlike
-             the f32 dot it keeps resolution at city-scale angles)
+Metrics (every modality of the standard path, plus the generic types) and
+the route each takes on the card:
+  dot        tensor cores (3xTF32); cosine / TF-IDF cosine on pre-normalized rows
+  euclidean  tensor cores (3xTF32); -(|r|^2 + |c|^2 - 2 r.c), norms hoisted
+  jaccard    tensor cores (one exact TF32 pass on 0/1 incidence); inter / union
+  l1         coordinate kernel; negative |dt_taken| + |dt_upload| (time, d = 2)
+  chord3     coordinate kernel; negative squared chord of unit-xyz differences
+             (location; unlike the f32 dot it keeps resolution at city-scale
+             angles)
+
+``input_dtype="bfloat16"`` rounds the operands to bf16 first, as the TPU
+kernel's option does; products stay exact and sums f32, and on the
+tensor-core route the lo half of every operand is then zero, so its
+products are skipped and one TF32 pass remains.
 """
 from __future__ import annotations
 
@@ -24,7 +31,11 @@ from mused_tpu_torch.ops import affinity
 from mused_tpu_torch.ops.kernels import build
 
 METRICS = ("dot", "euclidean", "jaccard", "l1", "chord3")
-MAX_ROWS = 32_768   # dense-window limit: one row's f32 strip fits shared memory
+TENSOR_CORE = ("dot", "euclidean", "jaccard")   # the rest: the coordinate kernel
+INPUT_DTYPES = ("float32", "bfloat16")
+MAX_ROWS = 32_768   # dense-window limit: one row's keys fit shared memory
+KEY_SCRATCH_BYTES = 256 << 20   # the tensor-core route's (rows, n) uint32 keys
+TILE = 64                       # its output tile; row chunks are multiples of it
 
 launches = 0        # kernel launches so far (plain-version calls not counted)
 
@@ -57,15 +68,30 @@ def similarity(x: torch.Tensor, metric: str) -> torch.Tensor:
     raise ValueError(f"unknown metric {metric!r}: expected one of {METRICS}")
 
 
+def _operands(x: torch.Tensor, input_dtype: str) -> torch.Tensor:
+    """x as the kernel consumes it: float32, rounded to bf16 if asked."""
+    x = x.float()
+    return x.to(torch.bfloat16).float() if input_dtype == "bfloat16" else x
+
+
+def route(metric: str) -> str:
+    """The kernel a CUDA call of ``metric`` runs: "tensor-core" or "coordinate"."""
+    return "tensor-core" if metric in TENSOR_CORE else "coordinate"
+
+
 def knn_adjacency_reference(x: torch.Tensor, valid: torch.Tensor, k: int,
-                            metric: str = "dot") -> torch.Tensor:
+                            metric: str = "dot", *,
+                            input_dtype: str = "float32") -> torch.Tensor:
     """Plain PyTorch version: dense similarity, mask, stable sort, scatter."""
-    return affinity.knn_adjacency(similarity(x.float(), metric), valid, k)
+    return affinity.knn_adjacency(similarity(_operands(x, input_dtype), metric), valid, k)
 
 
-def _check(x: torch.Tensor, valid: torch.Tensor, metric: str) -> None:
+def _check(x: torch.Tensor, valid: torch.Tensor, metric: str, input_dtype: str) -> None:
     if metric not in METRICS:
         raise ValueError(f"unknown metric {metric!r}: expected one of {METRICS}")
+    if input_dtype not in INPUT_DTYPES:
+        raise ValueError(f"unknown input_dtype {input_dtype!r}: expected one of "
+                         f"{INPUT_DTYPES}")
     if x.ndim != 2 or x.dtype != torch.float32:
         raise TypeError(f"x must be a 2-D float32 tensor, got {x.dtype} {tuple(x.shape)}")
     if valid.shape != (x.shape[0],) or valid.dtype != torch.bool:
@@ -78,16 +104,22 @@ def _check(x: torch.Tensor, valid: torch.Tensor, metric: str) -> None:
 
 
 def knn_adjacency(x: torch.Tensor, valid: torch.Tensor, k: int,
-                  metric: str = "dot") -> torch.Tensor:
+                  metric: str = "dot", *, input_dtype: str = "float32",
+                  chunk_rows: int | None = None) -> torch.Tensor:
     """Directed kNN adjacency (n, n) float32 0/1 from (n, d) features.
 
     Same semantics as ``affinity.knn_adjacency`` on the metric's similarity
     (exclude self, exactly k per valid row, lowest index first on ties).
-    CUDA tensors run the hand-written kernel; CPU tensors the plain version.
+    CUDA tensors run the hand-written kernels; CPU tensors the plain version.
+    ``chunk_rows`` bounds the rows whose keys the tensor-core route holds at
+    once (default: as many as fit ``KEY_SCRATCH_BYTES``; rounded down to a
+    multiple of ``TILE``).  One chunk of all n rows computes the tiles on and
+    above the diagonal only and mirrors them.  A call counts as one launch
+    however many chunks and CUDA kernels it runs.
     """
-    _check(x, valid, metric)
+    _check(x, valid, metric, input_dtype)
     if x.device.type == "cpu":
-        return knn_adjacency_reference(x, valid, k, metric)
+        return knn_adjacency_reference(x, valid, k, metric, input_dtype=input_dtype)
     if x.device.type != "cuda":
         raise ValueError(f"knn_adjacency runs on cuda or cpu tensors, not {x.device}")
     if not (x.is_contiguous() and valid.is_contiguous()):
@@ -99,12 +131,25 @@ def knn_adjacency(x: torch.Tensor, valid: torch.Tensor, k: int,
     k = max(0, min(int(k), n - 1))
     if k == 0:
         return torch.zeros((n, n), dtype=torch.float32, device=x.device)
+    if input_dtype == "bfloat16":
+        x = _operands(x, input_dtype)
     lib = build.load()
     out = torch.empty((n, n), dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        code = lib.mused_knn_adjacency(x.data_ptr(), valid.data_ptr(), out.data_ptr(),
-                                       n, d, k, METRICS.index(metric), stream)
+        if metric in TENSOR_CORE:
+            if d % 4 or x.data_ptr() % 16:   # 16-byte rows for cp.async
+                x = torch.nn.functional.pad(x, (0, -d % 4)).contiguous()
+            chunk = int(chunk_rows or KEY_SCRATCH_BYTES // (4 * n))
+            chunk = n if chunk >= n else max(TILE, chunk // TILE * TILE)
+            stats = torch.empty(n, dtype=torch.float32, device=x.device)
+            keys = torch.empty((chunk, n), dtype=torch.int32, device=x.device)
+            code = lib.mused_knn_adjacency_tc(
+                x.data_ptr(), valid.data_ptr(), stats.data_ptr(), keys.data_ptr(),
+                out.data_ptr(), n, x.shape[1], k, METRICS.index(metric), chunk, stream)
+        else:
+            code = lib.mused_knn_adjacency(x.data_ptr(), valid.data_ptr(), out.data_ptr(),
+                                           n, d, k, METRICS.index(metric), stream)
     build.check(code, f"knn_adjacency[{metric}] n={n} d={d} k={k}")
     global launches
     launches += 1

@@ -73,6 +73,21 @@ def test_knn_adjacency_bit_equal_jax(metric, case, rng):
         assert (deg == k).all()
 
 
+@pytest.mark.parametrize("metric", METRICS)
+def test_knn_adjacency_bf16_operands_bit_equal_jax(metric, rng):
+    """``input_dtype="bfloat16"``: operands rounded to bf16, f32 sums, as the
+    Pallas kernel's option does in interpret mode."""
+    x, valid, k = _case(metric, "masked", rng)
+    pallas = n(pk.knn_adjacency_pallas(jnp.asarray(x), jnp.asarray(valid), k,
+                                       metric=metric, interpret=True,
+                                       input_dtype="bfloat16"))
+    ref = n(ak.knn_adjacency_reference(t(x), t(valid), k, metric, input_dtype="bfloat16"))
+    wrapped = n(ak.knn_adjacency(t(x), t(valid), k, metric, input_dtype="bfloat16"))
+    np.testing.assert_array_equal(ref, pallas)
+    np.testing.assert_array_equal(wrapped, ref)
+    assert (ref.sum(1)[valid] == k).all()
+
+
 def test_chord3_city_scale_bit_equal():
     """~200 m spacing: chord3 keeps the haversine ranking where the f32 dot
     saturates (test_pallas_affinity.test_chord3_city_scale_resolution)."""
@@ -188,6 +203,8 @@ def test_wrapper_checks_inputs():
         ak.knn_adjacency(x, v[:4], 2, "dot")
     with pytest.raises(ValueError):
         ak.knn_adjacency(torch.zeros((8, 2)), v, 2, "chord3")
+    with pytest.raises(ValueError):
+        ak.knn_adjacency(x, v, 2, "dot", input_dtype="float16")
 
 
 def test_cpu_tensors_take_the_plain_version_and_launch_nothing(rng):

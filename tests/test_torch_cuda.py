@@ -1,4 +1,4 @@
-"""The hand-written kernel against its plain version on a CUDA device.
+"""The hand-written kernels against their plain version on a CUDA device.
 
 Every test here needs a card and skips without one.  The file imports no
 JAX, so it runs on a machine without it; there, skip the JAX conftest:
@@ -7,7 +7,9 @@ JAX, so it runs on a machine without it; there, skip the JAX conftest:
 
 Tolerance: bit-equal for l1 and jaccard (exact integer or unfused sums);
 the same edges up to float summation order for dot, euclidean and chord3
-(>= 99.9% of edges, identical row degrees).
+(>= 99.9% of edges, identical row degrees).  The tensor-core route's row
+chunks are bit-equal to one chunk: a mirrored tile adds the same products
+in the same order as its transpose.
 """
 import numpy as np
 import pytest
@@ -16,6 +18,7 @@ import torch
 from mused_tpu_torch.ops.kernels import affinity_kernel as ak
 
 METRICS = ["dot", "euclidean", "jaccard", "l1", "chord3"]
+TENSOR_CORE = ["dot", "euclidean", "jaccard"]
 
 
 @pytest.fixture
@@ -26,18 +29,18 @@ def cuda():
     return torch.device("cuda")
 
 
-def _inputs(metric, rows=300, seed=0):
+def _inputs(metric, rows=300, seed=0, d=None):
     rng = np.random.default_rng(seed)
     if metric == "l1":
         x = rng.uniform(1e6, 2e6, size=(rows, 2))
     elif metric == "jaccard":
-        x = (rng.random((rows, 64)) < 0.08).astype(np.float64)
+        x = (rng.random((rows, d or 64)) < 0.08).astype(np.float64)
         x[5] = 0.0
     elif metric == "chord3":
         ll = torch.from_numpy(rng.uniform([-80, -170], [80, 170], size=(rows, 2)))
         x = ak.location_to_unit_xyz(ll.float()).numpy()
     else:
-        x = rng.normal(size=(rows, 24))
+        x = rng.normal(size=(rows, d or 24))
         x /= np.linalg.norm(x, axis=1, keepdims=True)
     valid = np.ones(rows, bool)
     valid[[3, 11, 40]] = False
@@ -84,3 +87,70 @@ def test_kernel_rejects_what_it_does_not_take(cuda):
         ak.knn_adjacency(x, torch.ones(8, dtype=torch.bool), 2, "dot")   # valid on cpu
     with pytest.raises(ValueError):
         ak.knn_adjacency(x.T, torch.ones(3, dtype=torch.bool, device=cuda), 2, "dot")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [24, 4100])
+@pytest.mark.parametrize("rows", [300, 2001])
+@pytest.mark.parametrize("metric", TENSOR_CORE)
+def test_tensor_core_route_ragged_shapes_on_cuda(metric, rows, d, cuda):
+    """Rows and features that are not multiples of the 64-row tile or the
+    32-deep feature chunk."""
+    x, valid = _inputs(metric, rows=rows, d=d)
+    got = ak.knn_adjacency(x.to(cuda), valid.to(cuda), 9, metric)
+    want = ak.knn_adjacency_reference(x.to(cuda), valid.to(cuda), 9, metric)
+    _assert_agrees(got, want, metric)
+    assert (got.sum(1).cpu()[valid] == 9).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case, k, degree", [("duplicates", 5, 5), ("one_valid_row", 5, 0),
+                                             ("fewer_valid_than_k", 7, 5),
+                                             ("k_above_n", 500, 199)])
+@pytest.mark.parametrize("metric", TENSOR_CORE)
+def test_tensor_core_route_degrees_on_cuda(metric, case, k, degree, cuda):
+    """40 duplicate rows emit exactly k; a valid row whose every neighbour is
+    invalid emits nothing; k >= #valid keeps every valid neighbour."""
+    x, valid = _inputs(metric, rows=200)
+    valid[:] = True
+    if case == "duplicates":
+        x[10:50] = x[10]
+    elif case == "one_valid_row":
+        valid[:] = False
+        valid[7] = True
+    elif case == "fewer_valid_than_k":
+        valid[:] = False
+        valid[:6] = True
+    got = ak.knn_adjacency(x.to(cuda), valid.to(cuda), k, metric).cpu()
+    want = ak.knn_adjacency_reference(x, valid, k, metric)
+    _assert_agrees(got, want, metric)
+    assert (got.sum(1)[valid] == degree).all() and (got.sum(1)[~valid] == 0).all()
+    assert (got[:, ~valid] == 0).all() and (got.diagonal() == 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("chunk", [64, 128, 1000])
+@pytest.mark.parametrize("metric", TENSOR_CORE)
+def test_row_chunks_equal_one_chunk_on_cuda(metric, chunk, cuda):
+    """Row chunks (forced by ``chunk_rows``; 1000 rounds down to 960) compute
+    every tile; one chunk of all rows computes the upper triangle and mirrors
+    it.  The adjacency is the same, and each call is one launch."""
+    x, valid = _inputs(metric, rows=1100, d=200)
+    x, valid = x.to(cuda), valid.to(cuda)
+    before = ak.launches
+    whole = ak.knn_adjacency(x, valid, 9, metric)
+    chunked = ak.knn_adjacency(x, valid, 9, metric, chunk_rows=chunk)
+    torch.cuda.synchronize()
+    assert ak.launches == before + 2
+    assert torch.equal(chunked, whole)
+    _assert_agrees(chunked, ak.knn_adjacency_reference(x, valid, 9, metric), metric)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("metric", METRICS)
+def test_bf16_operands_match_plain_on_cuda(metric, cuda):
+    x, valid = _inputs(metric, rows=500)
+    x, valid = x.to(cuda), valid.to(cuda)
+    got = ak.knn_adjacency(x, valid, 7, metric, input_dtype="bfloat16")
+    want = ak.knn_adjacency_reference(x, valid, 7, metric, input_dtype="bfloat16")
+    _assert_agrees(got, want, metric)
