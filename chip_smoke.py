@@ -7,7 +7,8 @@ Phases (any failure exits non-zero; no phase is skipped):
   (a) a CUDA device is present; print ``nvidia-smi`` name and power limit;
       build the kernels from ``mused_tpu_torch/csrc`` and print the build
       seconds and ptxas' register / shared-memory report per kernel, and the
-      dynamic shared memory of K1's kernels at window 2000;
+      dynamic shared memory of K1's kernels at window 2000; build the native
+      hasher (``mused_tpu_torch/native``) and fail if it does not build;
   (b) K1 against its plain PyTorch version on the card, per metric at the
       main path's shapes (window 2000, k_basis 50; first window of the
       stream for location / time / tags / text, random rows for euclidean),
@@ -20,7 +21,8 @@ Phases (any failure exits non-zero; no phase is skipped):
   (c) ``api.process_streaming_data`` on the card over a seeded 150,000-record
       synthetic stream at the reference defaults (window 2000, k_basis 50,
       reduced_dim 50, binary labels, noise 0.95, sorted) for SWFDMC and
-      sSVDMC, with exactly 4 kernel launches per window;
+      sSVDMC, with exactly 4 kernel launches and 2 native hasher calls per
+      window, through the entry points' default device (the card);
   (d) for the first 3 windows, the kernel-path and plain-path fused
       adjacencies agree on >= 99.9% of edges;
   (e) the huge-window kernels K2-K5 against their plain versions on the
@@ -28,18 +30,26 @@ Phases (any failure exits non-zero; no phase is skipped):
       196,608-record stream (window 98,304, nbins 1536): K2 per metric
       (location chord3, time l1, tags jaccard, text dot, and chord on a
       128-wide random generic panel), K3 against two K2 launches, K4 / K5
-      on that block's real candidate block with r = 128 and 256; times of
-      each kernel and its plain version (tolerances at the constants below);
+      on that block's real candidate block at the fold's live r = 66 and 132
+      (and the JAX package's 128-padded widths, 128 and 256); times of each
+      kernel and its plain version, its bound (max(operations / peak of
+      their type, bytes / HBM rate), with the formula's inputs), share of
+      bound, launches per window, K2's cluster split and, for K2 dot /
+      jaccard, the bare cuBLAS product's time as a yardstick (tolerances at
+      the constants below);
   (f) ``api.process_streaming_data`` on the card over that stream at
       window 98,304: SWFDMC with the candidate-native fold (exactly 96 K2,
       48 K3, 96 K4 and 48 K5 launches per window) and sSVDMC on the binned
-      blocked SVD (576 K2 and 288 K3 per window); metrics in [0, 1];
+      blocked SVD (576 K2 and 288 K3 per window); 2 native hasher calls per
+      window; metrics in [0, 1];
   (g) on 3 blocks of the first huge window, the kernel route's candidate
       rows agree with the plain route's fused rows on >= 99.9% of edges,
       and the candidate fold's sq_frobenius equals the dense binned fold's.
 
 Every phase prints its seconds.  ``--phases`` runs a subset (for
 development; the result lines are printed only when all phases ran).
+``--profile`` also traces one huge window per approach with torch.profiler
+(kernel time by name, device busy share) and prints no result lines.
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
@@ -54,7 +64,7 @@ import time
 import numpy as np
 import torch
 
-from mused_tpu_torch import api
+from mused_tpu_torch import api, native
 from mused_tpu_torch.data.ingest import to_device
 from mused_tpu_torch.data.synthetic import make_stream
 from mused_tpu_torch.engine import streaming
@@ -64,7 +74,7 @@ from mused_tpu_torch.ops.kernels import affinity_kernel as ak
 from mused_tpu_torch.ops.kernels import blocked_select as bs
 from mused_tpu_torch.ops.kernels import build
 from mused_tpu_torch.ops.kernels import cand_matvec as cm
-from mused_tpu.utils.config import PipelineConfig
+from mused_tpu_torch.utils.config import PipelineConfig
 
 WINDOW, K_BASIS, REDUCED_DIM = 2000, 50, 50     # reference default_params
 N_RECORDS, NOISE_RATE, SEED = 150_000, 0.95, 0
@@ -81,6 +91,17 @@ HUGE_BIT_EQUAL = ("jaccard", "l1", "chord3")   # K2 vals and grp bit-equal
 # row's kept count identical
 DOT_RTOL, KEEP_AGREEMENT = 1e-4, 0.999
 PROBE_RTOL = 1e-5            # K4 / K5 on the real FD probe: max|err| / max|want|
+K2_DOT_ATOL, K2_DOT_GROUP_AGREEMENT = 1e-5, 0.999   # K2 dot on the real text panel
+K4_PROBE_RTOL = 1e-6         # K4 on the real probe (bf16 x 0/1, f32 sums in another order)
+
+# H100 SXM dense peaks at 700 W (NVIDIA's data sheet) for the least time the
+# card could take: max(operations / peak of their type, bytes / memory rate),
+# each input read once and each output written once.  Products count as
+# dense (2 * M * N * K), as the kernels and the TPU kernels compute them.
+PEAK_OPS = {"bf16": 989e12, "int8": 1979e12, "tf32": 495e12, "fp32": 67e12}
+HBM_BYTES_PER_S = 3.35e12
+BLOCKS_PER_WINDOW = HUGE_WINDOW // HUGE_BLOCK
+SSVD_SWEEPS = 6              # blocked randomized SVD: sweeps per huge window
 
 
 def nvidia_smi_line() -> str:
@@ -102,6 +123,45 @@ def cuda_ms(fn, reps: int = 10, warmup: int = 2) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def bound(ops: float, peak: str, nbytes: float) -> dict:
+    """The least time for the work, with the formula's inputs."""
+    t_ops, t_bytes = ops / PEAK_OPS[peak] * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    return {"bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "ops": ops, "peak": peak, "peak_ops_per_s": PEAK_OPS[peak], "bytes": nbytes,
+            "bytes_per_s": HBM_BYTES_PER_S}
+
+
+def k1_bound(metric: str, n: int, d: int) -> dict:
+    """One K1 call: an (n, d) f32 panel against itself -> (n, n) f32 0/1."""
+    nbytes = n * d * 4 + n + n * n * 4
+    if metric in ak.TENSOR_CORE:
+        return bound(2.0 * n * n * d, "tf32", nbytes)
+    return bound(3.0 * n * n * d, "fp32", nbytes)       # difference, square / abs, sum
+
+
+def k2_bound(metric: str, n: int, block: int, nbins: int, k: int, esize: int) -> dict:
+    """One K2 call: (block, k) rows against the (n, k) panel -> binned
+    (block, nbins) f32 values + int8 groups."""
+    nbytes = (n + block) * k * esize + n + block * nbins * 5
+    if metric in bs.STAT_METRICS:
+        nbytes += (n + block) * 4
+    if metric in bs.MMA_METRICS:
+        return bound(2.0 * block * n * k, "int8" if metric == "jaccard" else "bf16", nbytes)
+    return bound(3.0 * block * n * (3 if metric == "chord3" else 2), "fp32", nbytes)
+
+
+def cand_bytes(cand: cm.CandBlock) -> int:
+    return cand.slabs.numel() + (cand.block * 4 if cand.uid_rows is not None else 0) + \
+        cand.uid_cols.numel() * 4
+
+
+def with_bound(row: dict, b: dict) -> dict:
+    row.update(b)
+    row["share_of_bound"] = b["bound_ms"] / row["ms"]
+    return row
 
 
 def edge_agreement(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -168,6 +228,7 @@ def phase_b(cases) -> list[dict]:
                "ms": cuda_ms(lambda: ak.knn_adjacency(x, valid, k, metric, **opts)),
                "plain_ms": cuda_ms(lambda: ak.knn_adjacency_reference(x, valid, k, metric,
                                                                       **plain_opts))}
+        with_bound(row, k1_bound(metric, x.shape[0], x.shape[1]))
         print("[b]", json.dumps(row), flush=True)
         ok = (row["mismatched_entries"] == 0 if metric in BIT_EQUAL
               else agree >= EDGE_AGREEMENT and same_degree)
@@ -182,9 +243,11 @@ def phase_c(mods, mtypes, labels, device, approach: str, n_records: int) -> dict
                          label_mode="binary", sorting=True, window_size=WINDOW,
                          reduced_dim=REDUCED_DIM, k_basis=K_BASIS, approach=approach,
                          n_clusters_override=2)
-    engine = streaming.StreamingEngine(cfg, device)
+    engine = streaming.StreamingEngine(cfg)          # the entry points' default: the card
+    if engine.device.type != "cuda":
+        raise AssertionError(f"StreamingEngine defaulted to {engine.device}")
     n_windows = len(streaming.window_triggers(n_records, WINDOW, 1))
-    before = ak.launches
+    before, hashed = ak.launches, native.calls
     t0 = time.perf_counter()
     res = api.process_streaming_data(
         results=api.get_initial_results()[0], data_modalities=[m[:n_records] for m in mods],
@@ -192,11 +255,12 @@ def phase_c(mods, mtypes, labels, device, approach: str, n_records: int) -> dict
         k_basis=K_BASIS, n_clusters_total=2, seed=SEED, approach=approach,
         complete_true_labels=labels[:n_records], step_window_ratio=1,
         noise_rate=NOISE_RATE, label_mode="binary", sorting=True, eps=1.5,
-        min_samples=2, device=device, cfg=cfg, engine=engine)
+        min_samples=2, cfg=cfg, engine=engine)
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     out = {"approach": approach, "records": n_records, "windows": n_windows,
-           "launches": ak.launches - before, "seconds": secs,
+           "launches": ak.launches - before, "native_hasher_calls": native.calls - hashed,
+           "seconds": secs,
            "windows_per_s": n_windows / secs, "rows_per_s": n_windows * WINDOW / secs,
            "nmi": res["nmi_score"][0], "nmi_e": res["nmi_e_score"][0],
            "f1": res["f1_score"][0], "f1_aligned": res["f1_aligned"][0],
@@ -205,6 +269,10 @@ def phase_c(mods, mtypes, labels, device, approach: str, n_records: int) -> dict
     if out["launches"] != 4 * n_windows:
         raise AssertionError(f"expected {4 * n_windows} kernel launches, got "
                              f"{out['launches']}")
+    if out["native_hasher_calls"] != 2 * n_windows:   # text + tags per window
+        raise AssertionError(f"featurization did not run the native hasher: "
+                             f"{out['native_hasher_calls']} calls for {n_windows} windows "
+                             f"({native.load_error})")
     metric_vals = [out[k] for k in ("nmi", "nmi_e", "f1", "f1_aligned")]
     if not all(np.isfinite(v) and 0.0 <= v <= 1.0 for v in metric_vals):
         raise AssertionError(f"metrics out of range: {metric_vals}")
@@ -259,7 +327,22 @@ def huge_counts() -> dict:
             "K5": cm.launches}
 
 
+def gemm_yardstick(metric: str, cols: torch.Tensor, rows: torch.Tensor) -> dict:
+    """Time of the bare (block, K) x (K, n) product by cuBLAS, a yardstick the
+    port never calls (product only: no mask, no binning, the (block, n)
+    result written out).  int8 goes through torch._int_mm."""
+    if metric == "dot":
+        fn, how = (lambda: torch.matmul(rows, cols.T)), "torch.matmul bf16"
+    else:
+        fn, how = (lambda: torch._int_mm(rows, cols.T)), "torch._int_mm int8"
+    try:
+        return {"gemm_ms": cuda_ms(fn, reps=5, warmup=1), "gemm": how + ", product only"}
+    except RuntimeError as e:       # a yardstick: report, do not fail the run
+        return {"gemm_ms": None, "gemm": f"{how} refused: {e}"[:200]}
+
+
 def phase_e(cols: ba.Columns, device) -> dict:
+    print(f"[e] card: {nvidia_smi_line()}", flush=True)
     n, block, start, nbins = cols.n, HUGE_BLOCK, 0, HUGE_NBINS
     if bs.default_nbins(n, k_max=3 * K_BASIS) != nbins:
         raise AssertionError(f"default_nbins({n}) != {nbins}")
@@ -271,12 +354,16 @@ def phase_e(cols: ba.Columns, device) -> dict:
     generic = ba.generic_columns([torch.randn((n, 128), generator=gen, device=device)],
                                  ("default",), device)
     (dft, sq), dv = generic.tensors[0], generic.valids[0]
+    text_int = (torch.randint(-3, 4, tuple(text.shape), generator=gen, device=device)
+                / 4).to(torch.bfloat16)
+    per_window = {"tags": BLOCKS_PER_WINDOW, "text": BLOCKS_PER_WINDOW}
     out = {"K2": {}}
     for name, metric, x, valid, row_sums, k in [
             ("location", "chord3", xyz, lv, None, K_BASIS),
             ("time", "l1", tim, tv, None, 3 * K_BASIS),
             ("tags", "jaccard", tags, tagv, sums, K_BASIS),
             ("text", "dot", text, textv, None, K_BASIS),
+            ("text_integer_valued", "dot", text_int, textv, None, K_BASIS),
             ("generic_default", "chord", dft, dv, sq, K_BASIS - 1)]:
         x = x.contiguous()
 
@@ -284,6 +371,7 @@ def phase_e(cols: ba.Columns, device) -> dict:
             return fn(x, x[rows], valid, start, metric=metric, nbins=nbins, block=block,
                       row_sums=row_sums)
 
+        before = bs.launches
         got, want = run(bs.binned_candidates), run(bs.binned_candidates_plain)
         torch.cuda.synchronize()
         real = want[0] > bs.NEG / 2
@@ -291,6 +379,8 @@ def phase_e(cols: ba.Columns, device) -> dict:
         keep_want = bs.budgeted_keep(want[0], valid[rows], k)
         row = {"case": name, "metric": metric, "n": n, "block": block, "nbins": nbins,
                "K": x.shape[1], "dtype": str(x.dtype).replace("torch.", ""),
+               "launched": bs.launches - before,
+               "splits": bs.kernel_splits(n, block, nbins, metric),
                "bit_equal": bool(torch.equal(got[0], want[0])
                                  and torch.equal(got[1], want[1])),
                "same_real_mask": bool(torch.equal(real, got[0] > bs.NEG / 2)),
@@ -302,14 +392,26 @@ def phase_e(cols: ba.Columns, device) -> dict:
                "same_kept_counts": bool(torch.equal(keep_got.sum(1), keep_want.sum(1))),
                "ms": cuda_ms(lambda: run(bs.binned_candidates), reps=5, warmup=1),
                "plain_ms": cuda_ms(lambda: run(bs.binned_candidates_plain), reps=3,
-                                   warmup=1)}
+                                   warmup=1),
+               "launches_per_window": {"SWFDMC": per_window.get(name, 0),
+                                       "sSVDMC": SSVD_SWEEPS * per_window.get(name, 0)}}
+        with_bound(row, k2_bound(metric, n, block, nbins, x.shape[1], x.element_size()))
+        if metric in ("dot", "jaccard") and name != "text_integer_valued":
+            row.update(gemm_yardstick(metric, x, x[rows]))
         print("[e] K2", json.dumps(row), flush=True)
-        ok = (row["bit_equal"] if metric in HUGE_BIT_EQUAL else
-              row["same_real_mask"] and row["max_abs_err"] <= DOT_RTOL * row["value_scale"]
-              and row["keep_agreement"] >= KEEP_AGREEMENT and row["same_kept_counts"])
-        if not ok:
+        if metric in HUGE_BIT_EQUAL or name == "text_integer_valued":
+            ok = row["bit_equal"]
+        elif metric == "dot":
+            ok = (row["same_real_mask"] and row["max_abs_err"] <= K2_DOT_ATOL
+                  and row["grp_agreement"] >= K2_DOT_GROUP_AGREEMENT
+                  and row["keep_agreement"] >= KEEP_AGREEMENT)
+        else:
+            ok = (row["same_real_mask"] and row["max_abs_err"] <= DOT_RTOL * row["value_scale"]
+                  and row["keep_agreement"] >= KEEP_AGREEMENT and row["same_kept_counts"])
+        if not (ok and row["launched"] == 1):
             raise AssertionError(f"K2 disagrees with its plain version: {row}")
         out["K2"][name] = row
+    del text_int
 
     def pair():
         return bs.binned_candidates_pair(xyz, tim, xyz[rows], tim[rows], lv, tv, start,
@@ -322,11 +424,17 @@ def phase_e(cols: ba.Columns, device) -> dict:
 
     got, singles, plain = pair(), two_k2(bs.binned_candidates), two_k2(bs.binned_candidates_plain)
     torch.cuda.synchronize()
+    b3 = [k2_bound(m, n, block, nbins, t.shape[1], 4) for m, t in (("chord3", xyz),
+                                                                   ("l1", tim))]
     row = {"case": "location+time", "bit_equal_to_two_k2": all(
                torch.equal(a, b) for a, b in zip(got, singles)),
            "bit_equal_to_plain": all(torch.equal(a, b) for a, b in zip(got, plain)),
            "ms": cuda_ms(pair, reps=5, warmup=1),
-           "plain_ms": cuda_ms(lambda: two_k2(bs.binned_candidates_plain), reps=3, warmup=1)}
+           "plain_ms": cuda_ms(lambda: two_k2(bs.binned_candidates_plain), reps=3, warmup=1),
+           "launches_per_window": {"SWFDMC": BLOCKS_PER_WINDOW,
+                                   "sSVDMC": SSVD_SWEEPS * BLOCKS_PER_WINDOW}}
+    with_bound(row, bound(b3[0]["ops"] + b3[1]["ops"], "fp32",
+                          b3[0]["bytes"] + b3[1]["bytes"]))
     print("[e] K3", json.dumps(row), flush=True)
     if not (row["bit_equal_to_two_k2"] and row["bit_equal_to_plain"]):
         raise AssertionError(f"K3 disagrees with two K2 launches: {row}")
@@ -345,16 +453,25 @@ def phase_e(cols: ba.Columns, device) -> dict:
     def pad_rows(x, m):
         return torch.nn.functional.pad(x, (0, 0, 0, m - x.shape[0]))
 
-    probe_t = pad_rows(v_hi.T, rp).contiguous()                   # power step, r = 128
-    hilo_t = torch.cat([pad_rows(v_hi.T, rp), pad_rows(v_lo.T, rp)]).contiguous()
-    y0 = cm.matvec_t(cand, probe_t)[0][:r].T                      # rows^T v, as the fold
+    # the fold's two K4 calls take the live rows (power step r, [hi | lo] 2r);
+    # the JAX package's 128-padded operands (128 / 256 rows) are timed beside them
+    probe_t = v_hi.T.contiguous()
+    hilo_t = torch.cat([v_hi.T, v_lo.T]).contiguous()
+    y0 = cm.matvec_t(cand, probe_t)[0].T                          # rows^T v, as the fold
     probe_y = torch.nn.functional.pad(y0, (0, rp - r)).to(torch.bfloat16).contiguous()
     ints = torch.Generator(device=device).manual_seed(SEED + 1)
     checks = []
-    for name, fn, ref, x in [
-            ("K4", cm.matvec_t, cm.matvec_t_reference, probe_t),
-            ("K4", cm.matvec_t, cm.matvec_t_reference, hilo_t),
-            ("K5", cm.matvec, cm.matvec_reference, probe_y)]:
+    for name, fn, ref, x, per_win, tol in [
+            ("K4", cm.matvec_t, cm.matvec_t_reference, probe_t, BLOCKS_PER_WINDOW,
+             K4_PROBE_RTOL),
+            ("K4", cm.matvec_t, cm.matvec_t_reference, hilo_t, BLOCKS_PER_WINDOW,
+             K4_PROBE_RTOL),
+            ("K4", cm.matvec_t, cm.matvec_t_reference, pad_rows(v_hi.T, rp).contiguous(),
+             0, K4_PROBE_RTOL),
+            ("K4", cm.matvec_t, cm.matvec_t_reference,
+             torch.cat([pad_rows(v_hi.T, rp), pad_rows(v_lo.T, rp)]).contiguous(), 0,
+             K4_PROBE_RTOL),
+            ("K5", cm.matvec, cm.matvec_reference, probe_y, BLOCKS_PER_WINDOW, PROBE_RTOL)]:
         xi = torch.randint(-4, 5, tuple(x.shape), generator=ints, device=device).to(
             torch.bfloat16)
         gi, wi = fn(cand, xi), ref(cand, xi)
@@ -362,17 +479,21 @@ def phase_e(cols: ba.Columns, device) -> dict:
         torch.cuda.synchronize()
         if name == "K4":
             (gi, ge), (wi, we), (gp, _), (wp, _) = gi, wi, gp, wp
-        row = {"kernel": name, "r": x.shape[1] if name == "K5" else x.shape[0],
+        rr = x.shape[1] if name == "K5" else x.shape[0]
+        row = {"kernel": name, "r": rr, "on_main_path": per_win > 0,
                "exact_on_integers": bool(torch.equal(gi, wi)),
                "probe_max_abs_err": float((gp - wp).abs().max()),
                "probe_rel_err": float((gp - wp).abs().max() / wp.abs().max().clamp(min=1e-30)),
                "ms": cuda_ms(lambda: fn(cand, x), reps=5, warmup=1),
-               "plain_ms": cuda_ms(lambda: ref(cand, x), reps=3, warmup=1)}
+               "plain_ms": cuda_ms(lambda: ref(cand, x), reps=3, warmup=1),
+               "launches_per_window": {"SWFDMC": per_win, "sSVDMC": 0}}
+        io = rr * block * 2 + rr * n * 4 + 4 if name == "K4" else n * rr * 2 + block * rr * 4
+        with_bound(row, bound(2.0 * rr * block * n, "bf16", cand_bytes(cand) + io))
         if name == "K4":
             row["edges"] = float(ge)
             row["edges_exact"] = float(ge) == float(we) == edges_dense
         print(f"[e] {name}", json.dumps(row), flush=True)
-        if not (row["exact_on_integers"] and row["probe_rel_err"] <= PROBE_RTOL
+        if not (row["exact_on_integers"] and row["probe_rel_err"] <= tol
                 and row.get("edges_exact", True)):
             raise AssertionError(f"{name} disagrees with its plain version: {row}")
         checks.append(row)
@@ -386,6 +507,7 @@ def phase_f(mods, mtypes, labels, device, approach: str, n_records: int) -> dict
     engine = streaming.StreamingEngine(cfg, device)
     windows = len(streaming.window_triggers(n_records, HUGE_WINDOW, 1))
     reset_counts()
+    hashed = native.calls
     t0 = time.perf_counter()
     res = api.process_streaming_data(
         results=api.get_initial_results()[0], data_modalities=[m[:n_records] for m in mods],
@@ -400,9 +522,11 @@ def phase_f(mods, mtypes, labels, device, approach: str, n_records: int) -> dict
     blocks = HUGE_WINDOW // HUGE_BLOCK
     per_window = ({"K2": 2 * blocks, "K3": blocks, "K4": 2 * blocks, "K5": blocks}
                   if approach == "SWFDMC" else
-                  {"K2": 2 * 6 * blocks, "K3": 6 * blocks, "K4": 0, "K5": 0})
+                  {"K2": 2 * SSVD_SWEEPS * blocks, "K3": SSVD_SWEEPS * blocks, "K4": 0,
+                   "K5": 0})
     out = {"approach": approach, "records": n_records, "windows": windows,
-           "launches": counts, "k1_launches": ak.launches, "seconds": secs,
+           "launches": counts, "k1_launches": ak.launches,
+           "native_hasher_calls": native.calls - hashed, "seconds": secs,
            "windows_per_s": windows / secs, "rows_per_s": windows * HUGE_WINDOW / secs,
            "nmi": res["nmi_score"][0], "nmi_e": res["nmi_e_score"][0],
            "f1": res["f1_score"][0], "f1_aligned": res["f1_aligned"][0],
@@ -412,9 +536,46 @@ def phase_f(mods, mtypes, labels, device, approach: str, n_records: int) -> dict
     if counts != want or ak.launches:
         raise AssertionError(f"{approach}: launches {counts} (K1 {ak.launches}), "
                              f"expected {want} and no K1")
+    if out["native_hasher_calls"] != 2 * windows:
+        raise AssertionError(f"featurization did not run the native hasher: {out}")
     metric_vals = [out[k] for k in ("nmi", "nmi_e", "f1", "f1_aligned")]
     if not all(np.isfinite(v) and 0.0 <= v <= 1.0 for v in metric_vals):
         raise AssertionError(f"metrics out of range: {metric_vals}")
+    return out
+
+
+def profile_huge_window(mods, mtypes, labels, approach: str) -> dict:
+    """Device time by kernel and the busy share of one huge window, traced
+    with torch.profiler after a warm-up window (``--profile``)."""
+    kw = dict(modality_types=mtypes, window_size=HUGE_WINDOW, reduced_dim=REDUCED_DIM,
+              k_basis=K_BASIS, n_clusters_total=2, seed=SEED, approach=approach,
+              step_window_ratio=1, noise_rate=NOISE_RATE, label_mode="binary",
+              sorting=True, eps=1.5, min_samples=2)
+
+    def one_window(w: int):
+        rows = slice(w * HUGE_WINDOW, (w + 1) * HUGE_WINDOW)
+        cfg = huge_cfg(approach, HUGE_WINDOW)
+        api.process_streaming_data(results=api.get_initial_results()[0],
+                                   data_modalities=[m[rows] for m in mods],
+                                   complete_true_labels=labels[rows], cfg=cfg, **kw)
+        torch.cuda.synchronize()
+
+    one_window(0)
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        one_window(1)
+        wall = time.perf_counter() - t0
+    by_name: dict[str, float] = {}
+    for ev in prof.key_averages():
+        if ev.device_type == torch.autograd.DeviceType.CUDA and ev.self_device_time_total > 0:
+            by_name[ev.key[:90]] = by_name.get(ev.key[:90], 0.0) + ev.self_device_time_total / 1e3
+    busy = sum(by_name.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:14]
+    out = {"approach": approach, "wall_ms": wall * 1e3, "device_busy_ms": busy,
+           "busy_share": busy / (wall * 1e3),
+           "kernels_ms": [{"name": k, "ms": v, "share_of_busy": v / busy} for k, v in top]}
+    print("[profile]", json.dumps(out), flush=True)
     return out
 
 
@@ -451,7 +612,11 @@ def main() -> int:
     parser.add_argument("--phases", default="abcdefg",
                         help="phases to run (a always runs); the result lines print "
                              "only when all ran")
-    phases = set(parser.parse_args().phases) | {"a"}
+    parser.add_argument("--profile", action="store_true",
+                        help="also trace one huge window per approach with torch.profiler "
+                             "(kernel time by name, busy share); prints no result lines")
+    args = parser.parse_args()
+    phases = set(args.phases) | {"a"}
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
               file=sys.stderr)
@@ -474,6 +639,11 @@ def main() -> int:
         if any(w in line for w in ("entry function", "registers", "spill")) or \
                 line.startswith("=="):
             print("[a] ptxas:", line.strip())
+    t1 = time.perf_counter()
+    if not native.available():
+        raise AssertionError(f"the native hasher did not build: {native.load_error}")
+    print(f"[a] hasher: native, {native.library_path()} ready in "
+          f"{time.perf_counter() - t1:.2f} s", flush=True)
     seconds["a"] = time.perf_counter() - t0
 
     rows_b, runs, main_launches = [], [], 0
@@ -531,24 +701,45 @@ def main() -> int:
         t0 = time.perf_counter()
         phase_g(cols)
         seconds["g"] = time.perf_counter() - t0
+    if args.profile:
+        t0 = time.perf_counter()
+        if not phases & set("efg"):
+            hmods, hmtypes, hlabels = make_stream(HUGE_RECORDS, noise_rate=NOISE_RATE,
+                                                  binary=True, sort_by_uploaded=True,
+                                                  seed=SEED)
+        for approach in ("SWFDMC", "sSVDMC"):
+            profile_huge_window(hmods, hmtypes, hlabels, approach)
+        seconds["profile"] = time.perf_counter() - t0
     print("[seconds]", json.dumps(seconds), flush=True)
-    if phases != set("abcdefg"):
+    if phases != set("abcdefg") or args.profile:
         return 0
 
     main_rows = [r for r in rows_b if r["case"] in ("location", "time", "tags", "text")]
     k2 = kernels_e["K2"]
+    k2_main = [k2["tags"], k2["text"]]
+    k4_main = [r for r in kernels_e["K4"] if r["on_main_path"]]
     wps = {f"huge_{r['approach']}": r["windows_per_s"] for r in huge_runs}
+
+    def timed(rows: list, what: str) -> dict:
+        """ms, plain_ms and the bound of the rows' calls together."""
+        ms = sum(r["ms"] for r in rows)
+        ops_ms = sum(r["ops"] / r["peak_ops_per_s"] * 1e3 for r in rows)
+        bytes_ms = sum(r["bytes"] / r["bytes_per_s"] * 1e3 for r in rows)
+        bound_ms = sum(r["bound_ms"] for r in rows)
+        return {"ms": ms, "plain_ms": sum(r["plain_ms"] for r in rows),
+                "bound_ms": bound_ms,
+                "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+                "library_ms": None, "share_of_bound": bound_ms / ms, "timed": what}
+
     kernels = [{
         "name": "knn_adjacency", "route": "cuda",
         "source": "mused_tpu_torch/csrc/knn_adjacency.cu",
         "replaces": "mused_tpu/ops/pallas/affinity_kernel.py:185",
         "launches": main_launches,
         "max_abs_err": max(r["max_abs_err"] for r in main_rows),
-        "ms": sum(r["ms"] for r in main_rows),
-        "plain_ms": sum(r["plain_ms"] for r in main_rows),
-        "timed": "one window's four main-path calls (location, time, tags, text)",
+        **timed(main_rows, "one window's four main-path calls (location, time, tags, text)"),
         "per_metric": {r["case"]: {"route": r["route"], "ms": r["ms"],
-                                   "plain_ms": r["plain_ms"],
+                                   "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                                    "mismatched_entries": r["mismatched_entries"]}
                        for r in rows_b},
         "e2e_windows_per_s": {r["approach"]: r["windows_per_s"] for r in runs},
@@ -557,11 +748,11 @@ def main() -> int:
         "source": "mused_tpu_torch/csrc/blocked_select.cu",
         "replaces": "mused_tpu/ops/pallas/blocked_select.py:169",
         "launches": huge_launches["K2"],
-        "max_abs_err": max(r["max_abs_err"] for r in k2.values()),
-        "ms": k2["tags"]["ms"] + k2["text"]["ms"],
-        "plain_ms": k2["tags"]["plain_ms"] + k2["text"]["plain_ms"],
-        "timed": "one 2048-row block's two main-path calls (tags, text)",
-        "per_metric": {name: {"ms": r["ms"], "plain_ms": r["plain_ms"]}
+        "max_abs_err": max(r["max_abs_err"] for r in k2_main),
+        **timed(k2_main, "one 2048-row block's two main-path calls (tags, text)"),
+        "per_metric": {name: {"ms": r["ms"], "plain_ms": r["plain_ms"],
+                              "bound_ms": r["bound_ms"], "splits": r["splits"],
+                              "gemm_ms": r.get("gemm_ms")}
                        for name, r in k2.items()},
         "e2e_windows_per_s": wps,
     }, {
@@ -569,26 +760,22 @@ def main() -> int:
         "source": "mused_tpu_torch/csrc/blocked_select.cu",
         "replaces": "mused_tpu/ops/pallas/blocked_select.py:305",
         "launches": huge_launches["K3"], "max_abs_err": 0.0,
-        "ms": kernels_e["K3"]["ms"], "plain_ms": kernels_e["K3"]["plain_ms"],
-        "timed": "one block's call (location chord3 + time l1)",
+        **timed([kernels_e["K3"]], "one block's call (location chord3 + time l1)"),
     }, {
         "name": "matvec_t", "route": "cuda",
         "source": "mused_tpu_torch/csrc/cand_matvec.cu",
         "replaces": "mused_tpu/ops/pallas/cand_matvec.py:176",
         "launches": huge_launches["K4"],
-        "max_abs_err": max(r["probe_max_abs_err"] for r in kernels_e["K4"]),
-        "ms": sum(r["ms"] for r in kernels_e["K4"]),
-        "plain_ms": sum(r["plain_ms"] for r in kernels_e["K4"]),
-        "timed": "one block's two fold calls (r = 128 probe, r = 256 hi/lo)",
+        "max_abs_err": max(r["probe_max_abs_err"] for r in k4_main),
+        **timed(k4_main, "one block's two fold calls (r = 66 probe, r = 132 hi/lo)"),
+        "padded_rows_ms": {r["r"]: r["ms"] for r in kernels_e["K4"] if not r["on_main_path"]},
     }, {
         "name": "matvec", "route": "cuda",
         "source": "mused_tpu_torch/csrc/cand_matvec.cu",
         "replaces": "mused_tpu/ops/pallas/cand_matvec.py:219",
         "launches": huge_launches["K5"],
         "max_abs_err": max(r["probe_max_abs_err"] for r in kernels_e["K5"]),
-        "ms": sum(r["ms"] for r in kernels_e["K5"]),
-        "plain_ms": sum(r["plain_ms"] for r in kernels_e["K5"]),
-        "timed": "one block's fold call (r = 128)",
+        **timed(kernels_e["K5"], "one block's fold call (r = 128)"),
     }]
     missing = [k["name"] for k in kernels if k["launches"] <= 0]
     if missing:

@@ -16,28 +16,37 @@
 // Design for Hopper, not a copy of the TPU tiling (that one keeps the whole
 // slab stack resident in VMEM and carries the edge count and K5's output
 // across a sequential group grid):
-//   * both are register-tiled f32 products on CUDA cores: a block (CTA) owns
-//     a 128 x 128 output tile and each thread an 8 x 8 sub-tile; 32-deep
-//     chunks of the operand (bf16 -> f32) and of W (rebuilt from the slabs
-//     with int32 compares, stored as 0.0 / 1.0) are staged in shared memory.
-//     W is 0/1, so every product is an exact copy of the operand and the
-//     f32 sums are exact on integer-valued inputs in any order;
-//   * K4: a CTA owns r rows x 128 slots of one group and loops over the
-//     block's rows.  The edge count is an integer per-CTA partial (counted
-//     once, by the CTAs of the first r tile) and one integer atomicAdd, so it
-//     stays exact and its order does not matter;
-//   * K5: a CTA owns 128 block rows x 128 columns of r and loops over groups
-//     and 32-slot chunks.  At the huge-window shape only 16 such tiles exist,
-//     so the group range is split across CTAs (about two CTAs per SM); each
-//     split writes its partial sum and a second pass adds the partials in
-//     split order, so the result is deterministic.
+//   * K4 runs on bf16 tensor cores (mma.sync m16n8k16, f32 accumulation), as
+//     the TPU kernel runs on the MXU: bf16 x {0, 1} is exact, so only the
+//     order of the f32 sums differs from the plain version (integer-valued
+//     operands stay bit-equal).  M is x_t's rows (r, in tiles of 80 or 144),
+//     N the slots, K the block's rows.  A CTA owns a 128-slot tile of one or
+//     two groups (two when r <= 80, so each slab byte feeds both) and loops
+//     over the block in 32-row chunks: the slab bytes, the x_t chunk and the
+//     rows' uids are double-buffered with 16-byte cp.async; the 0/1 tile is
+//     rebuilt once per chunk with packed byte compares (16 slab bytes XOR the
+//     group id, a carry-free zero-byte test; the uid test per slot; each slab
+//     word feeds both groups) and written as bf16
+//     straight into the ldmatrix.trans layout of the B operand.  The edge
+//     count is the popcount of the match bytes, an integer per CTA (counted
+//     by the first r tile only) and one integer atomicAdd, so it stays exact;
+//   * K5 is a register-tiled f32 product on CUDA cores: a CTA owns 128 block
+//     rows x 128 columns of r and loops over groups and 32-slot chunks, with
+//     W (rebuilt with int32 compares, stored as 0.0 / 1.0) and y (bf16 ->
+//     f32) staged in shared memory.  At the huge-window shape only 16 such
+//     tiles exist, so the group range is split across CTAs (about two CTAs
+//     per SM); each split writes its partial sum and a second pass adds the
+//     partials in split order, so the result is deterministic.
 //
-// What bounds it on an H100: at n = 98,304, block = 2048 a product is
-// 2 * r * block * n = 51.5 GFLOP for r = 128 (103 for r = 256) of FP32 FMA,
-// about 1 ms at the 67 TFLOP/s FP32 peak; the slabs (4 x 3.1 MB) and the
-// operands stay in the 50 MB L2.  Rebuilding W costs 4-5 byte compares per
-// element per r tile, small beside the 128 FMAs it feeds.  Tensor-core
-// products (bf16 mma on the 0/1 tile) are later work.
+// What bounds them on an H100: at n = 98,304, block = 2048 a product is
+// 2 * r * block * n, 26.6 GFLOP at the fold's live r = 66 (0.027 ms at the
+// 989 TFLOP/s bf16 peak), 53.2 at r = 132.  K4's bytes are the slabs
+// (4 x 3.1 MB), the uids and x_t once, out_t written once (26 MB at r = 66):
+// about 0.012 ms.  What the design reads instead: every group's CTA re-reads
+// its slab bytes (403 MB from L2 at r = 66, two groups per CTA; 805 MB at
+// r = 132) and every CTA the whole x_t, so K4 is bound by L2 -> SM traffic
+// and the rebuild's integer work, not by the tensor cores.  K5 still runs
+// FP32 FMA against the same bf16 tensor-core roof.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
@@ -88,60 +97,267 @@ __device__ __forceinline__ void tile_fma(float (&acc)[8][8], const float (*a)[kP
   }
 }
 
-// K4: out_t[r0 + m, g * nbins + s0 + n] = sum_i x_t[r0 + m, i] * W[i, g, s0 + n].
-// grid.x = groups * slot tiles, grid.y = r tiles.
-__global__ void __launch_bounds__(kThreads)
+// ---------------------------------------------------------------------------
+// K4: bf16 tensor-core product with the rebuilt 0/1 tile
+// ---------------------------------------------------------------------------
+
+constexpr int kT4Threads = 256;               // 8 warps, 16 slots each
+constexpr int kT4Slots = 128;                 // slots per tile
+constexpr int kT4Depth = 32;                  // block rows per chunk (2 k16 steps)
+constexpr int kT4Stages = 3;                  // cp.async ring: chunks in flight
+constexpr int kWStride = kT4Slots * 2 + 16;   // bytes per W row: ldmatrix.trans conflict-free
+constexpr int kXStride = kT4Depth * 2 + 16;   // bytes per x_t row: ldmatrix conflict-free
+
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool pred) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(smem)),
+               "l"(gmem), "r"(pred ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&d)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(d[0]), "=r"(d[1]), "=r"(d[2]), "=r"(d[3]) : "r"(smem_u32(p)));
+}
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&d)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(d[0]), "=r"(d[1]), "=r"(d[2]), "=r"(d[3]) : "r"(smem_u32(p)));
+}
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, "
+      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// 0x80 in each byte of x that is zero, 0 elsewhere (no carries between bytes).
+__device__ __forceinline__ uint32_t zero_bytes(uint32_t x) {
+  return ~(((x & 0x7F7F7F7Fu) + 0x7F7F7F7Fu) | x) & 0x80808080u;
+}
+
+// Byte mask of the slots [0, nvalid) among the 4 slots of match word q.
+__device__ __forceinline__ uint32_t slot_mask(int nvalid, int q) {
+  const int k = nvalid - 4 * q;
+  return k >= 4 ? 0xFFFFFFFFu : k <= 0 ? 0u : (1u << (8 * k)) - 1u;
+}
+
+// K4: out_t[r0 + m, g * nbins + s0 + s] = sum_i x_t[r0 + m, i] * W[i, g, s0 + s].
+// grid.x = slot tiles, grid.y = group chunks of GPC, grid.z = r tiles of
+// MT * 16 rows.  VEC: 16-byte cp.async staging (nbins % 16 == 0, block % 8
+// == 0, aligned pointers); otherwise scalar loads into the same buffers.
+template <int MT, int GPC, bool VEC>
+__global__ void __launch_bounds__(kT4Threads, 2)
 matvec_t_kernel(Cand c, const __nv_bfloat16* __restrict__ x_t, int r,
                 float* __restrict__ out_t, int* __restrict__ edges) {
-  __shared__ __align__(16) float xs[kDepth][kPad];   // xs[kk][m] = x_t[r0 + m, i0 + kk]
-  __shared__ __align__(16) float ws[kDepth][kPad];   // ws[kk][n] = W[i0 + kk, g, s0 + n]
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  const int slot_tiles = (c.nbins + kTile - 1) / kTile;
-  const int g = blockIdx.x / slot_tiles;
-  const int s0 = (blockIdx.x % slot_tiles) * kTile;
-  const int r0 = blockIdx.y * kTile;
-  const bool count = blockIdx.y == 0;
+  constexpr int kXRows = MT * 16;
+  extern __shared__ __align__(16) uint8_t smem[];
+  const int slab_bytes = c.n_mod * kT4Depth * kT4Slots;          // one stage
+  uint8_t* slab_s = smem;                                    // [stages][n_mod][32][128]
+  uint8_t* x_s = slab_s + kT4Stages * slab_bytes;            // [stages][kXRows][kXStride]
+  int* urow_s = reinterpret_cast<int*>(x_s + kT4Stages * kXRows * kXStride);  // [stages][32]
+  uint8_t* w_s = reinterpret_cast<uint8_t*>(urow_s + kT4Stages * kT4Depth);   // [GPC][32][kWStride]
+  int* ucol_s = reinterpret_cast<int*>(w_s + GPC * kT4Depth * kWStride);  // [GPC][128]
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int s0 = blockIdx.x * kT4Slots;
+  const int gbase = blockIdx.y * GPC;
+  const int r0 = blockIdx.z * kXRows;
   const size_t n = static_cast<size_t>(c.groups) * c.nbins;
+  const size_t plane = static_cast<size_t>(c.block) * c.nbins;
+  const int rr = tid >> 3, seg = tid & 7;        // the W-build item: row, 16-slot segment
+  const int nvalid = min(max(c.nbins - (s0 + seg * 16), 0), 16);
+  const bool user = c.uid_rows != nullptr;
 
-  float acc[8][8];
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-  int ones = 0;
-
-  for (int i0 = 0; i0 < c.block; i0 += kDepth) {
-    for (int idx = tid; idx < kDepth * kTile; idx += kThreads) {
-      const int kk = idx & (kDepth - 1), m = idx / kDepth;   // contiguous along the row
-      const int row = r0 + m, i = i0 + kk;
-      xs[kk][m] = (row < r && i < c.block)
-                      ? __bfloat162float(x_t[static_cast<size_t>(row) * c.block + i]) : 0.f;
-    }
-    for (int idx = tid; idx < kDepth * kTile; idx += kThreads) {
-      const int nn = idx & (kTile - 1), kk = idx / kTile;    // contiguous along the slab
-      const int i = i0 + kk, s = s0 + nn;
-      const bool w = i < c.block && s < c.nbins && fused_entry(c, i, g, s);
-      ws[kk][nn] = w ? 1.f : 0.f;
-      ones += w;
-    }
-    __syncthreads();
-    tile_fma(acc, xs, ws, ty, tx);
-    __syncthreads();
+  for (int idx = tid; idx < GPC * kT4Slots; idx += kT4Threads) {
+    const int gg = idx / kT4Slots, sl = idx % kT4Slots, g = gbase + gg;
+    ucol_s[idx] = (g < c.groups && s0 + sl < c.nbins)
+                      ? c.uid_cols[static_cast<size_t>(g) * c.nbins + s0 + sl] : -2;
   }
 
+  auto stage = [&](int chunk, int buf) {
+    const int i0 = chunk * kT4Depth;
+    uint8_t* sl = slab_s + buf * slab_bytes;
+    uint8_t* xs = x_s + buf * kXRows * kXStride;
+    int* ur = urow_s + buf * kT4Depth;
+    const int i = i0 + rr;
+    if (VEC) {
+      const bool ok = i < c.block && nvalid > 0;
+      for (int m = 0; m < c.n_mod; ++m)
+        cp_async16(sl + (m * kT4Depth + rr) * kT4Slots + seg * 16,
+                   ok ? c.slabs + m * plane + static_cast<size_t>(i) * c.nbins + s0 + seg * 16
+                      : c.slabs, ok);
+      for (int p = tid; p < kXRows * 4; p += kT4Threads) {
+        const int row = p >> 2, part = p & 3;
+        const bool okx = r0 + row < r && i0 + part * 8 < c.block;
+        cp_async16(xs + row * kXStride + part * 16,
+                   okx ? x_t + static_cast<size_t>(r0 + row) * c.block + i0 + part * 8 : x_t,
+                   okx);
+      }
+      if (user && tid < kT4Depth / 4) {
+        const bool oku = i0 + tid * 4 < c.block;
+        cp_async16(ur + tid * 4, oku ? c.uid_rows + i0 + tid * 4 : c.uid_rows, oku);
+      }
+      cp_async_commit();
+    } else {
+      for (int m = 0; m < c.n_mod; ++m)
+        for (int j = 0; j < 16; ++j)
+          sl[(m * kT4Depth + rr) * kT4Slots + seg * 16 + j] =
+              (i < c.block && j < nvalid)
+                  ? static_cast<uint8_t>(
+                        c.slabs[m * plane + static_cast<size_t>(i) * c.nbins + s0 + seg * 16 + j])
+                  : 0xFFu;
+      for (int p = tid; p < kXRows * kT4Depth; p += kT4Threads) {
+        const int row = p / kT4Depth, k = p % kT4Depth;
+        reinterpret_cast<__nv_bfloat16*>(xs + row * kXStride)[k] =
+            (r0 + row < r && i0 + k < c.block)
+                ? x_t[static_cast<size_t>(r0 + row) * c.block + i0 + k]
+                : __float2bfloat16(0.f);
+      }
+      if (user && tid < kT4Depth) ur[tid] = i0 + tid < c.block ? c.uid_rows[i0 + tid] : -1;
+    }
+  };
+
+  float acc[GPC][MT][2][4];
 #pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int row = r0 + ty * 8 + i;
-    if (row >= r) break;
+  for (int gg = 0; gg < GPC; ++gg)
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int s = s0 + tx * 8 + j;
-      if (s < c.nbins) out_t[row * n + static_cast<size_t>(g) * c.nbins + s] = acc[i][j];
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[gg][mt][nt][e] = 0.f;
+  int ones = 0;   // edges seen by this thread (one marker bit each)
+
+  // VEC: chunks ch + 1 .. ch + kT4Stages - 1 are in flight while chunk ch is
+  // used (one commit group per chunk, empty past the end, so the wait count
+  // stays fixed); scalar: chunk ch + 1 is staged after chunk ch's products.
+  const int chunks = (c.block + kT4Depth - 1) / kT4Depth;
+  const int ahead = VEC ? kT4Stages - 1 : 1;
+  for (int ch = 0; ch < ahead; ++ch) {
+    if (ch < chunks) stage(ch, ch);
+    else if (VEC) cp_async_commit();
+  }
+  for (int ch = 0; ch < chunks; ++ch) {
+    const int buf = ch % kT4Stages;
+    if (VEC) cp_async_wait<kT4Stages - 2>();
+    __syncthreads();   // chunk ch (and, on the first chunk, ucol_s) visible
+
+    // rebuild: this thread's (row, 16-slot segment) of every group's tile.
+    // eq[gg][q] holds 0x80 in each byte (slot) that is an edge of group
+    // gbase + gg; each slab word is read once and tested against every group.
+    {
+      const int i = ch * kT4Depth + rr;
+      const uint8_t* sl = slab_s + buf * slab_bytes + rr * kT4Slots + seg * 16;
+      uint32_t eq[GPC][4];
+#pragma unroll
+      for (int gg = 0; gg < GPC; ++gg)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) eq[gg][q] = 0u;
+      for (int m = 0; m < c.n_mod; ++m) {
+        const uint4 w = *reinterpret_cast<const uint4*>(sl + m * kT4Depth * kT4Slots);
+        const uint32_t ws[4] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+        for (int gg = 0; gg < GPC; ++gg) {
+          const uint32_t rep = static_cast<uint32_t>((gbase + gg) & 0xFF) * 0x01010101u;
+#pragma unroll
+          for (int q = 0; q < 4; ++q) eq[gg][q] |= zero_bytes(ws[q] ^ rep);
+        }
+      }
+      const bool row_live = i < c.block;
+      if (user && row_live) {
+        const int urow = urow_s[buf * kT4Depth + rr];
+#pragma unroll
+        for (int gg = 0; gg < GPC; ++gg) {
+          const long long self = static_cast<long long>(c.start) + i -
+                                 static_cast<long long>(c.g0 + gbase + gg) * c.nbins - s0 -
+                                 seg * 16;
+          const int4* uc = reinterpret_cast<const int4*>(ucol_s + gg * kT4Slots + seg * 16);
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            const int4 u = uc[q];
+            const int us[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+            for (int b = 0; b < 4; ++b)
+              if (us[b] == urow && self != 4 * q + b) eq[gg][q] |= 0x80u << (8 * b);
+          }
+        }
+      }
+#pragma unroll
+      for (int gg = 0; gg < GPC; ++gg) {
+        const bool live = row_live && gbase + gg < c.groups;
+        uint32_t wv[8];
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const uint32_t e = eq[gg][q] & (live ? slot_mask(nvalid, q) : 0u);
+          ones += __popc(e);
+          // bytes 0 / 1 -> (slot 2j | slot 2j + 1 << 16) -> bf16 0 / 1.0 pairs
+          const uint32_t bit = e >> 7;
+          wv[2 * q] = __byte_perm(bit, 0u, 0x4140) * 0x3F80u;
+          wv[2 * q + 1] = __byte_perm(bit, 0u, 0x4342) * 0x3F80u;
+        }
+        uint4* dst = reinterpret_cast<uint4*>(w_s + (gg * kT4Depth + rr) * kWStride + seg * 32);
+        dst[0] = make_uint4(wv[0], wv[1], wv[2], wv[3]);
+        dst[1] = make_uint4(wv[4], wv[5], wv[6], wv[7]);
+      }
+    }
+    __syncthreads();   // W visible
+
+    const uint8_t* xs = x_s + buf * kXRows * kXStride;
+#pragma unroll
+    for (int ks = 0; ks < kT4Depth / 16; ++ks) {
+      uint32_t a[MT][4];
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+        ldmatrix_x4(a[mt], xs + (mt * 16 + (lane & 15)) * kXStride + (ks * 16 + (lane >> 4) * 8) * 2);
+#pragma unroll
+      for (int gg = 0; gg < GPC; ++gg) {
+        uint32_t b[4];
+        ldmatrix_x4_trans(b, w_s + (gg * kT4Depth + ks * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) *
+                                       kWStride + (warp * 16 + (lane >> 4) * 8) * 2);
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+          mma_bf16(acc[gg][mt][0], a[mt], b[0], b[1]);
+          mma_bf16(acc[gg][mt][1], a[mt], b[2], b[3]);
+        }
+      }
+    }
+    __syncthreads();   // W, and stage buf of chunk ch, are refilled next
+    if (VEC) {
+      if (ch + ahead < chunks) stage(ch + ahead, (ch + ahead) % kT4Stages);
+      else cp_async_commit();
+    } else if (ch + 1 < chunks) {
+      stage(ch + 1, (ch + 1) % kT4Stages);
     }
   }
-  if (count) {
+
+  const int gid = lane >> 2, tig = lane & 3;
+#pragma unroll
+  for (int gg = 0; gg < GPC; ++gg) {
+    const int g = gbase + gg;
+    if (g >= c.groups) break;
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int row = r0 + mt * 16 + gid + 8 * (e >> 1);
+          const int s = s0 + warp * 16 + nt * 8 + tig * 2 + (e & 1);
+          if (row < r && s < c.nbins)
+            out_t[static_cast<size_t>(row) * n + static_cast<size_t>(g) * c.nbins + s] =
+                acc[gg][mt][nt][e];
+        }
+  }
+  if (blockIdx.z == 0) {   // count each (group, slot tile) once
     ones = __reduce_add_sync(0xffffffffu, ones);
-    if ((tid & 31) == 0 && ones) atomicAdd(edges, ones);
+    if (lane == 0 && ones) atomicAdd(edges, ones);
   }
 }
 
@@ -215,6 +431,24 @@ int sm_count() {
   return sms;
 }
 
+template <int MT, int GPC, bool VEC>
+cudaError_t launch_matvec_t(const Cand& c, const void* x_t, int r, void* out_t, void* edges,
+                            int r_tiles, cudaStream_t s) {
+  const size_t smem = kT4Stages * (static_cast<size_t>(c.n_mod) * kT4Depth * kT4Slots +
+                                   MT * 16 * kXStride + kT4Depth * sizeof(int)) +
+                      GPC * kT4Depth * kWStride + GPC * kT4Slots * sizeof(int);
+  if (smem > 227 * 1024) return cudaErrorInvalidValue;
+  cudaError_t e = cudaFuncSetAttribute(reinterpret_cast<const void*>(&matvec_t_kernel<MT, GPC, VEC>),
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       static_cast<int>(smem));
+  if (e != cudaSuccess) return e;
+  const dim3 grid((c.nbins + kT4Slots - 1) / kT4Slots, (c.groups + GPC - 1) / GPC, r_tiles);
+  matvec_t_kernel<MT, GPC, VEC><<<grid, kT4Threads, smem, s>>>(
+      c, static_cast<const __nv_bfloat16*>(x_t), r, static_cast<float*>(out_t),
+      static_cast<int*>(edges));
+  return cudaGetLastError();
+}
+
 Cand make_cand(const void* slabs, const void* uid_rows, const void* uid_cols, int n_mod,
                int block, int nbins, int groups, int start, int g0) {
   return Cand{static_cast<const int8_t*>(slabs), static_cast<const int*>(uid_rows),
@@ -249,11 +483,21 @@ int mused_cand_matvec_t(const void* slabs, const void* uid_rows, const void* uid
   cudaError_t e = cudaMemsetAsync(edges, 0, sizeof(int), s);
   if (e != cudaSuccess) return static_cast<int>(e);
   const Cand c = make_cand(slabs, uid_rows, uid_cols, n_mod, block, nbins, groups, start, g0);
-  const dim3 grid(groups * ((nbins + kTile - 1) / kTile), (r + kTile - 1) / kTile);
-  matvec_t_kernel<<<grid, kThreads, 0, s>>>(c, static_cast<const __nv_bfloat16*>(x_t), r,
-                                            static_cast<float*>(out_t),
-                                            static_cast<int*>(edges));
-  return static_cast<int>(cudaGetLastError());
+  auto aligned = [](const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15u) == 0; };
+  const bool vec = nbins % 16 == 0 && block % 8 == 0 && aligned(slabs) && aligned(x_t) &&
+                   (uid_rows == nullptr || aligned(uid_rows));
+  // r tiles of at most 144 rows; 80-row tiles take two groups per CTA
+  const int r_tiles = (r + 143) / 144;
+  const int tile_rows = (r + r_tiles - 1) / r_tiles;
+  const bool narrow = tile_rows <= 80;
+  if (narrow) {
+    e = vec ? launch_matvec_t<5, 2, true>(c, x_t, r, out_t, edges, r_tiles, s)
+            : launch_matvec_t<5, 2, false>(c, x_t, r, out_t, edges, r_tiles, s);
+  } else {
+    e = vec ? launch_matvec_t<9, 1, true>(c, x_t, r, out_t, edges, r_tiles, s)
+            : launch_matvec_t<9, 1, false>(c, x_t, r, out_t, edges, r_tiles, s);
+  }
+  return static_cast<int>(e);
 }
 
 // K5.  y (groups * nbins, r) bf16; out (block, r) f32; scratch (splits,

@@ -1,12 +1,12 @@
 """Double-buffered host -> device ingest — port of ``mused_tpu/data/ingest.py``.
 
-A worker thread featurizes window w+1 (tokenize / hash, ``mused_tpu.data.
-features`` and its native hasher, which release the GIL) while the device
-computes window w.  Each featurized numpy array becomes a torch tensor,
-pinned when the target is a CUDA device, and is copied with
-``non_blocking=True``: the copy is enqueued on the device's stream and
-overlaps compute, and stream order makes it complete before any later
-kernel reads it.
+A worker thread featurizes window w+1 (tokenize / hash,
+``mused_tpu_torch.data.features`` and its native hasher, which releases the
+GIL) while the device computes window w.  Each featurized numpy array
+becomes a torch tensor, pinned when the target is a CUDA device, and is
+copied with ``non_blocking=True``: the copy is enqueued on the device's
+stream and overlaps compute, and stream order makes it complete before any
+later kernel reads it.
 """
 from __future__ import annotations
 
@@ -16,7 +16,7 @@ from typing import Callable, Iterator
 import numpy as np
 import torch
 
-from mused_tpu.data import features as feat
+from mused_tpu_torch.data import features as feat
 
 
 def to_device(arrays, device: torch.device) -> tuple:

@@ -46,14 +46,14 @@ from typing import NamedTuple, Sequence
 import numpy as np
 import torch
 
-from mused_tpu.data import features as feat
-from mused_tpu.ops import matching
-from mused_tpu.utils import metrics as metrics_mod
-from mused_tpu.utils.config import PipelineConfig
+from mused_tpu_torch.data import features as feat
 from mused_tpu_torch.data.ingest import WindowPrefetcher, pad_window_features
-from mused_tpu_torch.ops import affinity, blocked_affinity as ba, fd, kmeans, reduction, swfd
+from mused_tpu_torch.ops import affinity, blocked_affinity as ba, fd, kmeans, matching
+from mused_tpu_torch.ops import reduction, swfd
 from mused_tpu_torch.ops.kernels import affinity_kernel as ak
 from mused_tpu_torch.ops.kernels import blocked_select as bs
+from mused_tpu_torch.utils import metrics as metrics_mod
+from mused_tpu_torch.utils.config import PipelineConfig
 from mused_tpu_torch.utils.profiling import SpanTimer
 
 LARGE_WINDOW_ROWS = 32_768   # beyond this, windows take the blocked path
@@ -257,10 +257,11 @@ def match_window_labels(prev_clusters, labels, cfg: PipelineConfig, *,
 
 class StreamingEngine:
     """Host orchestration of the streaming pipeline for one approach on one
-    device.  ``device="cuda"`` without a card raises; nothing moves to the
-    CPU behind the caller's back."""
+    device, the card unless the caller asks for the CPU (``device="cpu"``).
+    ``"cuda"`` without a card raises; nothing moves to the CPU behind the
+    caller's back."""
 
-    def __init__(self, cfg: PipelineConfig, device):
+    def __init__(self, cfg: PipelineConfig, device="cuda"):
         self.cfg = cfg
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
@@ -423,13 +424,14 @@ def window_triggers(subset_size: int, window_size: int,
 def process_streaming_data(results, data_modalities, modality_types, window_size,
                            reduced_dim, k_basis, n_clusters_total, seed, approach,
                            complete_true_labels, step_window_ratio, noise_rate,
-                           label_mode, sorting, eps, min_samples, *, device,
+                           label_mode, sorting, eps, min_samples, *, device="cuda",
                            cfg: PipelineConfig | None = None, matching: str = "auto",
                            k_estimate: str = "labels", eigengap_theta: float = 0.15,
                            data_shards: int = 1, windows_per_batch: int | None = None,
                            checkpoint_dir: str | None = None,
                            engine: StreamingEngine | None = None):
-    """Drop-in equivalent of reference main.py:13-130 on ``device``.
+    """Drop-in equivalent of reference main.py:13-130 on ``device`` (the
+    card unless the caller passes ``device="cpu"``).
 
     Appends one sweep point's metrics to ``results`` and returns it.  Pass
     ``engine`` to keep a handle on its timer and state after the run.

@@ -37,12 +37,12 @@ from typing import NamedTuple
 
 import torch
 
-from mused_tpu.data.features import SparseWindowFeatures
-from mused_tpu.utils.config import FeatureConfig
+from mused_tpu_torch.data.features import SparseWindowFeatures
 from mused_tpu_torch.ops import affinity
 from mused_tpu_torch.ops.kernels import affinity_kernel as ak
 from mused_tpu_torch.ops.kernels import blocked_select as bs
 from mused_tpu_torch.ops.kernels import cand_matvec as cm
+from mused_tpu_torch.utils.config import FeatureConfig
 
 
 class Columns(NamedTuple):

@@ -166,8 +166,10 @@ def shrink_rr_cands(sketch: torch.Tensor, cand, ell: int, *, oversample: int = 1
     probe direction, so their row operands are bf16; the bound-carrying
     y = S^T Q splits the rows' operand into bf16 [hi | lo] halves (one K4
     launch, summed after), about 16 mantissa bits; the sketch's products
-    are fp32.  A block with no kept candidate and no valid uid row is an
-    exact FD no-op and skips everything (one host sync per block)."""
+    are fp32.  K4 takes the live r rows (2r for [hi | lo]), K5 the JAX
+    package's 128-padded operand.  A block with no kept candidate and no
+    valid uid row is an exact FD no-op and skips everything (one host sync
+    per block)."""
     _check_power_iters(power_iters)
     nonzero = torch.any(cand.slabs != -1)
     if cand.uid_rows is not None:
@@ -178,14 +180,11 @@ def shrink_rr_cands(sketch: torch.Tensor, cand, ell: int, *, oversample: int = 1
     ellr = sketch.shape[0]
     m2 = ellr + cand.block
     r = min(ell + oversample, m2)
-    rp = -(-r // 128) * 128          # kernel operand padding, as the JAX package
-
-    def pad_rows(x, rows):
-        return torch.nn.functional.pad(x, (0, 0, 0, rows - x.shape[0]))
+    rp = -(-r // 128) * 128          # K5's operand padding, as the JAX package
 
     def at_rows(v_r):                # probe-precision rows^T v_r: (m, r) -> (d, r)
-        out_t, _ = cm.matvec_t(cand, pad_rows(v_r.T.to(torch.bfloat16), rp).contiguous())
-        return out_t[:r].T
+        out_t, _ = cm.matvec_t(cand, v_r.T.to(torch.bfloat16).contiguous())
+        return out_t.T
 
     def a_rows(y):                   # probe-precision rows @ y: (d, r) -> (m, r)
         yb = torch.nn.functional.pad(y, (0, rp - r)).to(torch.bfloat16).contiguous()
@@ -198,9 +197,9 @@ def shrink_rr_cands(sketch: torch.Tensor, cand, ell: int, *, oversample: int = 1
     v_r = v[ellr:]
     v_hi = v_r.to(torch.bfloat16)
     v_lo = (v_r - v_hi.float()).to(torch.bfloat16)
-    x_t = torch.cat([pad_rows(v_hi.T, rp), pad_rows(v_lo.T, rp)], dim=0).contiguous()
+    x_t = torch.cat([v_hi.T, v_lo.T], dim=0).contiguous()               # (2r, m)
     out_t, edges = cm.matvec_t(cand, x_t)
-    y = sketch.T @ v[:ellr] + (out_t[:r] + out_t[rp:rp + r]).T          # (d, r)
+    y = sketch.T @ v[:ellr] + (out_t[:r] + out_t[r:]).T                 # (d, r)
     b, delta = _rr_finish(y, ell, torch.sum(sketch * sketch) + edges)
     return b.to(sketch.dtype), delta.float(), edges.float()
 

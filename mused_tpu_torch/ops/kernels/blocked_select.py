@@ -198,6 +198,19 @@ def binned_candidates(cols: torch.Tensor, rows: torch.Tensor, col_valid: torch.T
     return vals, grp
 
 
+def kernel_splits(n: int, block: int, nbins: int, metric: str) -> int:
+    """Group-range splits (CTAs per cluster sharing one output tile) the K2
+    kernel takes at this shape on the current CUDA device; 1 for the
+    coordinate metrics."""
+    if metric not in METRICS:
+        raise ValueError(f"unknown metric {metric!r}: expected one of {METRICS}")
+    splits = build.load().mused_binned_candidates_splits(n, block, nbins,
+                                                         METRICS.index(metric))
+    if splits <= 0:
+        raise ValueError(f"no K2 launch at n={n} block={block} nbins={nbins}")
+    return splits
+
+
 def binned_candidates_pair(colsA, colsB, rowsA, rowsB, colvA, colvB, start: int, *,
                            metricA: str, metricB: str, nbins: int, block: int):
     """Candidates of TWO coordinate metrics over the same rows in one launch

@@ -109,6 +109,8 @@ def _configure(lib) -> None:
     lib.mused_knn_tc_smem_bytes.restype = i
     lib.mused_binned_candidates.argtypes = [p] * 7 + [i] * 6 + [p]
     lib.mused_binned_candidates.restype = i
+    lib.mused_binned_candidates_splits.argtypes = [i] * 4
+    lib.mused_binned_candidates_splits.restype = i
     lib.mused_binned_candidates_pair.argtypes = ([p, p, p, i, i] * 2 + [p] * 4
                                                  + [i] * 4 + [p])
     lib.mused_binned_candidates_pair.restype = i

@@ -30,12 +30,13 @@ from mused_tpu.ops import blocked_affinity as jba
 from mused_tpu.ops.pallas import blocked_select as jbs
 from mused_tpu.ops.pallas import cand_matvec as jcm
 from mused_tpu.utils.config import FeatureConfig
+from mused_tpu_torch.data import features as tfeat
 from mused_tpu_torch.data.ingest import pad_window_features, to_device
 from mused_tpu_torch.ops import affinity as taff
 from mused_tpu_torch.ops import blocked_affinity as tba
 from mused_tpu_torch.ops.kernels import cand_matvec as tcm
 from mused_tpu_torch.utils.convert import columns_from_jax
-from torch_parity import n as tonp, synthetic_window_stream, t
+from torch_parity import as_features_of, n as tonp, synthetic_window_stream, t
 
 N, BLOCK, K = 256, 64, 5
 NBINS = N // 2
@@ -58,7 +59,9 @@ def tcols(jcols):
 
 
 def test_standard_columns_match_jax(window, jcols):
-    got = tba.standard_columns(type(window)._make(to_device(window, torch.device("cpu"))),
+    port_window = as_features_of(window, tfeat)
+    got = tba.standard_columns(type(port_window)._make(to_device(port_window,
+                                                                torch.device("cpu"))),
                                FeatureConfig())
     assert got.kinds == jcols.kinds
     for g, w in zip(got.valids, jcols.valids):
@@ -193,8 +196,9 @@ def test_pad_window_features_matches_jax(window, sparse):
                                               t(window.text_cnt), fc.text_hash_dim)
                       ).astype(np.uint8),
             tags_valid=window.tags_valid)
-    got, want = pad_window_features(wf, 37), _pad_window_features(wf, 37)
-    assert type(got) is type(want)
+    got = pad_window_features(as_features_of(wf, tfeat), 37)
+    want = _pad_window_features(wf, 37)
+    assert type(got) is getattr(tfeat, type(want).__name__)
     for g, w in zip(got, want):
         assert g.dtype == w.dtype
         np.testing.assert_array_equal(g, w)

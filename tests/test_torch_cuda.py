@@ -154,3 +154,25 @@ def test_bf16_operands_match_plain_on_cuda(metric, cuda):
     got = ak.knn_adjacency(x, valid, 7, metric, input_dtype="bfloat16")
     want = ak.knn_adjacency_reference(x, valid, 7, metric, input_dtype="bfloat16")
     _assert_agrees(got, want, metric)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sparse", [True, False])
+def test_native_hasher_matches_python_on_the_card_machine(sparse, cuda, monkeypatch):
+    """The port's C++ hasher, built on the machine with the card, against its
+    Python fallbacks on a window of the synthetic stream: bit-equal."""
+    from mused_tpu_torch import native
+    from mused_tpu_torch.data import features
+    from mused_tpu_torch.data.synthetic import make_stream
+    from mused_tpu_torch.utils.config import FeatureConfig
+    assert native.available(), native.load_error
+    mods, _, _ = make_stream(2000, noise_rate=0.95, seed=0)
+    cfg = FeatureConfig(sparse=sparse)
+    before = native.calls
+    fast = features.featurize_window(*mods, cfg)
+    assert native.calls == before + 2
+    monkeypatch.setattr(native, "_load", lambda: None)
+    plain = features.featurize_window(*mods, cfg)
+    for g, w in zip(fast, plain):
+        assert g.dtype == w.dtype
+        np.testing.assert_array_equal(g, w)

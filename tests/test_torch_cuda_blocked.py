@@ -8,7 +8,9 @@ JAX, so it runs on a machine without it; there, skip the JAX conftest:
 Tolerances: bit-equal.  Operands are multiples of 1/4 (dot, chord, K4, K5)
 or 0/1 counts (jaccard), whose f32 sums are exact in any order, and chord3 /
 l1 run unfused in the plain version's order.  Random unit rows (dot) are
-held to f32 reassociation: |error| <= 1e-5 on values in [-1, 1].
+held to f32 reassociation: |error| <= 1e-5 on values in [-1, 1].  K2's
+tensor-core metrics split the groups over the CTAs of a cluster; the ties
+case checks that the merge keeps the lowest group.
 """
 import pytest
 import torch
@@ -16,8 +18,9 @@ import torch
 from mused_tpu_torch.ops.kernels import blocked_select as bs
 from mused_tpu_torch.ops.kernels import cand_matvec as cm
 
-# (n, nbins, block, start, K): an aligned case and a ragged one
-SHAPES = [(1024, 256, 256, 256, 128), (960, 320, 200, 100, 192)]
+# (n, nbins, block, start, K): an aligned case, a ragged one, and 64-byte
+# int8 rows (narrower than one 128-byte TMA box)
+SHAPES = [(1024, 256, 256, 256, 128), (960, 320, 200, 100, 192), (512, 128, 128, 0, 64)]
 
 
 @pytest.fixture
@@ -102,6 +105,46 @@ def test_k3_equals_two_k2_launches(shape, cuda):
         assert torch.equal(p, s)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("metric", ["dot", "jaccard"])
+def test_k2_at_the_real_width_on_three_groups(metric, cuda):
+    """Text (K = 4096 bf16) and tags (K = 2048 int8) widths on an 8190-column,
+    3-group panel (2730 slots: a ragged slot tile), integer-valued."""
+    n, nbins, block, start = 8190, 2730, 2048, 1000
+    x, sums = _operands(metric, n, 4096 if metric == "dot" else 2048, cuda)
+    valid = _valid(n, cuda)
+    rows = x[start:start + block]
+    got = bs.binned_candidates(x, rows, valid, start, metric=metric, nbins=nbins,
+                               block=block, row_sums=sums)
+    want = bs.binned_candidates_plain(x, rows, valid, start, metric=metric, nbins=nbins,
+                                      block=block, row_sums=sums)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("metric", ["dot", "jaccard", "chord"])
+def test_k2_ties_keep_the_lowest_group_across_splits(metric, cuda):
+    """Every group holds the same columns, so every slot ties across the four
+    groups; the groups are split over the CTAs of a cluster, and the merge
+    must keep the lowest group that is not masked (invalid or self)."""
+    n, nbins, block, start = 1024, 256, 256, 256
+    base, sums = _operands(metric, nbins, 128, cuda)
+    x = base.repeat(4, 1).contiguous()
+    sums = None if sums is None else sums.repeat(4).contiguous()
+    valid = torch.ones(n, dtype=torch.bool, device=cuda)
+    valid[::7] = False
+    assert bs.kernel_splits(n, block, nbins, metric) > 1
+    rows = x[start:start + block]
+    got = bs.binned_candidates(x, rows, valid, start, metric=metric, nbins=nbins,
+                               block=block, row_sums=sums)
+    want = bs.binned_candidates_plain(x, rows, valid, start, metric=metric, nbins=nbins,
+                                      block=block, row_sums=sums)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert (got[1] == 0).float().mean().item() > 0.5
+
+
 def _cand(device, block, nbins, groups, n_mod=4, with_user=True, seed=5):
     g = torch.Generator().manual_seed(seed)
     slabs = torch.randint(-1, groups, (n_mod, block, nbins), generator=g).to(torch.int8)
@@ -132,6 +175,38 @@ def test_k4_k5_match_plain_on_cuda(dims, with_user, cuda):
     assert (cm.launches_t, cm.launches) == (before[0] + 1, before[1] + 1)
     assert torch.equal(out_t, want_t) and torch.equal(out, want)
     assert edges.item() == want_edges.item() == cm.dense_rows_reference(cand).sum().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dims", [(2048, 1536, 3, 72), (333, 101, 5, 72), (256, 256, 4, 66),
+                                  (256, 256, 4, 132), (200, 320, 3, 300)])
+def test_k4_tensor_core_shapes(dims, cuda):
+    """K4 at the fold's live widths (r = 66, 72, 132), odd block / nbins (the
+    unvectorised staging) and several r tiles (r = 300), integer-valued:
+    bit-equal, with the edge count exact."""
+    block, nbins, groups, r = dims
+    cand = _cand(cuda, block, nbins, groups)
+    g = torch.Generator().manual_seed(7)
+    x_t = torch.randint(-4, 5, (r, block), generator=g).to(torch.bfloat16).to(cuda)
+    out_t, edges = cm.matvec_t(cand, x_t)
+    want_t, want_edges = cm.matvec_t_reference(cand, x_t)
+    torch.cuda.synchronize()
+    assert torch.equal(out_t, want_t)
+    assert edges.item() == want_edges.item() == cm.dense_rows_reference(cand).sum().item()
+
+
+@pytest.mark.cuda
+def test_k4_live_rows_equal_padded_rows(cuda):
+    """K4 on the fold's 66 live rows gives the same bits as on those rows
+    zero-padded to 128 (the JAX package's operand width)."""
+    cand = _cand(cuda, 512, 384, 4)
+    x = torch.randn((66, 512), generator=torch.Generator().manual_seed(8))
+    x_t = x.to(torch.bfloat16).to(cuda)
+    live, _ = cm.matvec_t(cand, x_t)
+    padded, _ = cm.matvec_t(cand, torch.nn.functional.pad(x_t, (0, 0, 0, 62)).contiguous())
+    torch.cuda.synchronize()
+    assert torch.equal(live, padded[:66])
+    assert not torch.any(padded[66:])
 
 
 @pytest.mark.cuda

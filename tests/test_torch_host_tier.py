@@ -1,0 +1,164 @@
+"""The port's copies of the host tier against their originals in the JAX
+package, on seeded numpy inputs (all on the CPU):
+
+  * ``data/features.featurize_window`` (dense and sparse layouts) with the
+    Python hashers on both sides, and the port's native hasher against its
+    Python fallbacks: bit-equal (both hash with CRC32);
+  * ``ops/matching.match_clusters`` (Hungarian and Sinkhorn, with and
+    without a previous window) and ``utils/metrics.compute_all_metrics``:
+    equal;
+  * ``utils/config``: ``PipelineConfig()`` / ``FeatureConfig()`` field for
+    field, and ``APPROACHES``.
+"""
+import contextlib
+import dataclasses
+import io
+
+import numpy as np
+import pytest
+
+from mused_tpu import native as jnative
+from mused_tpu.data import features as jfeat
+from mused_tpu.ops import matching as jmatch
+from mused_tpu.utils import config as jconfig
+from mused_tpu.utils import metrics as jmetrics
+from mused_tpu_torch import native as tnative
+from mused_tpu_torch.data import features as tfeat
+from mused_tpu_torch.data.synthetic import make_stream
+from mused_tpu_torch.ops import matching as tmatch
+from mused_tpu_torch.utils import config as tconfig
+from mused_tpu_torch.utils import metrics as tmetrics
+
+
+@pytest.fixture(scope="module")
+def window():
+    """200 records of the port's synthetic stream, with the awkward cells
+    the featurizer must survive: empty / missing text, empty-string, None
+    and NaN tag cells, empty usernames."""
+    mods, _, _ = make_stream(200, noise_rate=0.5, seed=3)
+    loc, tim, users, tags, text = (np.array(m, dtype=m.dtype, copy=True) for m in mods)
+    text[3, 0], text[3, 1] = "", None
+    text[4, 0] = "A b CD e-f 12 3 ünï"
+    tags[5, 0], tags[6, 0], tags[7, 0] = "", None, float("nan")
+    tags[8, 0] = ["x", "", "x", "y"]
+    users[9, 0] = ""
+    return loc, tim, users, tags, text
+
+
+@pytest.fixture
+def python_hashers(monkeypatch):
+    monkeypatch.setattr(jnative, "_load", lambda: None)
+    monkeypatch.setattr(tnative, "_load", lambda: None)
+
+
+@pytest.mark.parametrize("sparse", [True, False])
+def test_featurize_window_bit_equal(window, sparse, python_hashers):
+    got = tfeat.featurize_window(*window, tconfig.FeatureConfig(sparse=sparse))
+    want = jfeat.featurize_window(*window, jconfig.FeatureConfig(sparse=sparse))
+    assert type(got).__name__ == type(want).__name__ and got._fields == want._fields
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        np.testing.assert_array_equal(g, w)
+
+
+@pytest.mark.parametrize("sparse", [True, False])
+def test_native_hasher_matches_python(window, sparse, monkeypatch):
+    """The port's C++ hasher (built here with the host compiler) against its
+    Python fallbacks, through featurize_window."""
+    assert tnative.available(), tnative.load_error
+    before = tnative.calls
+    cfg = tconfig.FeatureConfig(sparse=sparse)
+    native = tfeat.featurize_window(*window, cfg)
+    assert tnative.calls == before + 2
+    monkeypatch.setattr(tnative, "_load", lambda: None)
+    plain = tfeat.featurize_window(*window, cfg)
+    for g, w in zip(native, plain):
+        assert g.dtype == w.dtype
+        np.testing.assert_array_equal(g, w)
+
+
+@pytest.mark.parametrize("fn", ["hash_text_counts", "multihot_tags",
+                                "hash_text_sparse", "multihot_tags_sparse"])
+def test_native_hasher_matches_the_jax_package_native(window, fn):
+    _, _, _, tags, text = window
+    texts = [f"{a} {b}" for a, b in text]
+    cells = ["" if c is None or isinstance(c, float) else c for c in tags[:, 0]]
+    rows = texts if "text" in fn else cells
+    args = (rows, 512) if fn in ("hash_text_counts", "multihot_tags") else (rows, 512, 8)
+    got, want = getattr(tnative, fn)(*args), getattr(jnative, fn)(*args)
+    assert got is not None and want is not None
+    for g, w in zip(got if isinstance(got, tuple) else (got,),
+                    want if isinstance(want, tuple) else (want,)):
+        np.testing.assert_array_equal(g, w)
+
+
+def _labels(seed, n=300, k=4):
+    rng = np.random.default_rng(seed)
+    return rng.integers(0, k, n)
+
+
+@pytest.mark.parametrize("method", ["hungarian", "pot"])
+@pytest.mark.parametrize("with_prev", [True, False])
+def test_match_clusters_equal(method, with_prev):
+    prev = _labels(0) if with_prev else None
+    new = (_labels(0) + 1) % 5          # a relabeled copy: a perfect match exists
+    new[::7] = _labels(1)[::7]          # with some disagreement
+    got = tmatch.match_clusters(prev, new, method=method, min_overlap=3)
+    want = jmatch.match_clusters(prev, new, method=method, min_overlap=3)
+    np.testing.assert_array_equal(got, want)
+    if with_prev:
+        assert not np.array_equal(got, new)
+
+
+def test_match_clusters_infeasible_and_background_equal():
+    prev, new = np.zeros(20, int), np.arange(20)        # no pair reaches overlap 5
+    np.testing.assert_array_equal(tmatch.match_clusters(prev, new),
+                                  jmatch.match_clusters(prev, new))
+    bg = np.full(20, -1)
+    np.testing.assert_array_equal(tmatch.match_clusters(bg, new),
+                                  jmatch.match_clusters(bg, new))
+    cost = np.array([[np.inf, -3.0], [np.inf, -2.0]])
+    assert tmatch.is_feasible(cost) == jmatch.is_feasible(cost) is False
+    np.testing.assert_array_equal(tmatch.sinkhorn([0.5, 0.5], [0.5, 0.5], np.eye(2)),
+                                  jmatch.sinkhorn([0.5, 0.5], [0.5, 0.5], np.eye(2)))
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_compute_all_metrics_equal(seed):
+    truth = _labels(seed, k=3) * (_labels(seed + 10, k=2) > 0)
+    clusters = _labels(seed + 20, k=3)
+    args = (300, 0.5, "binary", True, 8, 3, 64, clusters, truth, 2_000_000_000, 0)
+    with contextlib.redirect_stdout(io.StringIO()) as out_t:
+        got = tmetrics.compute_all_metrics(tmetrics.get_initial_results()[0], *args)
+    with contextlib.redirect_stdout(io.StringIO()) as out_j:
+        want = jmetrics.compute_all_metrics(jmetrics.get_initial_results()[0], *args)
+    assert got == want and out_t.getvalue() == out_j.getvalue()
+    assert tmetrics.get_initial_results()[1] == jmetrics.get_initial_results()[1]
+    assert tmetrics.nmi(truth, clusters) == jmetrics.nmi(truth, clusters)
+
+
+def test_metrics_of_an_empty_stream_equal():
+    empty = np.empty(0, int)
+    for name in ("nmi", "aligned_f1", "accuracy", "mean_absolute_error"):
+        assert getattr(tmetrics, name)(empty, empty) == getattr(jmetrics, name)(empty, empty)
+
+
+@pytest.mark.parametrize("cls", ["PipelineConfig", "FeatureConfig"])
+def test_config_fields_equal(cls):
+    got, want = getattr(tconfig, cls)(), getattr(jconfig, cls)()
+    got_fields = [(f.name, f.type) for f in dataclasses.fields(got)]
+    assert got_fields == [(f.name, f.type) for f in dataclasses.fields(want)]
+    for f in dataclasses.fields(got):
+        g, w = getattr(got, f.name), getattr(want, f.name)
+        assert (dataclasses.asdict(g) == dataclasses.asdict(w)
+                if dataclasses.is_dataclass(g) else g == w), f.name
+
+
+def test_config_behaviour_equal():
+    assert tconfig.APPROACHES == jconfig.APPROACHES
+    for kw in ({}, {"label_mode": "types"}, {"label_mode": "all"},
+               {"n_clusters_override": 7}, {"approach": "SVDMC_batch"}):
+        got, want = tconfig.PipelineConfig(**kw), jconfig.PipelineConfig(**kw)
+        assert (got.n_clusters_total, got.is_batch) == (want.n_clusters_total,
+                                                        want.is_batch)
+        assert got.replace(window_size=8).window_size == 8

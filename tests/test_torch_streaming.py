@@ -26,6 +26,7 @@ import pytest
 import torch
 
 from mused_tpu import api as japi
+from mused_tpu.data import features as jfeat
 from mused_tpu.engine import streaming as js
 from mused_tpu.utils.config import PipelineConfig
 from mused_tpu_torch import api as tapi
@@ -36,7 +37,7 @@ from mused_tpu_torch.ops.kernels import affinity_kernel as ak
 from mused_tpu_torch.ops.kernels import blocked_select as tbs
 from mused_tpu_torch.ops.kernels import cand_matvec as tcm
 from mused_tpu_torch.utils.profiling import SpanTimer
-from torch_parity import inject_jax_draws, n, synthetic_window_stream
+from torch_parity import as_features_of, inject_jax_draws, n, synthetic_window_stream
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 KW = dict(window_size=64, reduced_dim=8, k_basis=3, n_clusters_total=2, seed=0,
@@ -71,7 +72,7 @@ def test_fused_adjacency_bit_equal_per_window(stream):
         window = [m[64 * w:64 * (w + 1)] for m in mods]
         host = teng.featurize(window, mtypes)
         dev = to_device(host, torch.device("cpu"))
-        want_plain = n(jeng.fuse_from_features(host, mtypes))
+        want_plain = n(jeng.fuse_from_features(as_features_of(host, jfeat), mtypes))
         want_kernel = n(js._fuse_dispatch(tuple(host), types=("standard_sparse",),
                                           use_pallas=True, k_basis=3, tags_dim=2048,
                                           text_dim=4096))
@@ -269,13 +270,17 @@ def test_span_timer_records_spans():
 
 
 def test_neither_jax_nor_pandas_is_imported():
+    """Nor the JAX package itself: the port keeps its own host tier."""
     code = ("import sys; sys.path.insert(0, %r); import mused_tpu_torch.api; "
             "import chip_smoke; import mused_tpu_torch.utils.convert; "
             "import mused_tpu_torch.data.synthetic; "
             "import mused_tpu_torch.ops.blocked_affinity; "
             "import mused_tpu_torch.ops.kernels.blocked_select; "
             "import mused_tpu_torch.ops.kernels.cand_matvec; "
-            "print([m for m in sys.modules if m.split('.')[0] in ('jax', 'pandas')])"
+            "import mused_tpu_torch.ops.matching; import mused_tpu_torch.utils.metrics; "
+            "import mused_tpu_torch.data.features; import mused_tpu_torch.native; "
+            "print([m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'pandas', 'mused_tpu')])"
             % REPO)
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                          cwd=REPO, timeout=300)

@@ -26,6 +26,13 @@ def n(x) -> np.ndarray:
     return np.asarray(x)
 
 
+def as_features_of(wf, module):
+    """A (Sparse)WindowFeatures as ``module``'s class of the same name: the
+    port keeps its own copy of the JAX package's feature tuples, and each
+    package's engine dispatches on its own classes."""
+    return getattr(module, type(wf).__name__)(*wf)
+
+
 def jax_probe(m2: int, r: int) -> np.ndarray:
     """The JAX package's fixed FD probe: normal(key(7), (m2, r))."""
     return np.asarray(jax.random.normal(jax.random.key(7), (m2, r), jnp.float32))
