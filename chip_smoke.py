@@ -29,14 +29,17 @@ Phases (any failure exits non-zero; no phase is skipped):
       first 2048-row block of the first window of a separate seeded
       196,608-record stream (window 98,304, nbins 1536): K2 per metric
       (location chord3, time l1, tags jaccard, text dot, and chord on a
-      128-wide random generic panel), K3 against two K2 launches, K4 / K5
-      on that block's real candidate block at the fold's live r = 66 and 132
-      (and the JAX package's 128-padded widths, 128 and 256); times of each
+      128-wide random generic panel), K3 against two K2 launches and the
+      plain version, K4 / K5 on that block's real candidate block at the
+      fold's live widths (K4 r = 66 and 132, K5 r = 66) and the JAX
+      package's 128-padded ones (K4 128 and 256, K5 128); times of each
       kernel and its plain version, its bound (max(operations / peak of
       their type, bytes / HBM rate), with the formula's inputs), share of
-      bound, launches per window, K2's cluster split and, for K2 dot /
-      jaccard, the bare cuBLAS product's time as a yardstick (tolerances at
-      the constants below);
+      bound, launches per window, K2's cluster split and K5's slot split,
+      for K2 dot / jaccard the bare cuBLAS product's time as a yardstick,
+      and for the coordinate metrics (K2 chord3 / l1, K3) both their
+      instruction bound and the older FMA-rate bound (tolerances at the
+      constants below);
   (f) ``api.process_streaming_data`` on the card over that stream at
       window 98,304: SWFDMC with the candidate-native fold (exactly 96 K2,
       48 K3, 96 K4 and 48 K5 launches per window) and sSVDMC on the binned
@@ -98,7 +101,16 @@ K4_PROBE_RTOL = 1e-6         # K4 on the real probe (bf16 x 0/1, f32 sums in ano
 # card could take: max(operations / peak of their type, bytes / memory rate),
 # each input read once and each output written once.  Products count as
 # dense (2 * M * N * K), as the kernels and the TPU kernels compute them.
-PEAK_OPS = {"bf16": 989e12, "int8": 1979e12, "tf32": 495e12, "fp32": 67e12}
+# "fp32_instr" is the FP32 instruction issue rate (128 lanes x 132 SMs x
+# 1.98 GHz): the 67 TFLOP/s peak counts an FMA as two operations, and the
+# coordinate metrics' unfused sub / mul / add and their running argmin's
+# compare and selects are one instruction each.
+PEAK_OPS = {"bf16": 989e12, "int8": 1979e12, "tf32": 495e12, "fp32": 67e12,
+            "fp32_instr": 33.5e12}
+# instructions per (row, column) pair: chord3 3 sub + 3 mul + 2 add, l1 2 sub
+# + 1 add (|.| is an operand modifier), each + compare and 2 selects
+COORD_INSTR_PER_PAIR = {"chord3": 11, "l1": 6}
+COORDS = {"chord3": 3, "l1": 2}
 HBM_BYTES_PER_S = 3.35e12
 BLOCKS_PER_WINDOW = HUGE_WINDOW // HUGE_BLOCK
 SSVD_SWEEPS = 6              # blocked randomized SVD: sweeps per huge window
@@ -150,7 +162,21 @@ def k2_bound(metric: str, n: int, block: int, nbins: int, k: int, esize: int) ->
         nbytes += (n + block) * 4
     if metric in bs.MMA_METRICS:
         return bound(2.0 * block * n * k, "int8" if metric == "jaccard" else "bf16", nbytes)
-    return bound(3.0 * block * n * (3 if metric == "chord3" else 2), "fp32", nbytes)
+    return coord_bound([(metric, k)], n, block, nbins)
+
+
+def coord_bound(items: list, n: int, block: int, nbins: int) -> dict:
+    """One K2 coordinate call or one K3 call ((metric, K) per output): the
+    instruction bound, with the older FMA-rate bound beside it (3 operations per
+    coordinate per pair at the 67 TFLOP/s FMA-rate peak, no argmin)."""
+    pairs = float(block) * n
+    nbytes = sum((n + block) * k * 4 + n + block * nbins * 5 for _, k in items)
+    per_pair = sum(COORD_INSTR_PER_PAIR[m] for m, _ in items)
+    out = bound(per_pair * pairs, "fp32_instr", nbytes)
+    old = bound(sum(3.0 * COORDS[m] for m, _ in items) * pairs, "fp32", nbytes)
+    out.update(instructions_per_pair=per_pair, bound_fma_rate_ms=old["bound_ms"],
+               fma_rate_ops=old["ops"])
+    return out
 
 
 def cand_bytes(cand: cm.CandBlock) -> int:
@@ -396,6 +422,8 @@ def phase_e(cols: ba.Columns, device) -> dict:
                "launches_per_window": {"SWFDMC": per_window.get(name, 0),
                                        "sSVDMC": SSVD_SWEEPS * per_window.get(name, 0)}}
         with_bound(row, k2_bound(metric, n, block, nbins, x.shape[1], x.element_size()))
+        if metric in bs.PAIR_METRICS:
+            row["share_of_fma_rate_bound"] = row["bound_fma_rate_ms"] / row["ms"]
         if metric in ("dot", "jaccard") and name != "text_integer_valued":
             row.update(gemm_yardstick(metric, x, x[rows]))
         print("[e] K2", json.dumps(row), flush=True)
@@ -424,8 +452,6 @@ def phase_e(cols: ba.Columns, device) -> dict:
 
     got, singles, plain = pair(), two_k2(bs.binned_candidates), two_k2(bs.binned_candidates_plain)
     torch.cuda.synchronize()
-    b3 = [k2_bound(m, n, block, nbins, t.shape[1], 4) for m, t in (("chord3", xyz),
-                                                                   ("l1", tim))]
     row = {"case": "location+time", "bit_equal_to_two_k2": all(
                torch.equal(a, b) for a, b in zip(got, singles)),
            "bit_equal_to_plain": all(torch.equal(a, b) for a, b in zip(got, plain)),
@@ -433,8 +459,9 @@ def phase_e(cols: ba.Columns, device) -> dict:
            "plain_ms": cuda_ms(lambda: two_k2(bs.binned_candidates_plain), reps=3, warmup=1),
            "launches_per_window": {"SWFDMC": BLOCKS_PER_WINDOW,
                                    "sSVDMC": SSVD_SWEEPS * BLOCKS_PER_WINDOW}}
-    with_bound(row, bound(b3[0]["ops"] + b3[1]["ops"], "fp32",
-                          b3[0]["bytes"] + b3[1]["bytes"]))
+    with_bound(row, coord_bound([("chord3", xyz.shape[1]), ("l1", tim.shape[1])], n, block,
+                                nbins))
+    row["share_of_fma_rate_bound"] = row["bound_fma_rate_ms"] / row["ms"]
     print("[e] K3", json.dumps(row), flush=True)
     if not (row["bit_equal_to_two_k2"] and row["bit_equal_to_plain"]):
         raise AssertionError(f"K3 disagrees with two K2 launches: {row}")
@@ -458,7 +485,8 @@ def phase_e(cols: ba.Columns, device) -> dict:
     probe_t = v_hi.T.contiguous()
     hilo_t = torch.cat([v_hi.T, v_lo.T]).contiguous()
     y0 = cm.matvec_t(cand, probe_t)[0].T                          # rows^T v, as the fold
-    probe_y = torch.nn.functional.pad(y0, (0, rp - r)).to(torch.bfloat16).contiguous()
+    probe_y = y0.to(torch.bfloat16).contiguous()                 # K5's live r, as the fold
+    probe_y_pad = torch.nn.functional.pad(y0, (0, rp - r)).to(torch.bfloat16).contiguous()
     ints = torch.Generator(device=device).manual_seed(SEED + 1)
     checks = []
     for name, fn, ref, x, per_win, tol in [
@@ -471,7 +499,8 @@ def phase_e(cols: ba.Columns, device) -> dict:
             ("K4", cm.matvec_t, cm.matvec_t_reference,
              torch.cat([pad_rows(v_hi.T, rp), pad_rows(v_lo.T, rp)]).contiguous(), 0,
              K4_PROBE_RTOL),
-            ("K5", cm.matvec, cm.matvec_reference, probe_y, BLOCKS_PER_WINDOW, PROBE_RTOL)]:
+            ("K5", cm.matvec, cm.matvec_reference, probe_y, BLOCKS_PER_WINDOW, PROBE_RTOL),
+            ("K5", cm.matvec, cm.matvec_reference, probe_y_pad, 0, PROBE_RTOL)]:
         xi = torch.randint(-4, 5, tuple(x.shape), generator=ints, device=device).to(
             torch.bfloat16)
         gi, wi = fn(cand, xi), ref(cand, xi)
@@ -492,6 +521,12 @@ def phase_e(cols: ba.Columns, device) -> dict:
         if name == "K4":
             row["edges"] = float(ge)
             row["edges_exact"] = float(ge) == float(we) == edges_dense
+        else:
+            row["splits"] = build.load().mused_cand_matvec_splits(cand.slabs.shape[0], block,
+                                                                 nbins, rr)
+            if per_win and cand.uid_rows is not None:   # the username term's share
+                row["ms_without_usernames"] = cuda_ms(
+                    lambda: fn(cand._replace(uid_rows=None), x), reps=5, warmup=1)
         print(f"[e] {name}", json.dumps(row), flush=True)
         if not (row["exact_on_integers"] and row["probe_rel_err"] <= tol
                 and row.get("edges_exact", True)):
@@ -718,6 +753,7 @@ def main() -> int:
     k2 = kernels_e["K2"]
     k2_main = [k2["tags"], k2["text"]]
     k4_main = [r for r in kernels_e["K4"] if r["on_main_path"]]
+    k5_main = [r for r in kernels_e["K5"] if r["on_main_path"]]
     wps = {f"huge_{r['approach']}": r["windows_per_s"] for r in huge_runs}
 
     def timed(rows: list, what: str) -> dict:
@@ -761,6 +797,7 @@ def main() -> int:
         "replaces": "mused_tpu/ops/pallas/blocked_select.py:305",
         "launches": huge_launches["K3"], "max_abs_err": 0.0,
         **timed([kernels_e["K3"]], "one block's call (location chord3 + time l1)"),
+        "bound_fma_rate_ms": kernels_e["K3"]["bound_fma_rate_ms"],
     }, {
         "name": "matvec_t", "route": "cuda",
         "source": "mused_tpu_torch/csrc/cand_matvec.cu",
@@ -774,8 +811,9 @@ def main() -> int:
         "source": "mused_tpu_torch/csrc/cand_matvec.cu",
         "replaces": "mused_tpu/ops/pallas/cand_matvec.py:219",
         "launches": huge_launches["K5"],
-        "max_abs_err": max(r["probe_max_abs_err"] for r in kernels_e["K5"]),
-        **timed(kernels_e["K5"], "one block's fold call (r = 128)"),
+        "max_abs_err": max(r["probe_max_abs_err"] for r in k5_main),
+        **timed(k5_main, "one block's fold call (r = 66)"),
+        "padded_cols_ms": {r["r"]: r["ms"] for r in kernels_e["K5"] if not r["on_main_path"]},
     }]
     missing = [k["name"] for k in kernels if k["launches"] <= 0]
     if missing:

@@ -38,11 +38,15 @@
 //     the unfused __fadd_rn / __fsub_rn / __fdiv_rn order, so jaccard and
 //     chord stay bit-equal to the plain version;
 //   * chord3 and l1 are coordinate metrics with 2-3 features: a CUDA-core
-//     kernel where each thread owns one slot and 16 rows, with unfused
-//     __fsub_rn / __fmul_rn / __fadd_rn in the JAX package's summation order
-//     (acc = 0, then coordinate 0, 1, 2), so values are bit-identical to the
-//     plain version.  K3 runs two such metrics in one pass and shares the
-//     not-self mask; each of its outputs is bit-identical to a K2 launch.
+//     kernel in which each thread owns 2 slots and the CTA's 16 rows, with
+//     unfused __fsub_rn / __fmul_rn / __fadd_rn in the JAX package's
+//     summation order (coordinate 0, 1, 2), so values are bit-identical to
+//     the plain version.  It keeps the running minimum distance (sim =
+//     -dist) and spends no instruction per pair on masks: invalid columns
+//     are loaded as +inf coordinates, which never win, and the self test
+//     runs only in the (at most 2) groups that can hold a row's own column.
+//     K3 runs two such metrics in one pass and shares the not-self test;
+//     each of its outputs is bit-identical to a K2 launch.
 //
 // What bounds it on an H100: at the huge-window shape (n = 98,304,
 // block = 2048, nbins = 1536) text is 1.65 TFLOP of bf16 tensor-core work
@@ -53,8 +57,11 @@
 // tile once per group step (3.2 GB), against 24.6 GB when every CTA
 // streamed both tiles for all 64 groups.  So the L2 -> SM traffic, not the
 // tensor cores, is expected to bound text and tags.  The coordinate
-// metrics read 20 bytes per column per 16 rows and are a small share of a
-// block.
+// metrics are bound by issued instructions: a (row, column) pair of K3 is
+// 11 FP32 instructions of chord3 (3 sub, 3 mul, 2 add, and the compare and
+// two selects of the running argmin) and 6 of l1 (2 sub, 1 add, 3 for the
+// argmin), 3.4 G at the huge-window shape: 0.10 ms at the H100's 33.5 T
+// FP32 instructions/s.
 #include <cuda.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -469,27 +476,26 @@ binned_mma_kernel(const __grid_constant__ CUtensorMap cols_map,
 // coordinate kernel (chord3, l1; one metric, or a pair sharing the sweep)
 // ---------------------------------------------------------------------------
 
-constexpr int kCoordThreads = 256;   // one slot per thread
-constexpr int kCoordRows = 16;       // rows per thread
-
-template <int METRIC>
-__device__ __forceinline__ float coord_sim(const float* a, const float* b) {
-  float acc = 0.f;
-  if (METRIC == kChord3) {
-#pragma unroll
-    for (int c = 0; c < 3; ++c) {
-      const float d = __fsub_rn(a[c], b[c]);
-      acc = __fadd_rn(acc, __fmul_rn(d, d));
-    }
-  } else {
-#pragma unroll
-    for (int c = 0; c < 2; ++c) acc = __fadd_rn(acc, fabsf(__fsub_rn(a[c], b[c])));
-  }
-  return -acc;
-}
+constexpr int kCoordThreads = 128;
+constexpr int kCoordSlots = 2;       // slots per thread, kCoordThreads apart
+constexpr int kCoordRows = 16;       // rows per CTA; every thread sweeps all of them
+constexpr float kFar = 1e30f;        // -kNeg: the running best distance starts here
 
 template <int METRIC>
 __host__ __device__ constexpr int coords() { return METRIC == kChord3 ? 3 : 2; }
+
+// Distance of a coordinate metric, sim = -dist, in the plain version's
+// unfused order (coordinate 0, 1, 2).  The plain version starts from
+// acc = 0: 0 + x == x for the first term, which is >= +0 or NaN, so the
+// add is dropped.  |.| is an operand modifier of the add.
+template <int METRIC>
+__device__ __forceinline__ float coord_dist(const float4& a, const float (&b)[3]) {
+  if (METRIC == kChord3) {
+    const float d0 = __fsub_rn(a.x, b[0]), d1 = __fsub_rn(a.y, b[1]), d2 = __fsub_rn(a.z, b[2]);
+    return __fadd_rn(__fadd_rn(__fmul_rn(d0, d0), __fmul_rn(d1, d1)), __fmul_rn(d2, d2));
+  }
+  return __fadd_rn(fabsf(__fsub_rn(a.x, b[0])), fabsf(__fsub_rn(a.y, b[1])));
+}
 
 struct CoordOperand {
   const float* cols;     // (n, d) f32
@@ -500,72 +506,149 @@ struct CoordOperand {
   int8_t* grp;
 };
 
-// MB < 0: a single metric (K2); otherwise the pair (K3).
+// Column col's coordinates, +inf where the column is invalid or absent:
+// every distance to it is then +inf or NaN, which never beats the running
+// best (strict <), exactly as the plain version's -1e30 mask never beats its
+// running max.  So invalid columns need no test in the pair loop.
+template <int METRIC>
+__device__ __forceinline__ void load_col(const CoordOperand& op, int col, bool in,
+                                         float (&c)[3]) {
+  float v[3] = {0.f, 0.f, 0.f};
+  bool ok = false;
+  if (in) {
+#pragma unroll
+    for (int k = 0; k < coords<METRIC>(); ++k) v[k] = op.cols[static_cast<size_t>(col) * op.d + k];
+    ok = op.colv[col] != 0;
+  }
+#pragma unroll
+  for (int k = 0; k < 3; ++k) c[k] = ok ? v[k] : __int_as_float(0x7f800000);   // +inf
+}
+
+__device__ __forceinline__ float4 load_row(const CoordOperand& op, int r, int ncoords) {
+  float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+  const float* p = op.rows + static_cast<size_t>(r) * op.d;
+  x.x = p[0];
+  x.y = p[1];
+  if (ncoords == 3) x.z = p[2];
+  return x;
+}
+
+// MB < 0: a single metric (K2); otherwise the pair (K3).  A thread owns
+// kCoordSlots slots and the CTA's kCoordRows rows, and keeps the running
+// minimum distance and its group per (row, slot, metric) in registers; the
+// rows' coordinates are read from shared memory (one broadcast load per row
+// and metric serves both slots), the columns' are loaded one group ahead
+// into registers (each column is read by one thread only, so staging it in
+// shared memory would add a store and a load per coordinate and reuse
+// nothing).  Groups run in ascending order with strict <, so the lowest
+// group wins a tie, as the plain version's first argmax.
 template <int MA, int MB>
 __global__ void __launch_bounds__(kCoordThreads)
 binned_coord_kernel(CoordOperand A, CoordOperand B, int n, int block, int nbins,
                     int start) {
   constexpr bool kPair = MB >= 0;
   constexpr int kMB = kPair ? MB : MA;
-  __shared__ float ra[kCoordRows][3], rb[kCoordRows][3];
+  __shared__ float4 ra[kCoordRows], rb[kCoordRows];
   const int tid = threadIdx.x;
   const int row0 = blockIdx.y * kCoordRows;
-  const int slot = blockIdx.x * kCoordThreads + tid;
-  if (tid < kCoordRows * 3) {
-    const int r = tid / 3, c = tid % 3;
-    const bool in = row0 + r < block;
-    ra[r][c] = (in && c < coords<MA>()) ? A.rows[static_cast<size_t>(row0 + r) * A.d + c]
-                                        : 0.f;
+  if (tid < kCoordRows) {
+    const bool live = row0 + tid < block;
+    ra[tid] = live ? load_row(A, row0 + tid, coords<MA>()) : make_float4(0.f, 0.f, 0.f, 0.f);
     if (kPair)
-      rb[r][c] = (in && c < coords<kMB>())
-                     ? B.rows[static_cast<size_t>(row0 + r) * B.d + c] : 0.f;
+      rb[tid] = live ? load_row(B, row0 + tid, coords<kMB>()) : make_float4(0.f, 0.f, 0.f, 0.f);
   }
   __syncthreads();
-  if (slot >= nbins) return;
-
-  float best_a[kCoordRows], best_b[kCoordRows];
-  int g_a[kCoordRows], g_b[kCoordRows];
+  int slot[kCoordSlots];
+  bool in[kCoordSlots];
 #pragma unroll
-  for (int r = 0; r < kCoordRows; ++r) {
-    best_a[r] = best_b[r] = kNeg;
-    g_a[r] = g_b[r] = 0;
+  for (int j = 0; j < kCoordSlots; ++j) {
+    slot[j] = (blockIdx.x * kCoordSlots + j) * kCoordThreads + tid;
+    in[j] = slot[j] < nbins;
   }
-  const int groups = n / nbins;
-  for (int g = 0; g < groups; ++g) {
-    const int col = g * nbins + slot;
-    float ca[3] = {0.f, 0.f, 0.f}, cb[3] = {0.f, 0.f, 0.f};
+  if (!in[0]) return;
+
+  float best_a[kCoordRows][kCoordSlots], best_b[kCoordRows][kCoordSlots];
+  int g_a[kCoordRows][kCoordSlots], g_b[kCoordRows][kCoordSlots];
 #pragma unroll
-    for (int c = 0; c < coords<MA>(); ++c) ca[c] = A.cols[static_cast<size_t>(col) * A.d + c];
-    const bool ok_a = A.colv[col] != 0;
-    bool ok_b = false;
-    if (kPair) {
+  for (int r = 0; r < kCoordRows; ++r)
 #pragma unroll
-      for (int c = 0; c < coords<kMB>(); ++c)
-        cb[c] = B.cols[static_cast<size_t>(col) * B.d + c];
-      ok_b = B.colv[col] != 0;
+    for (int j = 0; j < kCoordSlots; ++j) {
+      best_a[r][j] = best_b[r][j] = kFar;
+      g_a[r][j] = g_b[r][j] = 0;
     }
+  const int groups = n / nbins;
+  // Only the groups holding columns start + row0 .. start + row0 + 15 can
+  // hold a row's own column: the self test runs for those (warp-uniform).
+  const int self_lo = (start + row0) / nbins;
+  const int self_hi = (start + row0 + kCoordRows - 1) / nbins;
+
+  float ca[kCoordSlots][3], cb[kCoordSlots][3];
+#pragma unroll
+  for (int j = 0; j < kCoordSlots; ++j) {
+    load_col<MA>(A, slot[j], in[j], ca[j]);
+    if (kPair) load_col<kMB>(B, slot[j], in[j], cb[j]);
+  }
+
+  auto sweep = [&](int g, auto self_tag) {
+    constexpr bool kSelf = decltype(self_tag)::value;
 #pragma unroll
     for (int r = 0; r < kCoordRows; ++r) {
-      const bool not_self = start + row0 + r != col;   // shared by the pair
-      float sim = coord_sim<MA>(ra[r], ca);
-      if (!(ok_a && not_self)) sim = kNeg;
-      if (sim > best_a[r]) { best_a[r] = sim; g_a[r] = g; }
-      if (kPair) {
-        float simb = coord_sim<kMB>(rb[r], cb);
-        if (!(ok_b && not_self)) simb = kNeg;
-        if (simb > best_b[r]) { best_b[r] = simb; g_b[r] = g; }
+      const float4 xa = ra[r];
+      float4 xb;
+      if (kPair) xb = rb[r];
+#pragma unroll
+      for (int j = 0; j < kCoordSlots; ++j) {
+        bool live = true;   // not the row's own column (shared by the pair)
+        if constexpr (kSelf) live = start + row0 + r != g * nbins + slot[j];
+        const float da = coord_dist<MA>(xa, ca[j]);
+        if (live && da < best_a[r][j]) {
+          best_a[r][j] = da;
+          g_a[r][j] = g;
+        }
+        if constexpr (kPair) {
+          const float db = coord_dist<kMB>(xb, cb[j]);
+          if (live && db < best_b[r][j]) {
+            best_b[r][j] = db;
+            g_b[r][j] = g;
+          }
+        }
       }
     }
+  };
+
+  for (int g = 0; g < groups; ++g) {
+    float na[kCoordSlots][3], nb[kCoordSlots][3];
+    const bool more = g + 1 < groups;
+#pragma unroll
+    for (int j = 0; j < kCoordSlots; ++j) {
+      load_col<MA>(A, (g + 1) * nbins + slot[j], more && in[j], na[j]);
+      if (kPair) load_col<kMB>(B, (g + 1) * nbins + slot[j], more && in[j], nb[j]);
+    }
+    if (g == self_lo || g == self_hi) sweep(g, std::true_type{});
+    else sweep(g, std::false_type{});
+#pragma unroll
+    for (int j = 0; j < kCoordSlots; ++j)
+#pragma unroll
+      for (int k = 0; k < 3; ++k) {
+        ca[j][k] = na[j][k];
+        if (kPair) cb[j][k] = nb[j][k];
+      }
   }
+
+  // sim = -dist: negation is exact, so the values are the plain version's bits
 #pragma unroll
   for (int r = 0; r < kCoordRows; ++r) {
     if (row0 + r >= block) break;
-    const size_t o = static_cast<size_t>(row0 + r) * nbins + slot;
-    A.vals[o] = best_a[r];
-    A.grp[o] = static_cast<int8_t>(g_a[r]);
-    if (kPair) {
-      B.vals[o] = best_b[r];
-      B.grp[o] = static_cast<int8_t>(g_b[r]);
+#pragma unroll
+    for (int j = 0; j < kCoordSlots; ++j) {
+      if (!in[j]) continue;
+      const size_t o = static_cast<size_t>(row0 + r) * nbins + slot[j];
+      A.vals[o] = -best_a[r][j];
+      A.grp[o] = static_cast<int8_t>(g_a[r][j]);
+      if (kPair) {
+        B.vals[o] = -best_b[r][j];
+        B.grp[o] = static_cast<int8_t>(g_b[r][j]);
+      }
     }
   }
 }
@@ -697,7 +780,7 @@ cudaError_t launch_mma(const void* cols, const void* rows, const void* colv,
 template <int MA, int MB>
 cudaError_t launch_coord(const CoordOperand& a, const CoordOperand& b, int n, int block,
                          int nbins, int start, cudaStream_t stream) {
-  const dim3 grid((nbins + kCoordThreads - 1) / kCoordThreads,
+  const dim3 grid((nbins + kCoordThreads * kCoordSlots - 1) / (kCoordThreads * kCoordSlots),
                   (block + kCoordRows - 1) / kCoordRows);
   binned_coord_kernel<MA, MB><<<grid, kCoordThreads, 0, stream>>>(a, b, n, block, nbins,
                                                                   start);

@@ -30,13 +30,22 @@
 //     straight into the ldmatrix.trans layout of the B operand.  The edge
 //     count is the popcount of the match bytes, an integer per CTA (counted
 //     by the first r tile only) and one integer atomicAdd, so it stays exact;
-//   * K5 is a register-tiled f32 product on CUDA cores: a CTA owns 128 block
-//     rows x 128 columns of r and loops over groups and 32-slot chunks, with
-//     W (rebuilt with int32 compares, stored as 0.0 / 1.0) and y (bf16 ->
-//     f32) staged in shared memory.  At the huge-window shape only 16 such
-//     tiles exist, so the group range is split across CTAs (about two CTAs
-//     per SM); each split writes its partial sum and a second pass adds the
-//     partials in split order, so the result is deterministic.
+//   * K5 runs on the same bf16 tensor cores: M is the block's rows, N the
+//     live columns of y (r, padded in shared memory to 72 columns, or r tiles
+//     of 144 above that), K the slots.  A CTA owns 128 block rows and a
+//     range of 32-slot chunks (the ranges split the slots over about two
+//     CTAs per SM); it walks its chunks, and inside each chunk every group.
+//     A chunk's slab bytes are staged once and each thread keeps its 8 slots
+//     x 2 rows of the first four planes in registers, so one slab byte feeds
+//     all 64 groups; per group the thread rebuilds its A fragments in
+//     registers with the packed zero-byte test (slots of a chunk are
+//     permuted along K so that a thread's fragment bytes are 8 contiguous
+//     slab bytes; y's rows are stored in the same permuted order, so the
+//     product is unchanged).  y_g's chunk rows (4-byte cp.async, the live r
+//     need not be a multiple of 8) and the chunk's uid columns go through a
+//     3-stage ring, one __syncthreads per (chunk, group) step, and are read
+//     with ldmatrix.trans.  Each split writes its partial sum and a second
+//     pass adds the partials in split order, so the result is deterministic.
 //
 // What bounds them on an H100: at n = 98,304, block = 2048 a product is
 // 2 * r * block * n, 26.6 GFLOP at the fold's live r = 66 (0.027 ms at the
@@ -45,18 +54,17 @@
 // about 0.012 ms.  What the design reads instead: every group's CTA re-reads
 // its slab bytes (403 MB from L2 at r = 66, two groups per CTA; 805 MB at
 // r = 132) and every CTA the whole x_t, so K4 is bound by L2 -> SM traffic
-// and the rebuild's integer work, not by the tensor cores.  K5 still runs
-// FP32 FMA against the same bf16 tensor-core roof.
+// and the rebuild's integer work, not by the tensor cores.  K5's bytes are
+// the slabs once, y (13 MB at r = 66) and out (0.5 MB): 0.008 ms.  Its
+// tensor cores do 72 / 66 of the live work; the rebuild (about 1.5 G
+// integer operations for 201 M (row, group, slot) entries x 4 planes) and
+// the shared-memory traffic of y (each warp reads the whole chunk) are
+// expected to set its pace, not the bf16 rate.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
 
 namespace {
-
-constexpr int kThreads = 256;    // 16 x 16 threads, 8 x 8 outputs each
-constexpr int kTile = 128;
-constexpr int kDepth = 32;
-constexpr int kPad = kTile + 4;  // padded k-major rows: float4-aligned, few conflicts
 
 struct Cand {
   const int8_t* slabs;     // (n_mod, block, nbins)
@@ -64,38 +72,6 @@ struct Cand {
   const int* uid_cols;     // (groups, nbins)
   int n_mod, block, nbins, groups, start, g0;
 };
-
-// Fused adjacency entry (local row i, local group g, slot s).
-__device__ __forceinline__ bool fused_entry(const Cand& c, int i, int g, int s) {
-  const size_t off = static_cast<size_t>(i) * c.nbins + s;
-  const size_t plane = static_cast<size_t>(c.block) * c.nbins;
-  bool m = false;
-  for (int mod = 0; mod < c.n_mod; ++mod)
-    m |= static_cast<int>(c.slabs[mod * plane + off]) == g;
-  if (c.uid_rows != nullptr) {
-    const bool same = c.uid_rows[i] == c.uid_cols[static_cast<size_t>(g) * c.nbins + s];
-    m |= same && (c.start + i != (c.g0 + g) * c.nbins + s);
-  }
-  return m;
-}
-
-// acc[8][8] += a[kk][ty*8 + 0..7] (x) b[kk][tx*8 + 0..7] over one staged chunk.
-__device__ __forceinline__ void tile_fma(float (&acc)[8][8], const float (*a)[kPad],
-                                         const float (*b)[kPad], int ty, int tx) {
-#pragma unroll 4
-  for (int kk = 0; kk < kDepth; ++kk) {
-    const float4 a0 = *reinterpret_cast<const float4*>(&a[kk][ty * 8]);
-    const float4 a1 = *reinterpret_cast<const float4*>(&a[kk][ty * 8 + 4]);
-    const float4 b0 = *reinterpret_cast<const float4*>(&b[kk][tx * 8]);
-    const float4 b1 = *reinterpret_cast<const float4*>(&b[kk][tx * 8 + 4]);
-    const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-    const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-#pragma unroll
-    for (int i = 0; i < 8; ++i)
-#pragma unroll
-      for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-  }
-}
 
 // ---------------------------------------------------------------------------
 // K4: bf16 tensor-core product with the rebuilt 0/1 tile
@@ -115,6 +91,10 @@ __device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool pr
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(smem)),
                "l"(gmem), "r"(pred ? 16 : 0));
 }
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem, bool pred) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_u32(smem)),
+               "l"(gmem), "r"(pred ? 4 : 0));
+}
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
@@ -127,6 +107,10 @@ __device__ __forceinline__ void ldmatrix_x4(uint32_t (&d)[4], const void* p) {
 __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&d)[4], const void* p) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
                : "=r"(d[0]), "=r"(d[1]), "=r"(d[2]), "=r"(d[3]) : "r"(smem_u32(p)));
+}
+__device__ __forceinline__ void ldmatrix_x2_trans(uint32_t (&d)[2], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0,%1}, [%2];\n"
+               : "=r"(d[0]), "=r"(d[1]) : "r"(smem_u32(p)));
 }
 __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
                                          uint32_t b1) {
@@ -361,55 +345,281 @@ matvec_t_kernel(Cand c, const __nv_bfloat16* __restrict__ x_t, int r,
   }
 }
 
-// K5 partial: dst[split][row, n0 + nn] = sum over the split's groups and
-// slots of W[row, g, s] * y[g * nbins + s, n0 + nn].
-// grid.x = r tiles, grid.y = block-row tiles, grid.z = splits.
-__global__ void __launch_bounds__(kThreads)
+// ---------------------------------------------------------------------------
+// K5: bf16 tensor-core product with the 0/1 tile rebuilt in registers
+// ---------------------------------------------------------------------------
+
+constexpr int kT5Threads = 256;   // 8 warps, 16 block rows each
+constexpr int kT5Rows = 128;      // block rows per CTA
+constexpr int kT5Slots = 32;      // slots per chunk: two k16 steps
+constexpr int kT5Stages = 3;      // ring depth: (chunk, group) steps in flight
+constexpr int kT5RegPlanes = 4;   // slab planes a thread keeps in registers
+
+// Bytes per staged y row: an odd number of 16-byte units, so the 8 rows one
+// ldmatrix reads fall in 8 different bank groups.
+__host__ __device__ constexpr int t5_ystride(int nt) { return 16 * (nt | 1); }
+
+// K order inside a chunk.  Logical k of step j (0, 1) of the m16n8k16 A
+// fragment of thread t (= lane & 3) is k = 2t + e (a0 / a1) or 2t + 8 + e
+// (a2 / a3); it is mapped to slot 8t + 4j + 2h + e (h = k >> 3), so a
+// thread's A bytes of one row are the 8 contiguous slab bytes 8t .. 8t + 7.
+// y's chunk row of slot p is stored at shared-memory row
+// 16j + 8h + (p >> 3) * 2 + e, so the ldmatrix.trans row of logical k of
+// step j is simply 16j + k: the same permutation on both operands leaves
+// the product unchanged.
+__device__ __forceinline__ int t5_yrow(int p) {
+  return ((p >> 2) & 1) * 16 + ((p >> 1) & 1) * 8 + (p >> 3) * 2 + (p & 1);
+}
+
+// bytes 0 / 1 (or 2 / 3) of a 0x80-per-edge match word -> a bf16 0 / 1.0 pair
+__device__ __forceinline__ uint32_t bf16_pair_lo(uint32_t e) {
+  return __byte_perm(e >> 7, 0u, 0x4140) * 0x3F80u;
+}
+__device__ __forceinline__ uint32_t bf16_pair_hi(uint32_t e) {
+  return __byte_perm(e >> 7, 0u, 0x4342) * 0x3F80u;
+}
+
+// K5 partial: dst[z][row, n0 + nn] = sum over split z's slot chunks and
+// every group g of W[row, g, s] * y[g * nbins + s, n0 + nn].
+// grid.x = r tiles of NT * 8 columns, grid.y = 128-row block tiles,
+// grid.z = splits (contiguous ranges of 32-slot chunks).  VEC: cp.async
+// staging (nbins % 16 == 0, r even, aligned pointers); otherwise plain
+// loads into the same buffers.
+template <int NT, int MINB, bool VEC>
+__global__ void __launch_bounds__(kT5Threads, MINB)
 matvec_kernel(Cand c, const __nv_bfloat16* __restrict__ y, int r, float* __restrict__ dst) {
-  __shared__ __align__(16) float ws[kDepth][kPad];   // ws[kk][m] = W[i0 + m, g, s0 + kk]
-  __shared__ __align__(16) float ys[kDepth][kPad];   // ys[kk][nn] = y[g*nbins + s0 + kk, n0 + nn]
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  const int n0 = blockIdx.x * kTile, i0 = blockIdx.y * kTile;
-  const int splits = gridDim.z, z = blockIdx.z;
-  const int g_begin = z * c.groups / splits, g_end = (z + 1) * c.groups / splits;
+  constexpr int kWords = NT * 4;             // 4-byte words of y per staged row
+  constexpr int kYStride = t5_ystride(NT);
+  extern __shared__ __align__(16) uint8_t smem[];
+  const int slab_bytes = c.n_mod * kT5Rows * kT5Slots;           // one chunk
+  uint8_t* slab_s = smem;                                         // [3][n_mod][128][32]
+  uint8_t* y_s = slab_s + kT5Stages * slab_bytes;                 // [3][32][kYStride]
+  int* ucol_s = reinterpret_cast<int*>(y_s + kT5Stages * kT5Slots * kYStride);   // [3][32]
 
-  float acc[8][8];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int gid = lane >> 2, tig = lane & 3;
+  const int n0 = blockIdx.x * NT * 8, i0 = blockIdx.y * kT5Rows;
+  const int chunks = (c.nbins + kT5Slots - 1) / kT5Slots;
+  const int c_begin = blockIdx.z * chunks / gridDim.z;
+  const int steps = ((blockIdx.z + 1) * chunks / gridDim.z - c_begin) * c.groups;
+  const size_t plane = static_cast<size_t>(c.block) * c.nbins;
+  const bool user = c.uid_rows != nullptr;
+  const int lrow = warp * 16 + gid;          // this thread's local rows: lrow, lrow + 8
+  const int live_words = min(kWords, (r - n0 + 1) / 2);   // y words of this r tile
+  int urow[2];
 #pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-
-  for (int g = g_begin; g < g_end; ++g) {
-    for (int s0 = 0; s0 < c.nbins; s0 += kDepth) {
-      for (int idx = tid; idx < kDepth * kTile; idx += kThreads) {
-        const int kk = idx & (kDepth - 1), m = idx / kDepth;   // contiguous along the slab
-        const int i = i0 + m, s = s0 + kk;
-        ws[kk][m] = (i < c.block && s < c.nbins && fused_entry(c, i, g, s)) ? 1.f : 0.f;
-      }
-      for (int idx = tid; idx < kDepth * kTile; idx += kThreads) {
-        const int nn = idx & (kTile - 1), kk = idx / kTile;    // contiguous along y's row
-        const int s = s0 + kk, col = n0 + nn;
-        ys[kk][nn] = (s < c.nbins && col < r)
-                         ? __bfloat162float(y[(static_cast<size_t>(g) * c.nbins + s) * r + col])
-                         : 0.f;
-      }
-      __syncthreads();
-      tile_fma(acc, ws, ys, ty, tx);
-      __syncthreads();
+  for (int h = 0; h < 2; ++h) {
+    const int i = i0 + lrow + 8 * h;
+    urow[h] = (user && i < c.block) ? c.uid_rows[i] : -1;
+  }
+  if (VEC) {   // the padding columns past r stay zero in every buffer
+    for (int p = tid; p < kT5Stages * kT5Slots * kWords; p += kT5Threads) {
+      const int w = p % kWords;
+      if (w >= live_words)
+        *reinterpret_cast<uint32_t*>(y_s + (p / kWords) * kYStride + w * 4) = 0u;
     }
   }
 
-  float* out = dst + static_cast<size_t>(z) * c.block * r;
+  // Stage the step (chunk c_begin + cl, group g) into ring buffer buf and,
+  // on a chunk's first group, its slab bytes into slab buffer sbuf.
+  // Out-of-range slab bytes are 0xFF (no group), uid columns -2, y zero.
+  auto stage = [&](int cl, int g, int buf, int sbuf) {
+    const int s0 = (c_begin + cl) * kT5Slots;
+    if (g == 0) {      // the chunk's slab bytes, staged once for every group
+      uint8_t* sl = slab_s + sbuf * slab_bytes;
+      for (int p = tid; p < c.n_mod * kT5Rows * 2; p += kT5Threads) {
+        const int m = p / (kT5Rows * 2), row = (p >> 1) % kT5Rows, part = p & 1;
+        const int i = i0 + row, s = s0 + part * 16;
+        uint8_t* d = sl + (m * kT5Rows + row) * kT5Slots + part * 16;
+        const int8_t* src = c.slabs + m * plane + static_cast<size_t>(i) * c.nbins + s;
+        if (VEC) {
+          if (i < c.block && s < c.nbins) cp_async16(d, src, true);
+          else *reinterpret_cast<uint4*>(d) = make_uint4(~0u, ~0u, ~0u, ~0u);
+        } else {
+          for (int j = 0; j < 16; ++j)
+            d[j] = (i < c.block && s + j < c.nbins) ? static_cast<uint8_t>(src[j]) : 0xFFu;
+        }
+      }
+    }
+    uint8_t* ys = y_s + buf * kT5Slots * kYStride;
+    const size_t yrow0 = static_cast<size_t>(g) * c.nbins + s0;
+    if (VEC) {
+      // warp w stages slots w, w + 8, w + 16, w + 24 (shared-memory rows
+      // t5_yrow(w) + 2k), lane l their words l and l + 32
 #pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int row = i0 + ty * 8 + i;
-    if (row >= c.block) break;
+      for (int k = 0; k < kT5Slots / 8; ++k) {
+        const int sl = warp + 8 * k;
+        const bool ok = s0 + sl < c.nbins;
+        const __nv_bfloat16* src = y + (yrow0 + sl) * r + n0;
+        uint8_t* d = ys + (t5_yrow(warp) + 2 * k) * kYStride;
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int col = n0 + tx * 8 + j;
-      if (col < r) out[static_cast<size_t>(row) * r + col] = acc[i][j];
+        for (int w = lane; w < kWords; w += 32)
+          if (w < live_words) cp_async4(d + w * 4, ok ? src + 2 * w : y, ok);
+      }
+    } else {
+      for (int p = tid; p < kT5Slots * kWords; p += kT5Threads) {
+        const int sl = p / kWords, w = p % kWords, col = n0 + 2 * w;
+        const bool ok = s0 + sl < c.nbins && col < r;
+        const __nv_bfloat16* src = y + (yrow0 + sl) * r + col;
+        __nv_bfloat16* db = reinterpret_cast<__nv_bfloat16*>(ys + t5_yrow(sl) * kYStride + w * 4);
+        db[0] = ok ? src[0] : __float2bfloat16(0.f);
+        db[1] = (ok && col + 1 < r) ? src[1] : __float2bfloat16(0.f);
+      }
+    }
+    if (user) {
+      int* uc = ucol_s + buf * kT5Slots;
+      const int* src = c.uid_cols + static_cast<size_t>(g) * c.nbins + s0;
+      if (VEC) {
+        if (tid < kT5Slots / 4) {
+          if (s0 + 4 * tid < c.nbins) cp_async16(uc + 4 * tid, src + 4 * tid, true);
+          else *reinterpret_cast<int4*>(uc + 4 * tid) = make_int4(-2, -2, -2, -2);
+        }
+      } else if (tid < kT5Slots) {
+        uc[tid] = s0 + tid < c.nbins ? src[tid] : -2;
+      }
+    }
+    if (VEC) cp_async_commit();
+  };
+
+  float acc[NT][4];
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[nt][e] = 0.f;
+  // slab words of planes 0..3 of the current chunk: [plane][row lo slots
+  // 0-3, 4-7, row hi slots 0-3, 4-7] (0xFF bytes for absent planes)
+  uint32_t sw[kT5RegPlanes][4];
+  const int off_lo = lrow * kT5Slots + 8 * tig, off_hi = off_lo + 8 * kT5Slots;
+  // row lo's offset from its own column in group 0 of chunk c_begin, slot 8 tig
+  const long long self0 = static_cast<long long>(c.start) + i0 + lrow -
+                          static_cast<long long>(c.g0) * c.nbins - c_begin * kT5Slots - 8 * tig;
+
+  // VEC: steps t + 1 .. t + kT5Stages - 1 are in flight while step t is used
+  // (one commit group per step, empty past the end, so the wait count stays
+  // fixed).  Step t + 2 is staged into the buffers step t - 1 used, after
+  // the barrier that ends every thread's use of them; its chunk's slab
+  // buffer is one the current chunk does not use.
+  const int ahead = kT5Stages - 1;
+  int st_cl = 0, st_g = 0, st_buf = 0, st_sbuf = 0;   // the next step to stage
+  auto stage_next = [&]() {
+    stage(st_cl, st_g, st_buf, st_sbuf);
+    st_buf = st_buf + 1 == kT5Stages ? 0 : st_buf + 1;
+    if (++st_g == c.groups) {
+      st_g = 0;
+      ++st_cl;
+      st_sbuf = st_sbuf + 1 == kT5Stages ? 0 : st_sbuf + 1;
+    }
+  };
+  for (int t = 0; t < ahead; ++t) {
+    if (t < steps) stage_next();
+    else if (VEC) cp_async_commit();
+  }
+  int cl = 0, g = 0, buf = 0, sbuf = 0;
+  long long self = self0;
+  for (int t = 0; t < steps; ++t) {
+    if (VEC) cp_async_wait<kT5Stages - 2>();
+    __syncthreads();   // step t visible; step t - 1's buffers free
+    if (t + ahead < steps) stage_next();
+    else if (VEC) cp_async_commit();
+
+    const uint8_t* sl = slab_s + sbuf * slab_bytes;
+    if (g == 0) {
+#pragma unroll
+      for (int m = 0; m < kT5RegPlanes; ++m) {
+        uint2 lo = make_uint2(~0u, ~0u), hi = lo;
+        if (m < c.n_mod) {
+          lo = *reinterpret_cast<const uint2*>(sl + m * kT5Rows * kT5Slots + off_lo);
+          hi = *reinterpret_cast<const uint2*>(sl + m * kT5Rows * kT5Slots + off_hi);
+        }
+        sw[m][0] = lo.x; sw[m][1] = lo.y; sw[m][2] = hi.x; sw[m][3] = hi.y;
+      }
+    }
+
+    // rebuild: eq[q] holds 0x80 in each byte (slot) that is an edge of group
+    // g.  nz accumulates, over the planes, 0x80 in each byte of slab ^ g
+    // that is not zero (zero_bytes without its final not-and-mask).
+    const uint32_t rep = static_cast<uint32_t>(g & 0xFF) * 0x01010101u;
+    uint32_t nz[4] = {~0u, ~0u, ~0u, ~0u};
+#pragma unroll
+    for (int m = 0; m < kT5RegPlanes; ++m)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const uint32_t x = sw[m][q] ^ rep;
+        nz[q] &= ((x & 0x7F7F7F7Fu) + 0x7F7F7F7Fu) | x;
+      }
+    for (int m = kT5RegPlanes; m < c.n_mod; ++m) {
+      const uint2 lo = *reinterpret_cast<const uint2*>(sl + m * kT5Rows * kT5Slots + off_lo);
+      const uint2 hi = *reinterpret_cast<const uint2*>(sl + m * kT5Rows * kT5Slots + off_hi);
+      const uint32_t ws[4] = {lo.x, lo.y, hi.x, hi.y};
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const uint32_t x = ws[q] ^ rep;
+        nz[q] &= ((x & 0x7F7F7F7Fu) + 0x7F7F7F7Fu) | x;
+      }
+    }
+    uint32_t eq[4];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) eq[q] = ~nz[q] & 0x80808080u;
+    if (user) {   // username equality, the row's own column excluded
+      const int4* uc = reinterpret_cast<const int4*>(ucol_s + buf * kT5Slots + 8 * tig);
+      const int4 u0 = uc[0], u1 = uc[1];
+      const int us[8] = {u0.x, u0.y, u0.z, u0.w, u1.x, u1.y, u1.z, u1.w};
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        uint32_t m0 = 0u, m1 = 0u;
+#pragma unroll
+        for (int b = 0; b < 4; ++b) {
+          m0 |= us[b] == urow[h] ? 0x80u << (8 * b) : 0u;
+          m1 |= us[4 + b] == urow[h] ? 0x80u << (8 * b) : 0u;
+        }
+        const long long d = self + 8 * h;   // the own column's slot among 8 tig .. 8 tig + 7
+        if (d >= 0 && d < 4) m0 &= ~(0x80u << (8 * d));
+        else if (d >= 4 && d < 8) m1 &= ~(0x80u << (8 * (d - 4)));
+        eq[2 * h] |= m0;
+        eq[2 * h + 1] |= m1;
+      }
+    }
+
+    const uint8_t* ys = y_s + buf * kT5Slots * kYStride;
+    const int mat = lane >> 3;
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const uint32_t a[4] = {bf16_pair_lo(eq[j]), bf16_pair_lo(eq[2 + j]),
+                             bf16_pair_hi(eq[j]), bf16_pair_hi(eq[2 + j])};
+      // matrix mat of an x4 load: k half mat & 1 of n tile nt + (mat >> 1)
+      const uint8_t* brow = ys + (16 * j + 8 * (mat & 1) + (lane & 7)) * kYStride;
+#pragma unroll
+      for (int nt = 0; nt + 1 < NT; nt += 2) {
+        uint32_t b[4];
+        ldmatrix_x4_trans(b, brow + (nt + (mat >> 1)) * 16);
+        mma_bf16(acc[nt], a, b[0], b[1]);
+        mma_bf16(acc[nt + 1], a, b[2], b[3]);
+      }
+      if (NT & 1) {
+        uint32_t b[2];
+        ldmatrix_x2_trans(b, brow + (NT - 1) * 16);
+        mma_bf16(acc[NT - 1], a, b[0], b[1]);
+      }
+    }
+
+    buf = buf + 1 == kT5Stages ? 0 : buf + 1;
+    self -= c.nbins;
+    if (++g == c.groups) {
+      g = 0;
+      ++cl;
+      sbuf = sbuf + 1 == kT5Stages ? 0 : sbuf + 1;
+      self = self0 - static_cast<long long>(cl) * kT5Slots;
     }
   }
+
+  float* out = dst + static_cast<size_t>(blockIdx.z) * c.block * r;
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int row = i0 + lrow + 8 * (e >> 1), col = n0 + nt * 8 + 2 * tig + (e & 1);
+      if (row < c.block && col < r) out[static_cast<size_t>(row) * r + col] = acc[nt][e];
+    }
 }
 
 // out[e] = sum_z partial[z][e], in split order.
@@ -449,6 +659,50 @@ cudaError_t launch_matvec_t(const Cand& c, const void* x_t, int r, void* out_t, 
   return cudaGetLastError();
 }
 
+// K5's n tile: 72 columns when r <= 72 (the fold's live r = 66), else r
+// tiles of 144.
+int t5_nt(int r) { return r <= 72 ? 9 : 18; }
+
+template <int NT, int MINB, bool VEC>
+cudaError_t prepare_matvec(int n_mod, size_t* smem) {
+  *smem = kT5Stages * (static_cast<size_t>(n_mod) * kT5Rows * kT5Slots +
+                       kT5Slots * t5_ystride(NT) + kT5Slots * sizeof(int));
+  if (*smem > 227 * 1024) return cudaErrorInvalidValue;
+  return cudaFuncSetAttribute(reinterpret_cast<const void*>(&matvec_kernel<NT, MINB, VEC>),
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(*smem));
+}
+
+// Splits that fill one wave: co-resident CTAs / output tiles, at most one
+// per 32-slot chunk.
+template <int NT, int MINB>
+int matvec_splits(int n_mod, int block, int nbins, int r) {
+  size_t smem = 0;
+  if (prepare_matvec<NT, MINB, true>(n_mod, &smem) != cudaSuccess) return 1;
+  int active = 0;
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &active, matvec_kernel<NT, MINB, true>, kT5Threads, smem) != cudaSuccess) {
+    cudaGetLastError();   // a refused query leaves no error behind
+    active = 1;
+  }
+  const int tiles = ((block + kT5Rows - 1) / kT5Rows) * ((r + NT * 8 - 1) / (NT * 8));
+  const int chunks = (nbins + kT5Slots - 1) / kT5Slots;
+  const int splits = (active > 1 ? active : 1) * sm_count() / tiles;
+  return splits < 1 ? 1 : splits > chunks ? chunks : splits;
+}
+
+template <int NT, int MINB, bool VEC>
+cudaError_t launch_matvec(const Cand& c, const void* y, int r, float* dst, int splits,
+                          cudaStream_t s) {
+  size_t smem = 0;
+  const cudaError_t e = prepare_matvec<NT, MINB, VEC>(c.n_mod, &smem);
+  if (e != cudaSuccess) return e;
+  const dim3 grid((r + NT * 8 - 1) / (NT * 8), (c.block + kT5Rows - 1) / kT5Rows, splits);
+  matvec_kernel<NT, MINB, VEC><<<grid, kT5Threads, smem, s>>>(
+      c, static_cast<const __nv_bfloat16*>(y), r, dst);
+  return cudaGetLastError();
+}
+
 Cand make_cand(const void* slabs, const void* uid_rows, const void* uid_cols, int n_mod,
                int block, int nbins, int groups, int start, int g0) {
   return Cand{static_cast<const int8_t*>(slabs), static_cast<const int*>(uid_rows),
@@ -463,13 +717,14 @@ bool cand_ok(int n_mod, int block, int nbins, int groups, int r) {
 
 extern "C" {
 
-// Group-range splits K5 uses for a (block, r) output over `groups` groups;
-// the caller passes a (splits, block, r) f32 scratch when this is > 1.
-int mused_cand_matvec_splits(int block, int r, int groups) {
-  const int tiles = ((block + kTile - 1) / kTile) * ((r + kTile - 1) / kTile);
-  int splits = (2 * sm_count() + tiles - 1) / tiles;
-  if (splits > groups) splits = groups;
-  return splits < 1 ? 1 : splits;
+// Slot-range splits K5 uses for a (block, r) output of n_mod slab planes
+// over nbins slots (one wave of co-resident CTAs, at most one split per
+// 32-slot chunk); the caller passes a (splits, block, r) f32 scratch when
+// this is > 1.
+int mused_cand_matvec_splits(int n_mod, int block, int nbins, int r) {
+  if (n_mod <= 0 || block <= 0 || nbins <= 0 || r <= 0) return 1;
+  return t5_nt(r) == 9 ? matvec_splits<9, 2>(n_mod, block, nbins, r)
+                       : matvec_splits<18, 1>(n_mod, block, nbins, r);
 }
 
 // K4.  slabs (n_mod, block, nbins) int8; uid_rows (block,) int32 or null
@@ -506,15 +761,25 @@ int mused_cand_matvec(const void* slabs, const void* uid_rows, const void* uid_c
                       int n_mod, int block, int nbins, int groups, int start, int g0,
                       const void* y, int r, void* out, void* scratch, int splits,
                       void* stream) {
-  if (!cand_ok(n_mod, block, nbins, groups, r) || splits < 1 || splits > groups ||
-      (splits > 1 && scratch == nullptr))
+  if (!cand_ok(n_mod, block, nbins, groups, r) || splits < 1 ||
+      splits > (nbins + kT5Slots - 1) / kT5Slots || (splits > 1 && scratch == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Cand c = make_cand(slabs, uid_rows, uid_cols, n_mod, block, nbins, groups, start, g0);
   float* dst = static_cast<float*>(splits > 1 ? scratch : out);
-  const dim3 grid((r + kTile - 1) / kTile, (block + kTile - 1) / kTile, splits);
-  matvec_kernel<<<grid, kThreads, 0, s>>>(c, static_cast<const __nv_bfloat16*>(y), r, dst);
-  cudaError_t e = cudaGetLastError();
+  auto aligned = [](const void* p, unsigned a) {
+    return (reinterpret_cast<uintptr_t>(p) & (a - 1)) == 0;
+  };
+  const bool vec = nbins % 16 == 0 && r % 2 == 0 && aligned(slabs, 16) && aligned(y, 4) &&
+                   (uid_rows == nullptr || aligned(uid_cols, 16));
+  cudaError_t e;
+  if (t5_nt(r) == 9) {
+    e = vec ? launch_matvec<9, 2, true>(c, y, r, dst, splits, s)
+            : launch_matvec<9, 2, false>(c, y, r, dst, splits, s);
+  } else {
+    e = vec ? launch_matvec<18, 1, true>(c, y, r, dst, splits, s)
+            : launch_matvec<18, 1, false>(c, y, r, dst, splits, s);
+  }
   if (e != cudaSuccess || splits == 1) return static_cast<int>(e);
   const size_t count = static_cast<size_t>(block) * r;
   sum_splits_kernel<<<static_cast<int>((count + 255) / 256), 256, 0, s>>>(

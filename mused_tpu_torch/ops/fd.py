@@ -166,10 +166,10 @@ def shrink_rr_cands(sketch: torch.Tensor, cand, ell: int, *, oversample: int = 1
     probe direction, so their row operands are bf16; the bound-carrying
     y = S^T Q splits the rows' operand into bf16 [hi | lo] halves (one K4
     launch, summed after), about 16 mantissa bits; the sketch's products
-    are fp32.  K4 takes the live r rows (2r for [hi | lo]), K5 the JAX
-    package's 128-padded operand.  A block with no kept candidate and no
-    valid uid row is an exact FD no-op and skips everything (one host sync
-    per block)."""
+    are fp32.  K4 and K5 take the live r (2r for [hi | lo]); the JAX
+    package pads them to its 128 lanes, which changes no value.  A block
+    with no kept candidate and no valid uid row is an exact FD no-op and
+    skips everything (one host sync per block)."""
     _check_power_iters(power_iters)
     nonzero = torch.any(cand.slabs != -1)
     if cand.uid_rows is not None:
@@ -180,15 +180,13 @@ def shrink_rr_cands(sketch: torch.Tensor, cand, ell: int, *, oversample: int = 1
     ellr = sketch.shape[0]
     m2 = ellr + cand.block
     r = min(ell + oversample, m2)
-    rp = -(-r // 128) * 128          # K5's operand padding, as the JAX package
 
     def at_rows(v_r):                # probe-precision rows^T v_r: (m, r) -> (d, r)
         out_t, _ = cm.matvec_t(cand, v_r.T.to(torch.bfloat16).contiguous())
         return out_t.T
 
     def a_rows(y):                   # probe-precision rows @ y: (d, r) -> (m, r)
-        yb = torch.nn.functional.pad(y, (0, rp - r)).to(torch.bfloat16).contiguous()
-        return cm.matvec(cand, yb)[:, :r]
+        return cm.matvec(cand, y.to(torch.bfloat16).contiguous())
 
     v = default_probe(m2, r, sketch.device) if probe is None else probe
     for _ in range(power_iters):

@@ -114,7 +114,7 @@ def _configure(lib) -> None:
     lib.mused_binned_candidates_pair.argtypes = ([p, p, p, i, i] * 2 + [p] * 4
                                                  + [i] * 4 + [p])
     lib.mused_binned_candidates_pair.restype = i
-    lib.mused_cand_matvec_splits.argtypes = [i, i, i]
+    lib.mused_cand_matvec_splits.argtypes = [i] * 4
     lib.mused_cand_matvec_splits.restype = i
     lib.mused_cand_matvec_t.argtypes = [p, p, p] + [i] * 6 + [p, i, p, p, p]
     lib.mused_cand_matvec_t.restype = i

@@ -193,7 +193,8 @@ def matvec_t(cand: CandBlock, x_t: torch.Tensor):
 
 def matvec(cand: CandBlock, y: torch.Tensor) -> torch.Tensor:
     """rows @ y for the implicit fused rows (K5): y (n, r) bf16 -> (block, r)
-    f32."""
+    f32.  Any r: the kernel pads the live columns in shared memory and
+    writes only those."""
     _check_cand(cand, y, "y")
     if y.shape[0] != cand.groups * cand.nbins:
         raise ValueError(f"y must be ({cand.groups * cand.nbins}, r), got "
@@ -203,7 +204,7 @@ def matvec(cand: CandBlock, y: torch.Tensor) -> torch.Tensor:
     r = y.shape[1]
     dev = y.device
     lib = build.load()
-    splits = lib.mused_cand_matvec_splits(cand.block, r, cand.groups)
+    splits = lib.mused_cand_matvec_splits(cand.slabs.shape[0], cand.block, cand.nbins, r)
     out = torch.empty((cand.block, r), dtype=torch.float32, device=dev)
     scratch = (torch.empty((splits, cand.block, r), dtype=torch.float32, device=dev)
                if splits > 1 else None)

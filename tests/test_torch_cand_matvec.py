@@ -67,6 +67,20 @@ def test_k5_matches_the_jax_kernel(with_user):
     np.testing.assert_array_equal(tonp(got), np.asarray(want))
 
 
+@pytest.mark.parametrize("with_user", [True, False])
+def test_k5_at_the_live_width_matches_the_padded_jax_kernel(with_user):
+    """The fold's live r = 66 against the JAX kernel on the same columns
+    zero-padded to its 128 lanes, sliced back to 66."""
+    rng = np.random.default_rng(7)
+    jc, tc = _both(rng, with_user=with_user)
+    y = rng.integers(-4, 5, (GROUPS * NBINS, 66)).astype(np.float32)
+    padded = np.pad(y, ((0, 0), (0, 128 - 66)))
+    want = jcm.matvec_pallas(jc, jnp.asarray(padded).astype(jnp.bfloat16), interpret=True)
+    got = tcm.matvec(tc, t(y).to(torch.bfloat16))
+    assert tuple(got.shape) == (BLOCK, 66)
+    np.testing.assert_array_equal(tonp(got), np.asarray(want)[:, :66])
+
+
 def test_dense_rows_and_products_match_jax_and_dense_matmuls():
     rng = np.random.default_rng(2)
     jc, tc = _both(rng)

@@ -5,9 +5,10 @@ JAX, so it runs on a machine without it; there, skip the JAX conftest:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda_blocked.py
 
-Tolerances: bit-equal.  Operands are multiples of 1/4 (dot, chord, K4, K5)
-or 0/1 counts (jaccard), whose f32 sums are exact in any order, and chord3 /
-l1 run unfused in the plain version's order.  Random unit rows (dot) are
+Tolerances: bit-equal.  Operands are multiples of 1/4 (dot, chord), small
+integers (K4, K5) or 0/1 counts (jaccard), whose f32 sums are exact in any
+order, and chord3 / l1 run unfused in the plain version's order; K5's live
+columns against padded ones sum real values in the same order.  Random unit rows (dot) are
 held to f32 reassociation: |error| <= 1e-5 on values in [-1, 1].  K2's
 tensor-core metrics split the groups over the CTAs of a cluster; the ties
 case checks that the merge keeps the lowest group.
@@ -145,6 +146,58 @@ def test_k2_ties_keep_the_lowest_group_across_splits(metric, cuda):
     assert (got[1] == 0).float().mean().item() > 0.5
 
 
+def _k3_all_three(xyz, tim, va, vb, start, nbins, block):
+    """(pair, two K2 singles, plain) outputs of the location + time pair."""
+    rows = slice(start, start + block)
+    kw = dict(nbins=nbins, block=block)
+    before = bs.pair_launches
+    pair = bs.binned_candidates_pair(xyz, tim, xyz[rows], tim[rows], va, vb, start,
+                                     metricA="chord3", metricB="l1", **kw)
+    singles = (*bs.binned_candidates(xyz, xyz[rows], va, start, metric="chord3", **kw),
+               *bs.binned_candidates(tim, tim[rows], vb, start, metric="l1", **kw))
+    plain = (*bs.binned_candidates_plain(xyz, xyz[rows], va, start, metric="chord3", **kw),
+             *bs.binned_candidates_plain(tim, tim[rows], vb, start, metric="l1", **kw))
+    torch.cuda.synchronize()
+    assert bs.pair_launches == before + 1
+    return pair, singles, plain
+
+
+# (n, nbins, block, start) per case
+K3_CASES = {
+    "self_columns_straddle_a_group_boundary": (1024, 256, 256, 200),
+    "a_group_with_every_column_invalid": (1024, 256, 256, 512),
+    "the_same_column_in_every_group": (1024, 256, 256, 300),
+    "ragged_slot_tile": (1000, 200, 130, 37),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(K3_CASES))
+def test_k3_edge_cases_equal_two_k2_and_plain(case, cuda):
+    """Self columns in two groups of one 16-row tile, an all-invalid group,
+    ties across every group (the lowest valid, not-self group must win) and
+    a slot count that is no multiple of the kernel's slot tile: K3's four
+    outputs bit-equal to two K2 launches and to the plain version."""
+    n, nbins, block, start = K3_CASES[case]
+    groups = n // nbins
+    if case == "self_columns_straddle_a_group_boundary":
+        assert (start + block) // nbins > start // nbins
+    xyz, _ = _operands("chord3", n, 0, cuda, seed=3)
+    tim, _ = _operands("l1", n, 0, cuda, seed=4)
+    va, vb = _valid(n, cuda), _valid(n, cuda).roll(7)
+    if case == "a_group_with_every_column_invalid":
+        va[nbins:2 * nbins] = False
+        vb[2 * nbins:3 * nbins] = False
+    if case == "the_same_column_in_every_group":
+        xyz = xyz[:nbins].repeat(groups, 1).contiguous()
+        tim = tim[:nbins].repeat(groups, 1).contiguous()
+    pair, singles, plain = _k3_all_three(xyz, tim, va, vb, start, nbins, block)
+    for p, s, w in zip(pair, singles, plain):
+        assert torch.equal(p, s) and torch.equal(p, w)
+    if case == "the_same_column_in_every_group":
+        assert (pair[1] == 0).float().mean().item() > 0.5
+
+
 def _cand(device, block, nbins, groups, n_mod=4, with_user=True, seed=5):
     g = torch.Generator().manual_seed(seed)
     slabs = torch.randint(-1, groups, (n_mod, block, nbins), generator=g).to(torch.int8)
@@ -235,3 +288,63 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
         cm.matvec(cand, torch.zeros((100, 128), dtype=torch.bfloat16, device=cuda))
     with pytest.raises(ValueError):                   # contiguity
         cm.matvec(cand, torch.zeros((128, 256), dtype=torch.bfloat16, device=cuda).T)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dims", [(2048, 1536, 64, 66), (2048, 1536, 64, 72),
+                                  (2048, 1536, 64, 132), (333, 101, 5, 66),
+                                  (256, 256, 4, 67), (200, 320, 3, 300)])
+def test_k5_tensor_core_shapes(dims, cuda):
+    """K5 at the real block (2048 x 1536, 64 groups) at the fold's live
+    r = 66 and at 72 / 132, odd block / nbins and odd r (the unvectorised
+    staging) and several r tiles (r = 300), integer-valued: bit-equal."""
+    block, nbins, groups, r = dims
+    cand = _cand(cuda, block, nbins, groups)
+    g = torch.Generator().manual_seed(9)
+    y = torch.randint(-4, 5, (groups * nbins, r), generator=g).to(torch.bfloat16).to(cuda)
+    before = cm.launches
+    out = cm.matvec(cand, y)
+    want = cm.matvec_reference(cand, y)
+    torch.cuda.synchronize()
+    assert cm.launches == before + 1
+    assert torch.equal(out, want)
+
+
+@pytest.mark.cuda
+def test_k5_live_columns_equal_padded_columns(cuda):
+    """K5 on the fold's 66 live columns gives the same bits as on those
+    columns zero-padded to 128 (the JAX package's operand width)."""
+    cand = _cand(cuda, 512, 384, 4)
+    y = torch.randn((4 * 384, 66), generator=torch.Generator().manual_seed(10))
+    y = y.to(torch.bfloat16).to(cuda)
+    live = cm.matvec(cand, y)
+    padded = cm.matvec(cand, torch.nn.functional.pad(y, (0, 62)).contiguous())
+    torch.cuda.synchronize()
+    assert torch.equal(live, padded[:, :66])
+    assert not torch.any(padded[:, 66:])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_user", [True, False])
+def test_k4_k5_self_columns_inside_the_block(with_user, cuda):
+    """start and g0 put each row's own column inside the block's groups
+    (local groups 1-3), and every valid uid equals the rows' uid, so only
+    the self exclusion keeps those entries out: K4 and K5 bit-equal."""
+    block, nbins, groups = 256, 128, 6
+    cand = _cand(cuda, block, nbins, groups, with_user=with_user)
+    cand = cand._replace(start=3 * nbins + 17, g0=2)
+    if with_user:
+        g = torch.Generator().manual_seed(11)
+        uid_c = torch.where(torch.rand((groups, nbins), generator=g) < 0.2, -2, 5)
+        cand = cand._replace(uid_rows=torch.full((block, 1), 5, dtype=torch.int32, device=cuda),
+                             uid_cols=uid_c.to(torch.int32).to(cuda))
+    g = torch.Generator().manual_seed(12)
+    y = torch.randint(-4, 5, (groups * nbins, 66), generator=g).to(torch.bfloat16).to(cuda)
+    x_t = torch.randint(-4, 5, (66, block), generator=g).to(torch.bfloat16).to(cuda)
+    out = cm.matvec(cand, y)
+    out_t, edges = cm.matvec_t(cand, x_t)
+    want_t, want_edges = cm.matvec_t_reference(cand, x_t)
+    want = cm.matvec_reference(cand, y)
+    torch.cuda.synchronize()
+    assert torch.equal(out, want) and torch.equal(out_t, want_t)
+    assert edges.item() == want_edges.item()
