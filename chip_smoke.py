@@ -8,7 +8,8 @@ Phases (any failure exits non-zero; no phase is skipped):
       build the kernels from ``mused_tpu_torch/csrc`` and print the build
       seconds and ptxas' register / shared-memory report per kernel, and the
       dynamic shared memory of K1's kernels at window 2000; build the native
-      hasher (``mused_tpu_torch/native``) and fail if it does not build;
+      hasher and incdbscan core (``mused_tpu_torch/native``) and fail if
+      either does not build;
   (b) K1 against its plain PyTorch version on the card, per metric at the
       main path's shapes (window 2000, k_basis 50; first window of the
       stream for location / time / tags / text, random rows for euclidean),
@@ -47,7 +48,28 @@ Phases (any failure exits non-zero; no phase is skipped):
       window; metrics in [0, 1];
   (g) on 3 blocks of the first huge window, the kernel route's candidate
       rows agree with the plain route's fused rows on >= 99.9% of edges,
-      and the candidate fold's sq_frobenius equals the dense binned fold's.
+      and the candidate fold's sq_frobenius equals the dense binned fold's;
+  (h) the dense-window surface of slice 2 through its entry points, at
+      window 2000, k_basis 50, reduced_dim 50:
+      (each detector run after a 2-window warm-up of the same configuration)
+      h1 the serving detector (SWFDMC, eigengap count, background bucket)
+         over the first 60,000 records of (c)'s stream in pushes of 500:
+         windows/s, push p50 / p99 ms, the largest lag, events, background
+         rows, exactly 4 K1 launches and 2 native hasher calls per window;
+         saved after 30,000 records and loaded into a fresh detector, its
+         results equal the uninterrupted detector's;
+      h2 BASELINE.md config #2 (a 20,000-row crisis embedding stream,
+         sSpectral, eigengap count) with the background bucket off and on:
+         windows/s, NMI, background rows (> 0 when on), exactly 2 K1 dot
+         launches per window;
+      h3 ``process_streaming_data`` on (c)'s first 20,000 records for
+         sSpectral, DBSCAN_incr (at least one native incdbscan call) and
+         DBSCAN_centr: 4 K1 launches per window, metrics in [0, 1];
+      h4 SWFDMC over those records checkpointing every 4 windows; with the
+         checkpoints after window 4 deleted, the rerun resumes at window 4
+         and its metrics equal the first run's;
+      h5 the detector on 2 huge windows of (e)'s stream (98,304 rows,
+         SWFDMC, background): 96 K2, 48 K3, 96 K4 and 48 K5 per window.
 
 Every phase prints its seconds.  ``--phases`` runs a subset (for
 development; the result lines are printed only when all phases ran).
@@ -59,9 +81,13 @@ The line before the last is ``{"kernels": [...]}``; the last line is
 from __future__ import annotations
 
 import argparse
+import contextlib
+import io
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -69,15 +95,17 @@ import torch
 
 from mused_tpu_torch import api, native
 from mused_tpu_torch.data.ingest import to_device
-from mused_tpu_torch.data.synthetic import make_stream
+from mused_tpu_torch.data.synthetic import crisis_embedding_stream, make_stream
 from mused_tpu_torch.engine import streaming
-from mused_tpu_torch.ops import affinity, fd
+from mused_tpu_torch.ops import affinity, fd, kmeans, spectral
 from mused_tpu_torch.ops import blocked_affinity as ba
 from mused_tpu_torch.ops.kernels import affinity_kernel as ak
 from mused_tpu_torch.ops.kernels import blocked_select as bs
 from mused_tpu_torch.ops.kernels import build
 from mused_tpu_torch.ops.kernels import cand_matvec as cm
+from mused_tpu_torch.serving import StreamDetector
 from mused_tpu_torch.utils.config import PipelineConfig
+from mused_tpu_torch.utils.metrics import nmi
 
 WINDOW, K_BASIS, REDUCED_DIM = 2000, 50, 50     # reference default_params
 N_RECORDS, NOISE_RATE, SEED = 150_000, 0.95, 0
@@ -264,7 +292,8 @@ def phase_b(cases) -> list[dict]:
     return rows
 
 
-def phase_c(mods, mtypes, labels, device, approach: str, n_records: int) -> dict:
+def phase_c(mods, mtypes, labels, device, approach: str, n_records: int,
+            tag: str = "c") -> dict:
     cfg = PipelineConfig(seed=SEED, subset_size=n_records, noise_rate=NOISE_RATE,
                          label_mode="binary", sorting=True, window_size=WINDOW,
                          reduced_dim=REDUCED_DIM, k_basis=K_BASIS, approach=approach,
@@ -273,7 +302,7 @@ def phase_c(mods, mtypes, labels, device, approach: str, n_records: int) -> dict
     if engine.device.type != "cuda":
         raise AssertionError(f"StreamingEngine defaulted to {engine.device}")
     n_windows = len(streaming.window_triggers(n_records, WINDOW, 1))
-    before, hashed = ak.launches, native.calls
+    before, hashed, incdb = ak.launches, native.calls, native.incdb_calls
     t0 = time.perf_counter()
     res = api.process_streaming_data(
         results=api.get_initial_results()[0], data_modalities=[m[:n_records] for m in mods],
@@ -286,12 +315,12 @@ def phase_c(mods, mtypes, labels, device, approach: str, n_records: int) -> dict
     secs = time.perf_counter() - t0
     out = {"approach": approach, "records": n_records, "windows": n_windows,
            "launches": ak.launches - before, "native_hasher_calls": native.calls - hashed,
-           "seconds": secs,
+           "native_incdbscan_calls": native.incdb_calls - incdb, "seconds": secs,
            "windows_per_s": n_windows / secs, "rows_per_s": n_windows * WINDOW / secs,
            "nmi": res["nmi_score"][0], "nmi_e": res["nmi_e_score"][0],
            "f1": res["f1_score"][0], "f1_aligned": res["f1_aligned"][0],
            "spans": engine.timer.summary()}
-    print("[c]", json.dumps(out), flush=True)
+    print(f"[{tag}]", json.dumps(out), flush=True)
     if out["launches"] != 4 * n_windows:
         raise AssertionError(f"expected {4 * n_windows} kernel launches, got "
                              f"{out['launches']}")
@@ -642,9 +671,243 @@ def phase_g(cols: ba.Columns) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# slice 2 on dense windows: phase (h)
+# ---------------------------------------------------------------------------
+
+SERVE_RECORDS, SERVE_CHUNK = 60_000, 500
+SLICE2_RECORDS = 20_000
+
+
+def serve(det: StreamDetector, rows: list, lo: int, hi: int, chunk: int) -> list:
+    """Push rows [lo, hi) in chunks; returns the windows finalized meanwhile."""
+    out = []
+    for a in range(lo, hi, chunk):
+        out.extend(det.push([m[a:min(a + chunk, hi)] for m in rows]))
+    return out
+
+
+BACKGROUND_AGREEMENT = 0.999   # mark_background card vs CPU: sort / cumsum order
+
+
+def background_agreement(det: StreamDetector, rows: list) -> dict:
+    """``mark_background`` on the card against the same function on the CPU,
+    on the first window's residuals as the detector's approach forms them
+    (the transposed sketch for SWFDMC, the NJW embedding for sSpectral)."""
+    eng, cfg = det.engine, det.engine.cfg
+    host = eng.featurize([m[:cfg.window_size] for m in rows], det.modality_types)
+    fused = eng.fuse_from_features(host, to_device(host, eng.device), det.modality_types)
+    gen = streaming.window_generator(cfg.seed, 0, eng.device)
+    if cfg.approach == "sSpectral":
+        lam, vecs = spectral._normalized_spectrum(fused)
+        k = spectral.eigengap_k_from_spectrum(lam, k_max=eng.k_max)
+        x = spectral._njw_embedding(vecs, k, eng.k_max)
+        labels, _ = kmeans.kmeans(x, k, gen, k_max=eng.k_max)
+    else:
+        _, x, labels = streaming._window_step_impl(
+            streaming.StreamingEngine(cfg).state, fused, eng.k_max, gen,
+            approach=cfg.approach, k_basis=cfg.k_basis, reduced_dim=cfg.reduced_dim,
+            k_max=eng.k_max, window=cfg.window_size, fd_shrink=cfg.fd_shrink,
+            k_source="eigengap", eigengap_theta=cfg.eigengap_theta)
+    card = kmeans.mark_background(x, labels, k_max=eng.k_max).cpu()
+    cpu = kmeans.mark_background(x.cpu(), labels.cpu(), k_max=eng.k_max)
+    out = {"rows": len(card), "flagged_card": int((card == -1).sum()),
+           "flagged_cpu": int((cpu == -1).sum()),
+           "agreement": float((card == cpu).float().mean())}
+    if out["agreement"] < BACKGROUND_AGREEMENT:
+        raise AssertionError(f"mark_background on the card disagrees with the CPU: {out}")
+    return out
+
+
+def warm_up(make, rows: list, windows: int = 2) -> None:
+    """Serve ``windows`` windows through a throw-away detector, so the timed
+    run does not pay the libraries' first calls (cuBLAS / cuSOLVER handles,
+    kernel loads)."""
+    det = make()
+    serve(det, rows, 0, windows * det.cfg.window_size, SERVE_CHUNK)
+    det.flush()
+    torch.cuda.synchronize()
+
+
+def detector_run(det: StreamDetector, rows: list, n: int, chunk: int) -> dict:
+    """Serve rows [0, n) through ``det`` with K1 / hasher counts read around
+    it: results, windows/s, push latency and the largest lag (windows fired
+    but not yet returned after a push)."""
+    reset_counts()
+    hashed = native.calls
+    push_ms, results, lag = [], [], 0
+    t0 = time.perf_counter()
+    for a in range(0, n, chunk):
+        t = time.perf_counter()
+        results.extend(det.push([m[a:min(a + chunk, n)] for m in rows]))
+        push_ms.append((time.perf_counter() - t) * 1e3)
+        lag = max(lag, det._window_index - len(results))
+    results.extend(det.flush())
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    return {"results": results, "windows": len(results), "seconds": secs,
+            "windows_per_s": len(results) / secs,
+            "push_p50_ms": float(np.percentile(push_ms, 50)),
+            "push_p99_ms": float(np.percentile(push_ms, 99)), "max_lag_windows": lag,
+            "k1_launches": ak.launches, "native_hasher_calls": native.calls - hashed,
+            "huge_launches": huge_counts(), "spans": det.engine.timer.summary()}
+
+
+def phase_h1(mods, device) -> dict:
+    rows = [m[:SERVE_RECORDS] for m in mods]
+
+    def make():
+        return StreamDetector(streaming.STANDARD_TYPES, WINDOW, approach="SWFDMC",
+                              reduced_dim=REDUCED_DIM, k_basis=K_BASIS,
+                              k_estimate="eigengap", background=True)
+
+    warm_up(make, rows)
+    det = make()
+    if det.engine.device.type != "cuda":
+        raise AssertionError(f"StreamDetector defaulted to {det.engine.device}")
+    run = detector_run(det, rows, SERVE_RECORDS, SERVE_CHUNK)
+    full = run.pop("results")
+    n_win = len(full)
+    out = {**run, "records": SERVE_RECORDS, "chunk": SERVE_CHUNK,
+           "events_per_window": float(np.mean([len(r.event_ids) for r in full])),
+           "new_events_per_window": float(np.mean([len(r.new_events) for r in full])),
+           "background_rows": int(sum(r.background for r in full)),
+           "windows_with_background": int(sum(r.background > 0 for r in full)),
+           "mark_background_card_vs_cpu": background_agreement(det, rows)}
+    # resume: save after half the records, load into a fresh detector
+    half = SERVE_RECORDS // 2
+    first = make()
+    resumed = serve(first, rows, 0, half, SERVE_CHUNK)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "detector.npz")
+        resumed.extend(first.save(path))
+        second = StreamDetector.load(path)
+    resumed.extend(serve(second, rows, half, SERVE_RECORDS, SERVE_CHUNK))
+    resumed.extend(second.flush())
+    shares = [float(np.mean(a.clusters == b.clusters)) for a, b in zip(full, resumed)]
+    out["resume"] = {"windows": len(resumed), "saved_at_record": half,
+                     "identical_windows": sum(s == 1.0 for s in shares),
+                     "min_label_share": min(shares) if shares else 0.0,
+                     "same_events": all(np.array_equal(a.new_events, b.new_events)
+                                        for a, b in zip(full, resumed))}
+    print("[h1]", json.dumps(out), flush=True)
+    if out["k1_launches"] != 4 * n_win or out["native_hasher_calls"] != 2 * n_win:
+        raise AssertionError(f"h1: expected {4 * n_win} K1 launches and {2 * n_win} "
+                             f"hasher calls: {out}")
+    if n_win != len(streaming.window_triggers(SERVE_RECORDS, WINDOW, 1)):
+        raise AssertionError(f"h1: {n_win} windows")
+    r = out["resume"]
+    # every device op on this path is deterministic on the card (the float
+    # scatter-add in counts_from_tokens adds small integers, exactly), so
+    # the resumed detector must match label for label
+    if not (r["windows"] == n_win and r["identical_windows"] == n_win and r["same_events"]):
+        raise AssertionError(f"h1: resumed detector differs: {r}")
+    return out
+
+
+def phase_h2() -> dict:
+    mods, mtypes, labels = crisis_embedding_stream(n_rows=SLICE2_RECORDS, n_events=8,
+                                                   noise_rate=0.3, seed=SEED)
+    out = {"records": SLICE2_RECORDS, "events": 8, "noise_rate": 0.3}
+    for bg in (False, True):
+        def make(bg=bg):
+            return StreamDetector(mtypes, WINDOW, approach="sSpectral",
+                                  reduced_dim=REDUCED_DIM, k_basis=K_BASIS,
+                                  k_estimate="eigengap", background=bg)
+
+        warm_up(make, mods)
+        det = make()
+        run = detector_run(det, mods, SLICE2_RECORDS, SERVE_CHUNK)
+        res = run.pop("results")
+        clus = np.concatenate([r.clusters for r in res])
+        truth = labels[:len(clus)]
+        out["background_on" if bg else "background_off"] = {
+            **{k: run[k] for k in ("windows", "windows_per_s", "push_p50_ms",
+                                   "push_p99_ms", "k1_launches", "spans")},
+            "nmi": nmi(truth, clus), "background_rows": int((clus == -1).sum()),
+            "background_share_of_noise_rows": float((clus[truth == 0] == -1).mean())}
+        if bg:
+            out["background_on"]["mark_background_card_vs_cpu"] = background_agreement(
+                det, mods)
+        if run["k1_launches"] != 2 * run["windows"]:
+            raise AssertionError(f"h2: {run['k1_launches']} K1 launches for "
+                                 f"{run['windows']} windows (expected 2 per window)")
+    print("[h2]", json.dumps(out), flush=True)
+    if out["background_on"]["background_rows"] <= 0:
+        raise AssertionError(f"h2: the background bucket never fired: {out}")
+    return out
+
+
+def phase_h3(mods, mtypes, labels, device) -> list:
+    runs = []
+    for approach in ("sSpectral", "DBSCAN_incr", "DBSCAN_centr"):
+        reset_counts()
+        out = phase_c(mods, mtypes, labels, device, approach, SLICE2_RECORDS, tag="h3")
+        if approach == "DBSCAN_incr" and out["native_incdbscan_calls"] < 1:
+            raise AssertionError(f"DBSCAN_incr did not run the native incdbscan core "
+                                 f"({native.incdb_load_error})")
+        runs.append(out)
+    return runs
+
+
+def phase_h4(mods, mtypes, labels) -> dict:
+    kw = dict(results=None, data_modalities=[m[:SLICE2_RECORDS] for m in mods],
+              modality_types=mtypes, window_size=WINDOW, reduced_dim=REDUCED_DIM,
+              k_basis=K_BASIS, n_clusters_total=2, seed=SEED, approach="SWFDMC",
+              complete_true_labels=labels[:SLICE2_RECORDS], step_window_ratio=1,
+              noise_rate=NOISE_RATE, label_mode="binary", sorting=True, eps=1.5,
+              min_samples=2, checkpoint_every=4)
+    keys = ("nmi_score", "nmi_e_score", "f1_score", "f1_aligned")
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        first = api.process_streaming_data(**{**kw, "results": api.get_initial_results()[0]},
+                                           checkpoint_dir=tmp)
+        secs = time.perf_counter() - t0
+        saved = sorted(os.listdir(tmp))
+        for name in saved:
+            if name != "stream_00000004.npz":
+                os.remove(os.path.join(tmp, name))
+        printed = io.StringIO()
+        with contextlib.redirect_stdout(printed):
+            second = api.process_streaming_data(
+                **{**kw, "results": api.get_initial_results()[0]}, checkpoint_dir=tmp)
+    line = next((ln for ln in printed.getvalue().splitlines()
+                 if ln.startswith("resumed from")), "")
+    out = {"checkpoints": saved, "seconds_first_run": secs, "resume_line": line,
+           "first": {k: first[k][0] for k in keys}, "resumed": {k: second[k][0] for k in keys}}
+    print("[h4]", json.dumps(out), flush=True)
+    if "resumed from" not in line or not line.endswith("at window 4"):
+        raise AssertionError(f"h4: no resume line: {line!r}")
+    if out["first"] != out["resumed"] or saved != ["stream_00000004.npz",
+                                                   "stream_00000008.npz"]:
+        raise AssertionError(f"h4: resumed run differs: {out}")
+    return out
+
+
+def phase_h5(hmods) -> dict:
+    n = 2 * HUGE_WINDOW
+    det = StreamDetector(streaming.STANDARD_TYPES, HUGE_WINDOW, approach="SWFDMC",
+                         reduced_dim=REDUCED_DIM, k_basis=K_BASIS, background=True)
+    run = detector_run(det, [m[:n] for m in hmods], n, 16_384)
+    res = run.pop("results")
+    out = {k: run[k] for k in ("windows", "seconds", "windows_per_s", "max_lag_windows",
+                               "huge_launches", "k1_launches", "native_hasher_calls")}
+    out["max_lag"] = det.max_lag
+    out["background_rows"] = int(sum(r.background for r in res))
+    print("[h5]", json.dumps(out), flush=True)
+    want = {k: v * out["windows"] for k, v in
+            {"K2": 2 * BLOCKS_PER_WINDOW, "K3": BLOCKS_PER_WINDOW,
+             "K4": 2 * BLOCKS_PER_WINDOW, "K5": BLOCKS_PER_WINDOW}.items()}
+    if out["windows"] != 2 or out["huge_launches"] != want or out["k1_launches"]:
+        raise AssertionError(f"h5: launches {out['huge_launches']} (K1 "
+                             f"{out['k1_launches']}) for {out['windows']} windows, "
+                             f"expected {want} and no K1")
+    return out
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--phases", default="abcdefg",
+    parser.add_argument("--phases", default="abcdefgh",
                         help="phases to run (a always runs); the result lines print "
                              "only when all ran")
     parser.add_argument("--profile", action="store_true",
@@ -679,10 +942,16 @@ def main() -> int:
         raise AssertionError(f"the native hasher did not build: {native.load_error}")
     print(f"[a] hasher: native, {native.library_path()} ready in "
           f"{time.perf_counter() - t1:.2f} s", flush=True)
+    t1 = time.perf_counter()
+    if not native.incdb_available():
+        raise AssertionError(f"the native incdbscan core did not build: "
+                             f"{native.incdb_load_error}")
+    print(f"[a] incdbscan core: native, {native.library_path(native.INCDB_SOURCE)} "
+          f"ready in {time.perf_counter() - t1:.2f} s", flush=True)
     seconds["a"] = time.perf_counter() - t0
 
     rows_b, runs, main_launches = [], [], 0
-    if phases & set("bcd"):
+    if phases & set("bcdh"):
         t0 = time.perf_counter()
         mods, mtypes, labels = make_stream(N_RECORDS, noise_rate=NOISE_RATE, binary=True,
                                            sort_by_uploaded=True, seed=SEED)
@@ -709,7 +978,7 @@ def main() -> int:
         seconds["d"] = time.perf_counter() - t0
 
     kernels_e, huge_runs, huge_launches = {}, [], {"K2": 0, "K3": 0, "K4": 0, "K5": 0}
-    if phases & set("efg"):
+    if phases & set("efgh"):
         t0 = time.perf_counter()
         hmods, hmtypes, hlabels = make_stream(HUGE_RECORDS, noise_rate=NOISE_RATE,
                                               binary=True, sort_by_uploaded=True,
@@ -736,9 +1005,18 @@ def main() -> int:
         t0 = time.perf_counter()
         phase_g(cols)
         seconds["g"] = time.perf_counter() - t0
+    if "h" in phases:
+        t0 = time.perf_counter()
+        torch.cuda.empty_cache()    # the huge phases' cached blocks: start as if alone
+        phase_h1(mods, device)
+        phase_h2()
+        phase_h3(mods, mtypes, labels, device)
+        phase_h4(mods, mtypes, labels)
+        phase_h5(hmods)
+        seconds["h"] = time.perf_counter() - t0
     if args.profile:
         t0 = time.perf_counter()
-        if not phases & set("efg"):
+        if not phases & set("efgh"):
             hmods, hmtypes, hlabels = make_stream(HUGE_RECORDS, noise_rate=NOISE_RATE,
                                                   binary=True, sort_by_uploaded=True,
                                                   seed=SEED)
@@ -746,7 +1024,7 @@ def main() -> int:
             profile_huge_window(hmods, hmtypes, hlabels, approach)
         seconds["profile"] = time.perf_counter() - t0
     print("[seconds]", json.dumps(seconds), flush=True)
-    if phases != set("abcdefg") or args.profile:
+    if phases != set("abcdefgh") or args.profile:
         return 0
 
     main_rows = [r for r in rows_b if r["case"] in ("location", "time", "tags", "text")]

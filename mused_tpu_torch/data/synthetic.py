@@ -16,6 +16,9 @@ values as the JAX package's generator (they derive from per-event
 ``default_rng(1000 + ev)`` streams); the per-row draws, the shuffle and the
 subsample consume the seed's generator in another order, so rows differ
 from the JAX package's for the same seed.
+
+``crisis_embedding_stream`` (BASELINE.md config #2's two embedding
+modalities) is the JAX package's generator copied, row for row.
 """
 from __future__ import annotations
 
@@ -145,3 +148,35 @@ def make_stream(n_records: int, *, n_events: int = 24, noise_rate: float = 0.95,
     table = synthetic_events(int(n_records * 1.05) + 64, n_events, noise_rate, seed)
     return prepare_modalities(table, n_records, sort_by_uploaded=sort_by_uploaded,
                               binary=binary, noise_rate=noise_rate, seed=seed)
+
+
+def crisis_embedding_stream(n_rows: int = 2048, n_events: int = 8,
+                            noise_rate: float = 0.4, d_text: int = 512,
+                            d_image: int = 512, seed: int = 0):
+    """Two-modality text + image embedding stream (CrisisMMD-style;
+    BASELINE.md config #2), copied from ``mused_tpu.data.synthetic`` (same
+    draws, same rows for the same seed): each event is a pair of (text,
+    image) centroids; noise rows are isotropic.  Returns (modalities,
+    modality_types, labels) in the engine's generic-numeric format; label 0
+    is noise, events are 1..n_events."""
+    rng = np.random.default_rng(seed)
+    txt_centers = rng.normal(size=(n_events, d_text)).astype(np.float32)
+    img_centers = rng.normal(size=(n_events, d_image)).astype(np.float32)
+    txt_centers /= np.linalg.norm(txt_centers, axis=1, keepdims=True)
+    img_centers /= np.linalg.norm(img_centers, axis=1, keepdims=True)
+
+    labels = np.zeros(n_rows, np.int64)
+    text = np.empty((n_rows, d_text), np.float32)
+    image = np.empty((n_rows, d_image), np.float32)
+    for i in range(n_rows):
+        if rng.random() >= noise_rate:
+            ev = int(rng.integers(n_events))
+            labels[i] = ev + 1
+            text[i] = txt_centers[ev] + rng.normal(size=d_text) * 0.15
+            image[i] = img_centers[ev] + rng.normal(size=d_image) * 0.15
+        else:
+            text[i] = rng.normal(size=d_text)
+            image[i] = rng.normal(size=d_image)
+    text /= np.maximum(np.linalg.norm(text, axis=1, keepdims=True), 1e-9)
+    image /= np.maximum(np.linalg.norm(image, axis=1, keepdims=True), 1e-9)
+    return [text, image], ["embedding", "embedding"], labels

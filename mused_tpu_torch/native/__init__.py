@@ -1,17 +1,25 @@
-"""ctypes loader for the port's native feature hasher: the hashing part of
-``mused_tpu/native/__init__.py``, copied, with its own build.
+"""ctypes loaders for the port's native host code: the hashing part and the
+incremental-DBSCAN core of ``mused_tpu/native/__init__.py``, copied, with
+their own build.
 
-The C++ source is this package's ``hasher.cpp`` (a copy of
-``mused_tpu/native/hasher.cpp``).  At first use it is compiled with the host
-C++ compiler (``c++``; ``nvcc``, which drives the same compiler, where there
-is none) into ``mused_tpu_torch/_build/``, named by a hash of the source and
-flags, so an edited source is rebuilt.  The library hashes text tokens and
-tags into fixed-width tensors far faster than the pure-Python loops in
-``data/features.py``; both use CRC32, so their outputs are bit-identical.
-If the library cannot be built, every function here returns None and the
-callers take the Python loops; ``available()`` says which one runs,
-``load_error`` why the native one does not, and ``calls`` counts the native
-calls so that a run can show it went through them.
+The C++ sources are this package's ``hasher.cpp`` and ``incdbscan.cpp``
+(copies of ``mused_tpu/native``'s).  At first use each is compiled with the
+host C++ compiler (``c++``; ``nvcc``, which drives the same compiler, where
+there is none) into ``mused_tpu_torch/_build/``, named by a hash of the
+source and flags, so an edited source is rebuilt.
+
+  * The hasher hashes text tokens and tags into fixed-width tensors far
+    faster than the pure-Python loops in ``data/features.py``; both use
+    CRC32, so their outputs are bit-identical.  Without it every function
+    here returns None and the callers take the Python loops.
+  * The incdbscan core (:class:`IncDBHandle`) keeps the monotone union-find
+    of ``ops/dbscan.IncrementalDBSCAN``; without it ``create`` returns None
+    and the clusterer re-clusters its buffer on the device.
+
+``available()`` / ``incdb_available()`` say which one runs, ``load_error`` /
+``incdb_load_error`` why the native one does not, and ``calls`` /
+``incdb_calls`` count the native calls so that a run can show it went
+through them.
 
 Marshalling uses the packed-blob ABI: all n rows join into ONE NUL-separated
 UTF-8 blob (one str.join + one .encode, no per-row ctypes objects).
@@ -29,39 +37,45 @@ import numpy as np
 
 _DIR = os.path.dirname(os.path.abspath(__file__))
 SOURCE = os.path.join(_DIR, "hasher.cpp")
+INCDB_SOURCE = os.path.join(_DIR, "incdbscan.cpp")
 BUILD_DIR = os.path.join(os.path.dirname(_DIR), "_build")
 CXX_FLAGS = ["-O3", "-std=c++17", "-shared", "-fPIC"]
 
 _lib = None
 _load_failed = False
-load_error = ""     # why the native library is not loaded ("" when it is)
+load_error = ""     # why the native hasher is not loaded ("" when it is)
 calls = 0           # native hasher calls so far
+_incdb_lib = None
+_incdb_load_failed = False
+incdb_load_error = ""   # why the native incdbscan core is not loaded
+incdb_calls = 0         # native incdbscan inserts so far
 # two prefetch threads may race the first build: one lock around build + CDLL
 _load_lock = threading.Lock()
 
 
-def _compile_cmd(out: str) -> list[str]:
+def _compile_cmd(out: str, source: str) -> list[str]:
     cxx = shutil.which("c++") or shutil.which("g++")
     if cxx:
-        return [cxx, *CXX_FLAGS, "-o", out, SOURCE]
+        return [cxx, *CXX_FLAGS, "-o", out, source]
     from mused_tpu_torch.ops.kernels import build
     return [build._nvcc(), "-O3", "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
-            "-o", out, SOURCE]
+            "-o", out, source]
 
 
-def library_path() -> str:
-    """Path of the shared library for the current source and flags."""
+def library_path(source: str = SOURCE) -> str:
+    """Path of the shared library for ``source`` and the current flags."""
     h = hashlib.sha256(" ".join(CXX_FLAGS).encode())
-    with open(SOURCE, "rb") as f:
+    with open(source, "rb") as f:
         h.update(f.read())
-    return os.path.join(BUILD_DIR, f"libmused_hasher_{h.hexdigest()[:16]}.so")
+    stem = os.path.splitext(os.path.basename(source))[0]
+    return os.path.join(BUILD_DIR, f"libmused_{stem}_{h.hexdigest()[:16]}.so")
 
 
-def _build(path: str) -> None:
+def _build(path: str, source: str) -> None:
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{path}.{os.getpid()}.tmp"
-    subprocess.run(_compile_cmd(tmp), check=True, capture_output=True, text=True,
-                   timeout=300)
+    subprocess.run(_compile_cmd(tmp, source), check=True, capture_output=True,
+                   text=True, timeout=300)
     os.replace(tmp, path)   # atomic: a concurrent loader never sees half a file
 
 
@@ -79,35 +93,118 @@ def _configure_hasher(lib):
         blob_head + [ctypes.c_int64, ctypes.POINTER(ctypes.c_int32)]
 
 
-def _load_lib():
-    """Build (if needed), load and configure the library; None on failure,
-    with the reason in ``load_error``."""
-    global load_error
+def _configure_incdb(lib):
+    lib.mused_incdb_create.restype = ctypes.c_void_p
+    lib.mused_incdb_create.argtypes = [ctypes.c_int64]
+    lib.mused_incdb_free.argtypes = [ctypes.c_void_p]
+    lib.mused_incdb_free.restype = None
+    lib.mused_incdb_insert.restype = ctypes.c_int64
+    lib.mused_incdb_insert.argtypes = [
+        ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
+        ctypes.POINTER(ctypes.c_int32), ctypes.POINTER(ctypes.c_int32)]
+    lib.mused_incdb_labels.argtypes = [
+        ctypes.c_void_p, ctypes.POINTER(ctypes.c_int32)]
+    lib.mused_incdb_labels.restype = None
+
+
+def _load_lib(source: str, configure):
+    """Build (if needed), load and configure one library: (lib or None, why
+    not)."""
     if os.environ.get("MUSED_TPU_NO_NATIVE"):
-        load_error = "MUSED_TPU_NO_NATIVE is set"
-        return None   # global kill switch: pure-Python fallbacks everywhere
-    path = library_path()
+        return None, "MUSED_TPU_NO_NATIVE is set"   # kill switch: fallbacks everywhere
+    path = library_path(source)
     try:
         if not os.path.exists(path):
-            _build(path)
+            _build(path, source)
         lib = ctypes.CDLL(path)
-        _configure_hasher(lib)
-        return lib
+        configure(lib)
+        return lib, ""
     except subprocess.CalledProcessError as e:
-        load_error = f"hasher build failed: {e.stderr or e.stdout}"
+        return None, f"{os.path.basename(source)} build failed: {e.stderr or e.stdout}"
     except (OSError, subprocess.SubprocessError, AttributeError, RuntimeError) as e:
-        load_error = f"{type(e).__name__}: {e}"
-    return None
+        return None, f"{type(e).__name__}: {e}"
 
 
 def _load():
-    global _lib, _load_failed
+    global _lib, _load_failed, load_error
     if _lib is None and not _load_failed:
         with _load_lock:
             if _lib is None and not _load_failed:   # double-checked
-                _lib = _load_lib()
+                _lib, load_error = _load_lib(SOURCE, _configure_hasher)
                 _load_failed = _lib is None
     return _lib
+
+
+def _load_incdb():
+    global _incdb_lib, _incdb_load_failed, incdb_load_error
+    if _incdb_lib is None and not _incdb_load_failed:
+        with _load_lock:
+            if _incdb_lib is None and not _incdb_load_failed:
+                _incdb_lib, incdb_load_error = _load_lib(INCDB_SOURCE, _configure_incdb)
+                _incdb_load_failed = _incdb_lib is None
+    return _incdb_lib
+
+
+def incdb_available() -> bool:
+    return _load_incdb() is not None
+
+
+class IncDBHandle:
+    """Owning wrapper over the native incremental-DBSCAN structure
+    (incdbscan.cpp): monotone union-find over eps-pairs discovered on the
+    device.  The factory returns None when the library is unavailable."""
+
+    @staticmethod
+    def create(min_pts: int) -> "IncDBHandle | None":
+        lib = _load_incdb()
+        if lib is None:
+            return None
+        return IncDBHandle(lib, lib.mused_incdb_create(int(min_pts)))
+
+    def __init__(self, lib, handle):
+        self._lib = lib
+        self._h = handle
+        self._poisoned = False
+        self.n = 0
+
+    def insert(self, n_new: int, pair_a: np.ndarray, pair_b: np.ndarray) -> None:
+        global incdb_calls
+        if self._poisoned:
+            raise MemoryError("native incdbscan handle is poisoned "
+                              "(earlier allocation failure)")
+        pa = np.ascontiguousarray(pair_a, np.int32)
+        pb = np.ascontiguousarray(pair_b, np.int32)
+        assert pa.shape == pb.shape and pa.ndim == 1
+        n = self._lib.mused_incdb_insert(
+            self._h, int(n_new), len(pa),
+            pa.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
+            pb.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)))
+        incdb_calls += 1
+        if n == -2:
+            # allocation failure mid-mutation: the structure may hold a
+            # partly applied batch, so nothing may read or extend it
+            self._poisoned = True
+            raise MemoryError("native incdbscan allocation failed; the "
+                              "handle is poisoned — rebuild the clusterer")
+        if n < 0:
+            # ids are validated before any mutation: the handle stays usable
+            raise ValueError("malformed eps-pair ids")
+        self.n = int(n)
+
+    def labels(self) -> np.ndarray:
+        if self._poisoned:
+            raise MemoryError("native incdbscan handle is poisoned "
+                              "(earlier allocation failure)")
+        out = np.empty(self.n, np.int32)
+        if self.n:
+            self._lib.mused_incdb_labels(
+                self._h, out.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)))
+        return out
+
+    def __del__(self):
+        if getattr(self, "_h", None):
+            self._lib.mused_incdb_free(self._h)
+            self._h = None
 
 
 def available() -> bool:

@@ -22,7 +22,7 @@ both).  Products the JAX package marks ``Precision.HIGHEST`` are plain fp32
 matmuls here: the engine turns TF32 off, so they run in true fp32.
 
 ``shrink_fast`` (Newton-Schulz subspace shrink) and the ``"subspace_ns"``
-mode belong to slice 2 of the port and raise ``NotImplementedError``.
+mode belong to slice 2f of the port and raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -88,7 +88,7 @@ def shrink(stacked: torch.Tensor, ell: int, *, eps: float = 1e-30):
 
 def shrink_fast(stacked: torch.Tensor, ell: int, **_):
     raise NotImplementedError(
-        "shrink_fast (Newton-Schulz subspace shrink) is ported in slice 2; "
+        "shrink_fast (Newton-Schulz subspace shrink) is ported in slice 2f; "
         "use mode 'eigh' or 'rr'")
 
 
@@ -225,7 +225,7 @@ def update_block(state: FDState, rows: torch.Tensor, valid: torch.Tensor | None 
     if mode not in ("eigh", "rr"):
         raise NotImplementedError(
             f"fd mode {mode!r} (Newton-Schulz subspace shrink) is ported in "
-            "slice 2; use 'eigh' or 'rr' (resolve_fold_mode maps 'subspace')")
+            "slice 2f; use 'eigh' or 'rr' (resolve_fold_mode maps 'subspace')")
     if mode != "rr":
         rows = rows.to(state.sketch.dtype)
     if valid is not None:

@@ -9,8 +9,8 @@ per iteration to test it); an empty live cluster moves to the worst-fit
 point, sklearn's relocation rule.
 
 Random draws come from the caller's ``torch.Generator``; ``init`` injects
-the starting centroids instead.  ``mark_background`` (the label-free
-background bucket) belongs to the serving slice and raises.
+the starting centroids instead.  ``mark_background`` is the label-free
+background bucket over a clustering's residuals.
 """
 from __future__ import annotations
 
@@ -27,22 +27,25 @@ def _sq_dists(x: torch.Tensor, centroids: torch.Tensor) -> torch.Tensor:
 
 
 def kmeanspp_init(x: torch.Tensor, k_max: int, k, generator: torch.Generator | None):
-    """k-means++ seeding of ``k_max`` centres; centres at index >= k are zero
-    and do not update the running distances."""
+    """k-means++ seeding of ``k_max`` centres; centres at index >= k are zero.
+    The live count is read once on the host, so only the k - 1 live draws
+    run (the JAX package scans all k_max - 1 steps and masks the dead ones;
+    the live centres and the zeros are the same)."""
     n = x.shape[0]
+    live = max(1, min(int(k), k_max))
     first = torch.randint(n, (1,), generator=generator, device=x.device)
     cents = [x[first[0]]]
     min_d2 = _sq_dists(x, cents[0][None, :])[:, 0]
-    for j in range(1, k_max):
+    for _ in range(1, live):
         total = torch.sum(min_d2)
         probs = torch.where(total > 0, min_d2 / torch.clamp(total, min=1e-30),
                             torch.full_like(min_d2, 1.0 / n))
         c = x[torch.multinomial(probs, 1, generator=generator)[0]]
-        use = torch.as_tensor(j < k, device=x.device)
-        min_d2 = torch.where(use, torch.minimum(min_d2, torch.sum((x - c) ** 2, dim=1)),
-                             min_d2)
-        cents.append(torch.where(use, c, torch.zeros_like(c)))
-    return torch.stack(cents)
+        min_d2 = torch.minimum(min_d2, torch.sum((x - c) ** 2, dim=1))
+        cents.append(c)
+    out = torch.zeros((k_max, x.shape[1]), dtype=x.dtype, device=x.device)
+    out[:live] = torch.stack(cents)
+    return out
 
 
 def kmeans(x: torch.Tensor, k, generator: torch.Generator | None = None, *,
@@ -118,7 +121,46 @@ def minibatch_step(state: MiniBatchState, x: torch.Tensor,
     return new_state, torch.argmin(_sq_dists(x, new_centroids), dim=1)
 
 
-def mark_background(*_, **__):
-    raise NotImplementedError(
-        "mark_background (the label-free background bucket) is ported with "
-        "the serving slice (slice 2)")
+def mark_background(x: torch.Tensor, labels: torch.Tensor, *, k_max: int,
+                    min_frac: float = 0.02, max_frac: float = 0.5, sep: float = 2.0,
+                    min_far: float = 0.3) -> torch.Tensor:
+    """Label-free background bucket over a clustering's residuals: rows in
+    the far mode of the angular distance-to-cluster-mean distribution are
+    re-labelled -1 (no reference analog; see the JAX package's docstring for
+    the measurements behind the thresholds).
+
+      * rows are unit-normalized and per-cluster member means recomputed;
+      * an Otsu split of the sorted per-row distances (sort + cumsum) picks
+        the split maximizing the between-mode variance;
+      * the far mode counts only when mean(far) >= ``sep`` x mean(near),
+        mean(far) >= ``min_far`` and its fraction is in
+        [``min_frac``, ``max_frac``].
+
+    Everything stays on the input's device: no host sync.  Returns int32."""
+    n = x.shape[0]
+    if n < 2:            # nothing to split
+        return labels.to(torch.int32)
+    labels = labels.long()
+    xf = x.float()
+    xn = xf / torch.clamp(torch.linalg.norm(xf, dim=1, keepdim=True), min=1e-12)
+    onehot = (labels[:, None] == torch.arange(k_max, device=x.device)[None, :]).float()
+    sums = onehot.T @ xn
+    counts = torch.sum(onehot, dim=0)
+    cents = sums / torch.clamp(counts, min=1.0)[:, None]
+    dist = torch.linalg.norm(xn - cents[labels], dim=1)
+    ds = torch.sort(dist)[0]
+    csum = torch.cumsum(ds, dim=0)
+    total = csum[-1]
+    idx = torch.arange(1, n, dtype=torch.float32, device=x.device)   # split after idx rows
+    m0 = csum[:-1] / idx
+    m1 = (total - csum[:-1]) / (n - idx)
+    w0 = idx / n
+    between = w0 * (1.0 - w0) * (m0 - m1) ** 2
+    i_star = torch.argmax(between) + 1                  # near group = ds[:i_star]
+    thresh = 0.5 * (ds[i_star - 1] + ds[torch.clamp(i_star, max=n - 1)])
+    near_mean = csum[i_star - 1] / i_star
+    far_mean = (total - csum[i_star - 1]) / torch.clamp(n - i_star, min=1)
+    far_frac = 1.0 - i_star / n
+    ok = ((far_mean >= sep * torch.clamp(near_mean, min=1e-12))
+          & (far_mean >= min_far) & (far_frac >= min_frac) & (far_frac <= max_frac))
+    return torch.where(ok & (dist > thresh), -1, labels).to(torch.int32)

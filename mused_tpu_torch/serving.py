@@ -1,0 +1,384 @@
+"""Online serving API: push records as they arrive, get events out — port of
+``mused_tpu/serving.py``.
+
+The reference has no serving surface: its only entry point
+(``process_streaming_data``, reference main.py:13-130) needs the whole
+stream and its ground-truth labels up front.  ``StreamDetector`` wraps the
+same engine for production use:
+
+  * records are pushed incrementally (single records or chunks), with no
+    ground truth anywhere;
+  * windows fire on the reference's trigger (main.py:32), sliding windows
+    included (``step_window_ratio``);
+  * each window's cluster count comes from the label-free eigengap estimate
+    (``k_estimate="eigengap"``) or a fixed cap, never from labels;
+  * cluster ids stay stable across windows through the engine's positional
+    matching and surface as per-window :class:`WindowResult` events;
+  * featurize + dispatch run on a background worker thread with a bounded
+    queue (``dispatch_ahead``; at saturation pushes block instead of
+    buffering without bound), and up to ``max_lag`` windows stay unpulled
+    ahead of the oldest finalized one, so a push returns without waiting
+    for the device (``flush()`` drains); results may lag further by the
+    work in flight, at most ``dispatch_ahead + 1`` windows;
+  * ``background=True`` adds the label-free background bucket
+    (``kmeans.mark_background``): rows in the far mode of the embedding's
+    distance-to-centroid distribution get event id -1 ("no event"), which
+    matching passes through;
+  * ``save()`` / ``load()`` checkpoint the whole detector (device sketch
+    state, matcher state, the raw-record tail the next windows need).
+
+Windows always dispatch one at a time: the JAX package's scanned group
+dispatch hid a TPU link's round trip and is not ported.  The worker thread
+launches device work and the caller thread pulls labels on the same (the
+current) CUDA stream, so window order holds; readiness is a CUDA event
+recorded after each dispatch.  Everything downstream of featurization is
+the offline engine's window step: serving adds no second compute path.
+"""
+from __future__ import annotations
+
+import collections
+import dataclasses
+import math
+import queue
+import threading
+from typing import NamedTuple, Sequence
+
+import numpy as np
+import torch
+
+from mused_tpu_torch.data.ingest import to_device
+from mused_tpu_torch.engine import streaming as engine_mod
+from mused_tpu_torch.utils.config import FeatureConfig, PipelineConfig
+
+
+class _DispatchWorker:
+    """One background thread owning featurize + device dispatch, FIFO (the
+    engine's state is strictly sequential across windows) over a bounded
+    queue: at saturation pushes block on a free slot (backpressure)."""
+
+    def __init__(self, depth: int):
+        self._q: queue.Queue = queue.Queue(maxsize=depth)
+        self._exc: BaseException | None = None
+        self._t = threading.Thread(target=self._run, daemon=True,
+                                   name="serving-dispatch")
+        self._t.start()
+
+    def submit(self, fn) -> None:
+        self.check()
+        self._q.put(fn)
+
+    def _run(self) -> None:
+        while True:
+            fn = self._q.get()
+            try:
+                if fn is None:
+                    return
+                if self._exc is None:   # after a failure: drain, don't run
+                    fn()
+            except BaseException as e:  # noqa: BLE001 — re-raised at the caller
+                self._exc = e
+            finally:
+                self._q.task_done()
+
+    def drain(self) -> None:
+        """Block until every submitted dispatch has completed."""
+        self._q.join()
+        self.check()
+
+    def check(self) -> None:
+        # a dispatch failure poisons the detector for good: the windows after
+        # the failed one were never folded into the state, so every later
+        # push / flush / save must fail rather than emit a stream with
+        # windows missing
+        if self._exc is not None:
+            raise RuntimeError(
+                "serving dispatch worker failed; this detector's stream state is "
+                "broken past the failed window — restore from the last save()"
+            ) from self._exc
+
+    def stop(self) -> None:
+        try:
+            self._q.put_nowait(None)
+        except queue.Full:      # a wedged queue must not block shutdown
+            pass
+
+
+def _entry_ready(entry) -> bool:
+    """True when finalizing ``entry`` will not wait for the device: its
+    dispatch event has completed (always True off the card, and for a huge
+    window, which completes inside its dispatch)."""
+    _, pending, event = entry
+    return pending.clusters is not None or event is None or event.query()
+
+
+class WindowResult(NamedTuple):
+    """One processed window's events."""
+
+    window_index: int
+    row_start: int          # absolute stream index of the window's first row
+    clusters: np.ndarray    # (window_size,) stable event id per record;
+                            # -1 = background ("no event", background_bucket)
+    event_ids: np.ndarray   # unique event ids present in this window (no -1)
+    counts: np.ndarray      # record count per event_ids entry
+    new_events: np.ndarray  # event ids first seen in this window (no -1)
+    background: int = 0     # rows in this window's background bucket
+
+
+class StreamDetector:
+    """Push-based online event detector on ``device`` (the card unless the
+    caller passes ``device="cpu"``).
+
+    Parameters mirror :class:`PipelineConfig`; pass ``cfg`` for full
+    control.  ``k_estimate`` must be label-free ("eigengap" or "fixed"):
+    serving has no ground truth, so the reference's labels-derived count
+    (main.py:41) is rejected."""
+
+    def __init__(self, modality_types: Sequence[str], window_size: int, *,
+                 approach: str = "SWFDMC", reduced_dim: int = 50,
+                 k_basis: int = 50, max_events: int = 150,
+                 k_estimate: str = "eigengap", step_window_ratio: int = 1,
+                 seed: int = 0, matching: str = "auto", max_lag: int = 2,
+                 dispatch_ahead: int = 2, background: bool = False,
+                 cfg: PipelineConfig | None = None, device="cuda"):
+        if cfg is None:
+            cfg = PipelineConfig(
+                window_size=window_size, reduced_dim=reduced_dim, k_basis=k_basis,
+                approach=approach, seed=seed, label_mode="all",
+                n_clusters_override=max_events, matching=matching,
+                k_estimate=k_estimate, step_window_ratio=step_window_ratio,
+                background_bucket=background)
+        if cfg.k_estimate == "labels":
+            raise ValueError(
+                "serving is unsupervised: k_estimate must be 'eigengap' or 'fixed' "
+                "('labels' is the offline reference quirk that derives each "
+                "window's cluster count from ground truth)")
+        self.cfg = cfg
+        self.modality_types = tuple(modality_types)
+        self.engine = engine_mod.StreamingEngine(cfg, device)
+        # a huge window matches inside its dispatch, which needs the previous
+        # window's matched labels: no lag
+        self.max_lag = 0 if self.engine.huge else max(int(max_lag), 0)
+        # retention: per-modality lists of immutable pushed chunks covering
+        # at least the last window_size rows (see push())
+        self._rchunks: list[list[np.ndarray]] = [[] for _ in self.modality_types]
+        self._ret_start = 0      # absolute index of the first retained row
+        self._ret_len = 0
+        self._count = 0          # absolute records pushed
+        self._window_index = 0
+        self._prev_clusters: np.ndarray | None = None
+        # (row_start, _PendingWindow, CUDA event or None): appended by the
+        # dispatch worker, consumed by the caller thread (one producer, one
+        # consumer; deque ops are atomic)
+        self._pending: collections.deque[tuple] = collections.deque()
+        self._seen_events: set[int] = set()
+        # labels are never consulted (k_estimate is label-free); this array
+        # only fills the engine's signature
+        self._dummy_labels = np.zeros(cfg.window_size, np.int64)
+        # the worker exists only when results may lag anyway; created at the
+        # first window, depth 0 opts out
+        self._dispatch_ahead = int(dispatch_ahead) if self.max_lag > 0 else 0
+        self._worker: _DispatchWorker | None = None
+
+    # ------------------------------------------------------------------
+    def push(self, modality_rows: Sequence[np.ndarray]) -> list[WindowResult]:
+        """Feed one record or a chunk of records (one array per modality,
+        each ``(n_new, width)``, or ``(width,)`` for a single record).
+        Returns the windows finalized by this push; ``flush()`` drains the
+        rest."""
+        rows = [np.asarray(m) for m in modality_rows]
+        if len(rows) != len(self.modality_types):
+            raise ValueError(
+                f"got {len(rows)} modality arrays, expected "
+                f"{len(self.modality_types)} ({self.modality_types})")
+        # chunks are (n, width); a bare 1-D array is ONE record of that width,
+        # so scalar (width-1) modalities must ship as (n, 1)
+        if any(m.ndim == 0 for m in rows):
+            raise ValueError(
+                "modality arrays must be (n, width) chunks or (width,) single "
+                "records; got a 0-d scalar — wrap scalar modalities as (n, 1)")
+        rows = [m[None] if m.ndim == 1 else m for m in rows]
+        n_new = len(rows[0])
+        if any(len(m) != n_new for m in rows):
+            raise ValueError(
+                "modality chunks disagree on record count "
+                f"({[len(m) for m in rows]}); scalar modalities must be shaped "
+                "(n, 1) — a 1-D array is read as ONE record")
+
+        w = self.cfg.window_size
+        # the one copy detaches the rows from the caller's arrays: retained
+        # chunks are immutable, so window views handed to the worker never
+        # see a caller reusing its buffer
+        for lst, m in zip(self._rchunks, rows):
+            lst.append(np.array(m))
+        self._ret_len += n_new
+        end = self._count + n_new
+
+        out: list[WindowResult] = []
+        # fire at record i when i+1 >= w and ((i+1)*ratio) % w == 0, i.e. i+1
+        # is a multiple of w // gcd(ratio, w) past one full window
+        p = w // math.gcd(self.cfg.step_window_ratio, w)
+        t0 = -(-max(w, self._count + 1) // p) * p
+        for t in range(t0, end + 1, p):
+            out.extend(self._fire(t - 1, self._window_rows(t - w, t)))
+        self._count = end
+        # drop whole chunks no future window can reach (every future window
+        # starts at >= count - w + 1)
+        while self._rchunks[0] and self._ret_len - len(self._rchunks[0][0]) >= w:
+            n0 = len(self._rchunks[0][0])
+            for lst in self._rchunks:
+                lst.pop(0)
+            self._ret_len -= n0
+            self._ret_start += n0
+        return out
+
+    def _window_rows(self, lo: int, hi: int) -> list[np.ndarray]:
+        """Rows [lo, hi) per modality from the retained chunks: a view when
+        one chunk covers the range, else one concatenate."""
+        out = []
+        for lst in self._rchunks:
+            parts = []
+            pos = self._ret_start
+            for c in lst:
+                s, e = max(lo - pos, 0), min(hi - pos, len(c))
+                if e > s:
+                    parts.append(c[s:e])
+                pos += len(c)
+                if pos >= hi:
+                    break
+            out.append(parts[0] if len(parts) == 1 else np.concatenate(parts))
+        return out
+
+    def _submit(self, fn) -> None:
+        """Run ``fn`` on the dispatch worker (created lazily), or inline when
+        asynchronous dispatch is off."""
+        if self._dispatch_ahead <= 0:
+            fn()
+            return
+        if self._worker is None:
+            self._worker = _DispatchWorker(self._dispatch_ahead)
+        self._worker.submit(fn)
+
+    def _fire(self, i: int, window: list[np.ndarray]) -> list[WindowResult]:
+        """Dispatch the window ending at absolute index ``i``; finalize any
+        windows beyond the ``max_lag`` pipeline depth."""
+        row_start = i + 1 - self.cfg.window_size
+        widx = self._window_index
+        self._window_index += 1
+        self._submit(lambda: self._dispatch_one(row_start, widx, window))
+        return self._drain_ready()
+
+    def _drain_ready(self) -> list[WindowResult]:
+        """Finalize completed windows without blocking the push path: up to
+        ``max_lag`` pending windows nothing finalizes; up to the hard bound
+        (``max_lag`` plus what the worker can hold) only windows whose device
+        work has completed; past it the pull blocks, so the lag and host
+        memory stay bounded."""
+        hard = self.max_lag + (self._dispatch_ahead + 1 if self._worker else 0)
+        out = []
+        while len(self._pending) > self.max_lag:
+            if len(self._pending) <= hard and not _entry_ready(self._pending[0]):
+                break
+            out.append(self._finalize_oldest())
+        return out
+
+    def _dispatch_one(self, row_start: int, widx: int, rows: list[np.ndarray]) -> None:
+        """Featurize, copy to the device and dispatch one window (on the
+        worker thread when asynchronous).  A dense dispatch reads no previous
+        labels (matching is finalize-side)."""
+        eng = self.engine
+        host = eng.featurize(rows, self.modality_types)
+        pending = eng.dispatch_window(host, to_device(host, eng.device),
+                                      self.modality_types, self._dummy_labels, widx,
+                                      self._prev_clusters)
+        event = None
+        if eng.device.type == "cuda":
+            event = torch.cuda.Event()
+            event.record()
+        self._pending.append((row_start, pending, event))
+
+    def _finalize_oldest(self) -> WindowResult:
+        row_start, pending, _ = self._pending.popleft()
+        clusters = self.engine.finalize_window(pending, self._prev_clusters)
+        self._prev_clusters = clusters
+        ids, counts = np.unique(clusters, return_counts=True)
+        # the background id (-1) is "no event": never in event_ids /
+        # new_events; its rows show in `clusters` and `background`
+        n_background = 0
+        if len(ids) and ids[0] == -1:
+            n_background = int(counts[0])
+            ids, counts = ids[1:], counts[1:]
+        new = np.array([e for e in ids.tolist() if e not in self._seen_events], ids.dtype)
+        self._seen_events.update(ids.tolist())
+        return WindowResult(window_index=pending.window_index, row_start=row_start,
+                            clusters=clusters, event_ids=ids, counts=counts,
+                            new_events=new, background=n_background)
+
+    def flush(self) -> list[WindowResult]:
+        """Finalize every queued window (in-flight dispatches drain first)."""
+        if self._worker is not None:
+            self._worker.drain()
+        out = []
+        while self._pending:
+            out.append(self._finalize_oldest())
+        return out
+
+    def __del__(self):
+        worker = getattr(self, "_worker", None)
+        if worker is not None:
+            worker.stop()
+
+    # ------------------------------------------------------------------
+    def save(self, path: str) -> list[WindowResult]:
+        """Checkpoint the detector (device state, matcher state, the raw
+        record tail).  Pending windows are flushed first so the saved state
+        is window-consistent; their results are returned.  Same trust model
+        as ``utils/checkpoint``: load only checkpoints you wrote."""
+        flushed = self.flush()
+        from mused_tpu_torch.utils import checkpoint as ckpt
+        ckpt.save_checkpoint(path, self.engine.state, {
+            "serving": True,
+            "count": self._count,
+            "window_index": self._window_index,
+            "prev_clusters": self._prev_clusters,
+            "seen_events": sorted(self._seen_events),
+            "tail": self._window_rows(max(0, self._count - self.cfg.window_size),
+                                      self._count),
+            "dispatch_ahead": self._dispatch_ahead,
+            "modality_types": list(self.modality_types),
+            # the full config, nested FeatureConfig included: a partial field
+            # list would rebuild other featurization / clustering knobs
+            "cfg_kwargs": dataclasses.asdict(self.cfg),
+            **self.engine.host_snapshot()})
+        return flushed
+
+    @classmethod
+    def load(cls, path: str, *, max_lag: int = 2, dispatch_ahead: int | None = None,
+             cfg: PipelineConfig | None = None, device="cuda") -> "StreamDetector":
+        """Rebuild a detector from :meth:`save` output on ``device``; pushing
+        resumes the stream where it left off (the saved tail gives the next
+        windows their overlap).  ``dispatch_ahead=None`` keeps the saved
+        detector's depth."""
+        from mused_tpu_torch.utils import checkpoint as ckpt
+        leaves, host = ckpt.load_checkpoint(path)
+        if not host.get("serving"):
+            raise ValueError(f"{path} is not a StreamDetector checkpoint")
+        if cfg is None:
+            kw = dict(host["cfg_kwargs"])
+            if isinstance(kw.get("features"), dict):
+                kw["features"] = FeatureConfig(**kw["features"])
+            cfg = PipelineConfig(**kw)
+        if dispatch_ahead is None:
+            dispatch_ahead = int(host.get("dispatch_ahead", 2))
+        det = cls(host["modality_types"], cfg.window_size, cfg=cfg, max_lag=max_lag,
+                  dispatch_ahead=dispatch_ahead, device=device)
+        det.engine.restore(ckpt.unflatten_like(det.engine.state, leaves), host)
+        det._count = int(host["count"])
+        det._window_index = int(host["window_index"])
+        det._prev_clusters = host["prev_clusters"]
+        det._seen_events = set(host["seen_events"])
+        tail = host["tail"]
+        if tail is not None and len(tail) and len(tail[0]):
+            det._rchunks = [[np.asarray(t)] for t in tail]
+            det._ret_len = len(tail[0])
+            det._ret_start = det._count - det._ret_len
+        return det

@@ -5,6 +5,7 @@ numpy (``jax.tree_util.tree_map(np.asarray, x)``) and builds the port's
 counterpart on ``device``.  They read fields by name and never import JAX:
 
   stream_state_from_jax  ``StreamState``: a stream continues here
+  engine_state_from_jax  a ``StreamingEngine``'s state and host snapshot
   columns_from_jax       huge-window ``blocked_affinity.Columns``
   cand_block_from_jax    a candidate-form block, ``cand_matvec.CandBlock``
 
@@ -64,3 +65,17 @@ def stream_state_from_jax(tree_of_numpy, device) -> StreamState:
                                counts=_t(m.counts, device).float(),
                                initialized=bool(m.initialized))
     return StreamState(swfd=ring, minibatch=mb)
+
+
+def engine_state_from_jax(state_np, host_snapshot: dict, device) -> tuple:
+    """A JAX ``StreamingEngine``'s ``state`` (numpy leaves) and
+    ``host_snapshot()`` -> ``(StreamState, host dict)`` for the port's
+    ``StreamingEngine.restore``.  The host dict's values are numpy and Python
+    (the incremental clusterer's snapshot has the same layout in both
+    packages); a centroid-matcher registry waits for slice 2f."""
+    if host_snapshot.get("centroid_matcher") is not None:
+        raise NotImplementedError("centroid matching is ported in slice 2f")
+    host = dict(host_snapshot)
+    if host.get("swfd_R") is not None:
+        host["swfd_R"] = float(host["swfd_R"])
+    return stream_state_from_jax(state_np, device), host

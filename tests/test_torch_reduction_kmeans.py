@@ -106,5 +106,21 @@ def test_minibatch_matches_jax_on_blobs(rng):
 
 
 def test_mark_background_waits_for_the_serving_slice():
-    with pytest.raises(NotImplementedError):
-        tkm.mark_background(torch.zeros((4, 2)), torch.zeros(4), k_max=2)
+    """The serving slice has come: the background bucket runs and, on a
+    degenerate window (zero rows, one cluster), flags nothing, as the JAX
+    package does (tests/test_torch_spectral.py holds it bit-equal on real
+    fixtures)."""
+    got = tkm.mark_background(torch.zeros((4, 2)), torch.zeros(4), k_max=2)
+    want = jkm.mark_background(jnp.zeros((4, 2)), jnp.zeros(4, jnp.int32), k_max=2)
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(n(got), np.asarray(want))
+
+
+def test_kmeanspp_init_draws_only_the_live_centres(rng):
+    """Centres past the live count are zero, and the live ones are the draws
+    a k_max = k seeding makes from the same generator."""
+    x = torch.from_numpy(rng.normal(size=(50, 3)).astype(np.float32))
+    wide = tkm.kmeanspp_init(x, 8, torch.tensor(3), torch.Generator().manual_seed(4))
+    narrow = tkm.kmeanspp_init(x, 3, 3, torch.Generator().manual_seed(4))
+    assert wide.shape == (8, 3) and torch.equal(wide[:3], narrow)
+    assert torch.all(wide[3:] == 0)

@@ -1,0 +1,242 @@
+"""The port's serving detector (``mused_tpu_torch/serving.StreamDetector``)
+against the JAX package's (``cfg.windows_per_batch=1``: one window per
+dispatch, as the port always does), on the CPU at window 64, k_basis 3,
+reduced_dim 8:
+
+  * the same windows fire at the same rows, in tumbling and sliding mode;
+  * results do not depend on how the stream is chopped into pushes;
+  * ``save`` / ``load`` mid-stream resumes to the uninterrupted labels;
+  * the same errors for a label-derived count and for bad shapes;
+  * a pushed buffer is copied; a failed dispatch poisons the detector;
+  * with the JAX side's draws injected, NMI within 0.05 of the JAX detector;
+  * the background bucket on the crisis stream fires and lifts NMI.
+"""
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from mused_tpu.data.synthetic import crisis_embedding_stream as jcrisis
+from mused_tpu.engine.streaming import window_triggers
+from mused_tpu.serving import StreamDetector as JDetector
+from mused_tpu.utils.config import PipelineConfig as JConfig
+from mused_tpu_torch import api as tapi
+from mused_tpu_torch import serving
+from mused_tpu_torch.data import synthetic as tsyn
+from mused_tpu_torch.serving import StreamDetector
+from mused_tpu_torch.utils import metrics
+from mused_tpu_torch.utils.config import PipelineConfig
+from torch_parity import inject_jax_draws, synthetic_window_stream
+
+W = 64
+CFG = dict(window_size=W, reduced_dim=8, k_basis=3, label_mode="all",
+           n_clusters_override=6, k_estimate="eigengap")
+
+
+@pytest.fixture(scope="module")
+def stream():
+    return synthetic_window_stream(n_rows=800, subset=512, seed=0)
+
+
+def _serve(det, mods, chunk, stop=None):
+    out = []
+    end = len(mods[0]) if stop is None else stop
+    for lo in range(0, end, chunk):
+        out.extend(det.push([m[lo:min(lo + chunk, end)] for m in mods]))
+    return out
+
+
+def port(mtypes, approach="sSVDMC", **kw):
+    cfg = PipelineConfig(approach=approach, **{**CFG, **kw.pop("cfg", {})})
+    return StreamDetector(mtypes, W, cfg=cfg, device="cpu", **kw)
+
+
+def jax_detector(mtypes, approach="sSVDMC", **kw):
+    cfg = JConfig(approach=approach, windows_per_batch=1, **{**CFG, **kw.pop("cfg", {})})
+    return JDetector(mtypes, W, cfg=cfg, **kw)
+
+
+def _all(det, mods, chunk):
+    return _serve(det, mods, chunk) + det.flush()
+
+
+@pytest.mark.parametrize("ratio", [1, 2])
+def test_triggers_match_jax(stream, ratio):
+    mods, mtypes, _ = stream
+    got = _all(port(mtypes, cfg=dict(step_window_ratio=ratio)), mods, 48)
+    want = _all(jax_detector(mtypes, cfg=dict(step_window_ratio=ratio)), mods, 48)
+    assert [(r.window_index, r.row_start) for r in got] == \
+        [(r.window_index, r.row_start) for r in want]
+    assert [r.row_start + W - 1 for r in got] == window_triggers(512, W, ratio)
+    seen: set = set()
+    for r in got:
+        assert r.counts.sum() + r.background == W and len(r.clusters) == W
+        assert set(r.new_events.tolist()) == set(r.event_ids.tolist()) - seen
+        seen |= set(r.event_ids.tolist())
+
+
+def test_chunking_invariance(stream):
+    """Also a stress run of the dispatch worker: one record per push with
+    the interpreter switching threads every microsecond."""
+    mods, mtypes, _ = stream
+    runs = [_all(port(mtypes, "SWFDMC"), mods, chunk) for chunk in (512, 7)]
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        runs.append(_all(port(mtypes, "SWFDMC"), mods, 1))
+    finally:
+        sys.setswitchinterval(interval)
+    assert len(runs[0]) == 512 // W
+    for other in runs[1:]:
+        for x, y in zip(runs[0], other):
+            assert (x.window_index, x.row_start) == (y.window_index, y.row_start)
+            np.testing.assert_array_equal(x.clusters, y.clusters)
+
+
+@pytest.mark.parametrize("approach", ["SWFDMC", "sSVDMC"])
+def test_save_load_resume(stream, tmp_path, approach):
+    mods, mtypes, _ = stream
+    full = _all(port(mtypes, approach, background=False), mods, W)
+    det = port(mtypes, approach)
+    cut = 3 * W + 7
+    out = _serve(det, mods, W, stop=cut)
+    path = str(tmp_path / "det.npz")
+    out.extend(det.save(path))
+    det2 = StreamDetector.load(path, device="cpu")
+    assert det2.cfg == det.cfg and det2._count == cut
+    out.extend(_serve(det2, [m[cut:] for m in mods], W) + det2.flush())
+    assert len(out) == len(full)
+    for x, y in zip(out, full):
+        assert (x.window_index, x.row_start) == (y.window_index, y.row_start)
+        np.testing.assert_array_equal(x.clusters, y.clusters)
+        np.testing.assert_array_equal(x.new_events, y.new_events)
+    bogus = str(tmp_path / "stream_00000001.npz")
+    from mused_tpu_torch.utils import checkpoint as ckpt
+    ckpt.save_checkpoint(bogus, det.engine.state, {"next_window": 1})
+    with pytest.raises(ValueError, match="not a StreamDetector"):
+        StreamDetector.load(bogus, device="cpu")
+
+
+def test_same_errors_as_jax(stream):
+    mods, mtypes, _ = stream
+    for make in (lambda **kw: StreamDetector(mtypes, W, device="cpu", **kw),
+                 lambda **kw: JDetector(mtypes, W, **kw)):
+        with pytest.raises(ValueError, match="unsupervised"):
+            make(k_estimate="labels")
+        det = make(max_events=8)
+        with pytest.raises(ValueError, match="modality"):
+            det.push([mods[0][:4]])
+        with pytest.raises(ValueError, match="record count"):
+            det.push([m[:3] for m in mods[:-1]] + [mods[-1][:2]])
+        with pytest.raises(ValueError, match="0-d"):
+            det.push([np.float32(1.0)] * len(mods))
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA"):
+            StreamDetector(mtypes, W)              # the card is the default
+
+
+def test_push_detaches_from_caller_buffer(stream):
+    mods, mtypes, _ = stream
+    det_a, det_b = port(mtypes, k_estimate="fixed"), port(mtypes, k_estimate="fixed")
+    out_a, out_b = [], []
+    bufs = [np.empty_like(m[:100]) for m in mods]
+    for lo in range(0, 512, 100):
+        hi = min(lo + 100, 512)
+        chunk = [m[lo:hi] for m in mods]
+        for b, c in zip(bufs, chunk):
+            b[:hi - lo] = c
+        out_a.extend(det_a.push([b[:hi - lo] for b in bufs]))
+        for b in bufs:
+            b[:] = -777.0 if b.dtype != object else "clobbered"
+        out_b.extend(det_b.push([c.copy() for c in chunk]))
+    out_a.extend(det_a.flush())
+    out_b.extend(det_b.flush())
+    assert len(out_a) == len(out_b) == 512 // W
+    for x, y in zip(out_a, out_b):
+        np.testing.assert_array_equal(x.clusters, y.clusters)
+
+
+def test_a_failed_dispatch_poisons_the_detector(stream, monkeypatch, tmp_path):
+    mods, mtypes, _ = stream
+    det = port(mtypes)
+    orig = det.engine.dispatch_window
+
+    def fail_on_window_2(host, dev, types, labels, widx, prev):
+        if widx == 2:
+            raise FloatingPointError("device step failed")
+        return orig(host, dev, types, labels, widx, prev)
+
+    monkeypatch.setattr(det.engine, "dispatch_window", fail_on_window_2)
+    with pytest.raises(RuntimeError, match="dispatch worker failed"):
+        _serve(det, mods, W)
+        det.flush()
+    for call in (lambda: det.push([m[:W] for m in mods]), det.flush,
+                 lambda: det.save(str(tmp_path / "x.npz"))):
+        with pytest.raises(RuntimeError, match="restore from the last save"):
+            call()
+    assert not (tmp_path / "x.npz").exists()
+
+
+def test_entry_readiness_and_huge_window_clamp(stream):
+    mods, mtypes, _ = stream
+    det = port(mtypes, max_lag=0)
+    assert det._dispatch_ahead == 0 and det._worker is None
+    det.push([m[:W] for m in mods])                  # synchronous: no worker
+    assert det._worker is None
+    entry = det._pending[0] if det._pending else None
+    assert entry is None or serving._entry_ready(entry)
+    huge = port(mtypes, "SWFDMC", cfg=dict(force_blocked_window=True))
+    assert huge.max_lag == 0 and huge._dispatch_ahead == 0
+
+
+@pytest.mark.parametrize("approach", ["SWFDMC", "sSVDMC"])
+def test_nmi_matches_jax_with_draws_injected(stream, monkeypatch, approach):
+    mods, mtypes, labels = stream
+    want = np.concatenate([r.clusters for r in _all(jax_detector(mtypes, approach),
+                                                    mods, 96)])
+    inject_jax_draws(monkeypatch)
+    got = np.concatenate([r.clusters for r in _all(port(mtypes, approach), mods, 96)])
+    truth = np.asarray(labels)[:len(got)]
+    assert abs(metrics.nmi(truth, got) - metrics.nmi(truth, want)) <= 0.05
+
+
+def test_crisis_stream_is_the_jax_packages():
+    got = tsyn.crisis_embedding_stream(n_rows=300, n_events=5, noise_rate=0.3,
+                                       d_text=24, d_image=16, seed=4)
+    want = jcrisis(n_rows=300, n_events=5, noise_rate=0.3, d_text=24, d_image=16, seed=4)
+    assert got[1] == want[1]
+    np.testing.assert_array_equal(got[2], want[2])
+    for g, w in zip(got[0], want[0]):
+        assert g.dtype == w.dtype
+        np.testing.assert_array_equal(g, w)
+
+
+def test_background_bucket_on_the_crisis_stream():
+    """BASELINE.md config #2 (embeddings + sSpectral, eigengap count) with
+    the reference's positional matching: the bucket fires, lifts NMI by at
+    least 0.05 and keeps the events-only NMI; the JAX detector's bucket
+    fires on the same stream."""
+    mods, mtypes, labels = tsyn.crisis_embedding_stream(
+        n_rows=1024, n_events=4, noise_rate=0.3, d_text=64, d_image=64, seed=3)
+    kw = dict(window_size=256, reduced_dim=16, k_basis=8, label_mode="all",
+              n_clusters_override=12, k_estimate="eigengap")
+    runs = {}
+    for bg in (False, True):
+        det = StreamDetector(mtypes, 256, cfg=PipelineConfig(
+            approach="sSpectral", background_bucket=bg, **kw), device="cpu")
+        runs[bg] = np.concatenate([r.clusters for r in _all(det, mods, 200)])
+    truth = labels[:len(runs[True])]
+    assert np.any(runs[True] == -1) and not np.any(runs[False] == -1)
+    assert metrics.nmi(truth, runs[True]) > metrics.nmi(truth, runs[False]) + 0.05
+    assert metrics.nmi_events_only(truth, runs[True]) >= \
+        metrics.nmi_events_only(truth, runs[False]) - 0.05
+    jdet = JDetector(mtypes, 256, cfg=JConfig(approach="sSpectral", background_bucket=True,
+                                              windows_per_batch=1, **kw))
+    want = np.concatenate([r.clusters for r in _all(jdet, mods, 200)])
+    assert np.any(want == -1)
+    assert abs(metrics.nmi(truth, runs[True]) - metrics.nmi(truth, want)) <= 0.1
+
+
+def test_api_reexports_the_detector():
+    assert tapi.StreamDetector is StreamDetector

@@ -10,6 +10,12 @@ reduced_dim 8:
   * with the JAX side's random draws injected (FD probe, SVD test matrix,
     k-means++ init), the stream's NMI is within 0.05 of the JAX package's,
     for SWFDMC and sSVDMC;
+  * sSpectral and the DBSCAN family likewise (NMI / F1 within 0.05), an
+    unknown approach name runs the SVD and k-means as in the reference, the
+    reference's keywords are all accepted, and the reference's R is
+    recorded (ROADMAP Queue 3 #2-#4);
+  * a stream started in the JAX package continues in the port with the
+    JAX run's labels;
   * on the huge-window blocked path (forced at window 512, binned
     candidates), with the same draws injected, NMI is within 0.02 of the JAX
     engine for SWFDMC (candidate-native fold) and sSVDMC (blocked SVD).
@@ -194,6 +200,35 @@ def test_huge_window_minibatch_runs(huge_stream):
     assert all(np.isfinite(v) and 0.0 <= v <= 1.0 for v in vals)
 
 
+@pytest.mark.parametrize("approach", ["SWFDMC", "sSVDMC"])
+def test_huge_window_background_bucket(approach, monkeypatch):
+    """The huge path's k-means branch applies the background bucket to the
+    window's reduction (mused_tpu/engine/streaming.py:850-852); the
+    mini-batch approach takes none."""
+    mods, mtypes, _ = tsyn.crisis_embedding_stream(n_rows=256, n_events=4,
+                                                   noise_rate=0.3, d_text=16,
+                                                   d_image=16, seed=3)
+    calls = []
+    orig = ts.kmeans.mark_background
+
+    def spy(x, labels, *, k_max):
+        calls.append((tuple(x.shape), k_max))
+        return orig(x, labels, k_max=k_max)
+
+    monkeypatch.setattr(ts.kmeans, "mark_background", spy)
+    for name, want in ((approach, [((256, 8), 12)]), ("sSVDMC_mini", [])):
+        calls.clear()
+        cfg = PipelineConfig(window_size=256, reduced_dim=8, k_basis=4, approach=name,
+                             label_mode="all", n_clusters_override=12,
+                             k_estimate="eigengap", background_bucket=True,
+                             force_blocked_window=True)
+        eng = ts.StreamingEngine(cfg, "cpu")
+        host = eng.featurize(mods, mtypes)
+        clusters = eng.process_window(host, to_device(host, eng.device), mtypes,
+                                      np.zeros(256), 0, None)
+        assert len(clusters) == 256 and calls == want, name
+
+
 def test_huge_window_engine_layout():
     eng = ts.StreamingEngine(PipelineConfig(window_size=40_000, approach="SWFDMC"), "cpu")
     assert eng.huge and (eng.block, eng.pad) == (2048, 960)
@@ -213,20 +248,157 @@ def test_engine_refuses_what_the_slice_does_not_run():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             ts.StreamingEngine(cfg, "cuda")
-    for bad in [dict(approach="sSpectral"), dict(approach="DBSCAN_incr"),
-                dict(window_size=40_000, approach="sSpectral"),
+    for bad in [dict(window_size=40_000, approach="sSpectral"),
                 dict(force_blocked_window=True, approach="DBSCAN_centr"),
                 dict(force_blocked_window=True, huge_window_layout="columns"),
-                dict(data_shards=2), dict(matching="centroid"),
-                dict(background_bucket=True), dict(windows_per_batch=4)]:
+                dict(data_shards=2), dict(matching="centroid"), dict(windows_per_batch=4)]:
         with pytest.raises(NotImplementedError):
             ts.StreamingEngine(cfg.replace(**bad), "cpu")
-    with pytest.raises(NotImplementedError, match="slice 2"):
-        tapi.process_streaming_data(None, [np.zeros((64, 2))] * 5, ts.STANDARD_TYPES,
-                                    device="cpu", checkpoint_dir="ckpt", **KW,
-                                    approach="sSVDMC", complete_true_labels=np.zeros(64))
+    # the reference's own refusal (mused_tpu/engine/streaming.py:563-568)
+    with pytest.raises(ValueError, match="DBSCAN_incr"):
+        ts.StreamingEngine(cfg.replace(force_blocked_window=True, approach="DBSCAN_incr"),
+                           "cpu")
+    for kw in [dict(merge_topology="ring"), dict(huge_window_layout="grid"),
+               dict(huge_window_col_shards=2)]:
+        with pytest.raises(NotImplementedError, match="slice 4"):
+            tapi.process_streaming_data(None, [np.zeros((64, 2))] * 5, ts.STANDARD_TYPES,
+                                        device="cpu", **KW, approach="sSVDMC",
+                                        complete_true_labels=np.zeros(64), **kw)
     with pytest.raises(ValueError):
         ts.StreamingEngine(cfg.replace(k_estimate="guess"), "cpu")
+
+
+@pytest.mark.parametrize("approach", ["sSpectral", "DBSCAN_incr", "DBSCAN_centr"])
+def test_dense_approaches_of_slice_2_match_jax(approach, stream, monkeypatch):
+    """sSpectral (spectral clustering of the fused graph) and the DBSCAN
+    family (on the SVD-reduced window) with the JAX side's draws injected:
+    NMI and F1 within 0.05 of the JAX package.  DBSCAN_incr clusters rows of
+    every window together, so it also takes the JAX SVD's column signs."""
+    mods, mtypes, labels = stream
+    want = _run(japi, mods, mtypes, labels, approach)
+    inject_jax_draws(monkeypatch, svd_signs=approach == "DBSCAN_incr")
+    got = _run(tapi, mods, mtypes, labels, approach, device="cpu")
+    assert abs(got["nmi_score"][0] - want["nmi_score"][0]) <= 0.05
+    assert abs(got["f1_score"][0] - want["f1_score"][0]) <= 0.05
+
+
+def test_unknown_approach_runs_svd_and_kmeans(stream, monkeypatch):
+    """ROADMAP Queue 3 #2: the reference validates no approach name; an
+    unknown one (a *_batch name included) runs the SVD and k-means with
+    Hungarian matching, exactly as sSVDMC does."""
+    mods, mtypes, labels = stream
+    inject_jax_draws(monkeypatch)
+    ref = _run(tapi, mods, mtypes, labels, "sSVDMC", device="cpu")
+    for name in ("no_such_approach", "SVDMC_batch"):
+        got = _run(tapi, mods, mtypes, labels, name, device="cpu")
+        for key in ("nmi_score", "f1_score", "f1_aligned"):
+            assert got[key][0] == ref[key][0], (name, key)
+    want = _run(japi, mods, mtypes, labels, "no_such_approach")
+    assert abs(got["nmi_score"][0] - want["nmi_score"][0]) <= 0.05
+
+
+def test_process_streaming_data_takes_every_reference_keyword(stream, monkeypatch):
+    """ROADMAP Queue 3 #3: every keyword of the JAX package's signature is
+    accepted; the ported ones pass through to the config."""
+    mods, mtypes, labels = stream
+    kw = dict(checkpoint_every=2, data_shards=1, merge_topology="allgather",
+              verbose=False, matching="auto", windows_per_batch=None,
+              k_estimate="eigengap", eigengap_theta=0.2, background_bucket=True,
+              huge_window_layout="rows", huge_window_col_shards=0,
+              huge_window_cand_fold=False)
+    res = _run(tapi, mods, mtypes, labels, "sSVDMC", device="cpu", **kw)
+    assert np.isfinite(res["nmi_score"][0])
+    captured = {}
+    orig = ts.StreamingEngine.__init__
+
+    def spy(self, cfg, device="cuda"):
+        captured["cfg"] = cfg
+        orig(self, cfg, device)
+
+    monkeypatch.setattr(ts.StreamingEngine, "__init__", spy)
+    _run(tapi, mods, mtypes, labels, "sSVDMC", device="cpu", **kw)
+    cfg = captured["cfg"]
+    assert (cfg.k_estimate, cfg.eigengap_theta, cfg.background_bucket,
+            cfg.huge_window_cand_fold, cfg.verbose) == ("eigengap", 0.2, True, False, False)
+
+
+def test_verbose_prints_the_reference_oracles(stream):
+    """``verbose`` at a small window prints the reference's debug oracles
+    (reference main.py:35-37, 51-53, 99-112) in the JAX package's order and
+    format, the fused adjacency's sum included, and changes no result."""
+    mods, mtypes, labels = stream
+
+    def printed(api, **extra):
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            res = api.process_streaming_data(
+                results=api.get_initial_results()[0], data_modalities=mods,
+                modality_types=mtypes, approach="sSVDMC", complete_true_labels=labels,
+                verbose=True, **KW, **extra)
+        heads = [ln.split(":")[0] for ln in out.getvalue().splitlines()
+                 if ln.startswith("[window")]
+        return heads, res
+
+    got, res = printed(tapi, device="cpu")
+    want, _ = printed(japi)
+    assert got == want and len(got) == 4 * 4
+    assert "[window 0] fused adjacency (sum=" in got[1]
+    quiet = _run(tapi, mods, mtypes, labels, "sSVDMC", device="cpu")
+    assert res["nmi_score"][0] == quiet["nmi_score"][0]
+
+
+def test_swfd_r_is_recorded_like_the_reference(stream):
+    """ROADMAP Queue 3 #4: the first window's largest squared row norm of the
+    fused matrix (reference main.py:61), equal to the JAX engine's and kept
+    in the host snapshot."""
+    mods, mtypes, labels = stream
+    cfg = PipelineConfig(window_size=64, k_basis=3, reduced_dim=8, approach="SWFDMC",
+                         n_clusters_override=2)
+    jeng = js.StreamingEngine(cfg)
+    jeng.process_window([m[:64] for m in mods], mtypes, labels[:64], 0, None)
+    engine = ts.StreamingEngine(cfg, "cpu")
+    _run(tapi, mods, mtypes, labels, "SWFDMC", device="cpu", cfg=cfg, engine=engine)
+    assert engine.swfd_R is not None and engine.swfd_R == jeng.swfd_R
+    assert engine.host_snapshot()["swfd_R"] == jeng.swfd_R
+
+
+def test_jax_engine_state_continues_in_the_port(stream, monkeypatch):
+    """A stream run 2 windows in the JAX package and continued in the port
+    (``convert.engine_state_from_jax``) gives, on its remaining windows, the
+    JAX run's continued labels, with the JAX draws injected."""
+    import jax
+    from mused_tpu_torch.utils import convert
+    mods, mtypes, labels = stream
+    cfg = PipelineConfig(window_size=64, k_basis=3, reduced_dim=8, approach="SWFDMC",
+                         n_clusters_override=2, k_estimate="fixed")
+    jeng = js.StreamingEngine(cfg)
+
+    def window(w):
+        return [m[64 * w:64 * (w + 1)] for m in mods], labels[64 * w:64 * (w + 1)]
+
+    prev = None
+    for w in range(2):
+        rows, truth = window(w)
+        prev = jeng.process_window(rows, mtypes, truth, w, prev)
+    state_np = jax.tree_util.tree_map(np.asarray, jeng.state)
+    host, prev_at_2 = jeng.host_snapshot(), prev
+    want = []
+    for w in range(2, 4):
+        rows, truth = window(w)
+        prev = jeng.process_window(rows, mtypes, truth, w, prev)
+        want.append(prev)
+
+    inject_jax_draws(monkeypatch)
+    teng = ts.StreamingEngine(cfg, "cpu")
+    teng.restore(*convert.engine_state_from_jax(state_np, host, "cpu"))
+    assert teng.state.swfd.count == 128 and teng.swfd_R == jeng.swfd_R
+    prev = prev_at_2
+    for w, expected in zip(range(2, 4), want):
+        rows, truth = window(w)
+        feats = teng.featurize(rows, mtypes)
+        prev = teng.process_window(feats, to_device(feats, teng.device), mtypes, truth,
+                                   w, prev)
+        np.testing.assert_array_equal(prev, expected)
 
 
 def test_window_generator_rule():
@@ -279,6 +451,9 @@ def test_neither_jax_nor_pandas_is_imported():
             "import mused_tpu_torch.ops.kernels.cand_matvec; "
             "import mused_tpu_torch.ops.matching; import mused_tpu_torch.utils.metrics; "
             "import mused_tpu_torch.data.features; import mused_tpu_torch.native; "
+            "import mused_tpu_torch.serving; import mused_tpu_torch.ops.spectral; "
+            "import mused_tpu_torch.ops.dbscan; import mused_tpu_torch.utils.checkpoint; "
+            "from mused_tpu_torch.native import IncDBHandle, incdb_available; "
             "print([m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'pandas', 'mused_tpu')])"
             % REPO)

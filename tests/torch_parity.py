@@ -38,10 +38,18 @@ def jax_probe(m2: int, r: int) -> np.ndarray:
     return np.asarray(jax.random.normal(jax.random.key(7), (m2, r), jnp.float32))
 
 
-def inject_jax_draws(monkeypatch) -> None:
+def inject_jax_draws(monkeypatch, svd_signs: bool = False) -> None:
     """Make the port's streaming engine draw the JAX engine's random numbers:
     the FD probe (key 7), and per window w the randomized-SVD test matrix
-    (dense or blocked) and the k-means++ init from ``fold_in(key(seed), w)``."""
+    (dense or blocked) and the k-means++ init from ``fold_in(key(seed), w)``
+    (the k-means inside ``ops/spectral`` included: it calls the same module
+    attribute).
+
+    ``svd_signs``: also flip each column of the dense randomized SVD's output
+    to the sign the JAX package's LAPACK gives it.  A singular vector's sign
+    is implementation-defined, like a draw; within a window no distance
+    depends on it, but an approach that compares rows of different windows
+    (DBSCAN_incr) does."""
     from mused_tpu.ops import kmeans as jkmeans
     from mused_tpu_torch.engine import streaming as ts
     from mused_tpu_torch.ops import blocked_affinity as tba
@@ -60,7 +68,14 @@ def inject_jax_draws(monkeypatch) -> None:
         rows, d = matrix.shape
         k = min(min(reduced_dim, d - 1) + 10, min(rows, d))
         omega = jax.random.normal(current["key"], (d, k), jnp.float32)
-        return orig_svd(matrix, reduced_dim, generator, omega=t(omega))
+        out = orig_svd(matrix, reduced_dim, generator, omega=t(omega))
+        if svd_signs:
+            from mused_tpu.ops import reduction as jreduction
+            want = jreduction.svd_reduce(jnp.asarray(n(matrix)), reduced_dim,
+                                         current["key"])
+            flip = torch.sum(out * t(np.asarray(want)), dim=0) < 0
+            out = torch.where(flip[None, :], -out, out)
+        return out
 
     def blocked_svd(mul_a, mul_at, generator, *, n, rank, oversample=8, n_iter=2,
                     device=None, omega=None):
@@ -92,3 +107,40 @@ def synthetic_window_stream(n_rows=420, n_events=4, noise_rate=0.5, subset=256,
                                     noise_rate=noise_rate, seed=seed)
     return prepare_modalities(df, subset_size=subset, sort_by_uploaded=True,
                               binary=True, noise_rate=noise_rate, seed=seed)
+
+
+def crisis_serving_reference(rows=20_000, window=2000, chunk=500):
+    """The JAX detector's NMI on ``chip_smoke.py`` phase h2's stream and
+    configuration (sSpectral, eigengap count up to 150 events, positional
+    matching, one window per dispatch), background bucket off and on: one
+    dict per setting, a quality reference for the card's numbers.
+
+        JAX_PLATFORMS=cpu python tests/torch_parity.py
+    """
+    from mused_tpu.data.synthetic import crisis_embedding_stream
+    from mused_tpu.serving import StreamDetector
+    from mused_tpu.utils.config import PipelineConfig
+    from mused_tpu.utils.metrics import nmi
+    mods, mtypes, labels = crisis_embedding_stream(n_rows=rows, n_events=8,
+                                                   noise_rate=0.3, seed=0)
+    out = []
+    for background in (False, True):
+        cfg = PipelineConfig(window_size=window, reduced_dim=50, k_basis=50,
+                             approach="sSpectral", label_mode="all",
+                             n_clusters_override=150, k_estimate="eigengap",
+                             background_bucket=background, windows_per_batch=1)
+        det = StreamDetector(mtypes, window, cfg=cfg)
+        res = []
+        for lo in range(0, rows, chunk):
+            res.extend(det.push([m[lo:lo + chunk] for m in mods]))
+        res.extend(det.flush())
+        clus = np.concatenate([r.clusters for r in res])
+        out.append({"background": background, "windows": len(res),
+                    "nmi": nmi(labels[:len(clus)], clus),
+                    "background_rows": int((clus == -1).sum())})
+    return out
+
+
+if __name__ == "__main__":
+    for line in crisis_serving_reference():
+        print(line)
