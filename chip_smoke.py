@@ -69,7 +69,25 @@ Phases (any failure exits non-zero; no phase is skipped):
          checkpoints after window 4 deleted, the rerun resumes at window 4
          and its metrics equal the first run's;
       h5 the detector on 2 huge windows of (e)'s stream (98,304 rows,
-         SWFDMC, background): 96 K2, 48 K3, 96 K4 and 48 K5 per window.
+         SWFDMC, background): 96 K2, 48 K3, 96 K4 and 48 K5 per window;
+  (i) slices 2c + 2d, the batch engine and the blocked clustering family:
+      i1 ``api.process_batch_data`` on (c)'s 150,000 records (the
+         reference's default subset: the blocked path, 151,552 padded rows,
+         nbins 4096 over 37 groups) for SVDMC_batch, Spectral_batch,
+         DBSCAN_batch and HDBSCAN_batch: seconds, rows/s, NMI, NMI_e, F1,
+         and exactly 2 K2 + 1 K3 per block per sweep (6 sweeps of the
+         blocked SVD, 8 of blocked spectral), no K1;
+      i2 the dense path: the same approaches at 32,768 rows (HDBSCAN then
+         takes the card's Borůvka) and Spectral_batch at 16,384, 4 K1 each;
+      i3 sSpectral and DBSCAN_centr over (f)'s stream at window 98,304
+         (768 / 576 K2 and 384 / 288 K3 per window);
+      i4 K2 (tags, text) and K3 on the batch columns' last block (n =
+         151,552, nbins 4096) held to (e)'s rules, K1 at n = 32,768 held to
+         (b)'s; blocked DBSCAN equal to the dense DBSCAN on a 20,000-row
+         reduced embedding (on a grid that makes every squared distance
+         exact); the card's Borůvka against host Prim at 16,384 rows: the
+         same MST weights there, and the same partition on 16 separated
+         blobs.
 
 Every phase prints its seconds.  ``--phases`` runs a subset (for
 development; the result lines are printed only when all phases ran).
@@ -96,8 +114,9 @@ import torch
 from mused_tpu_torch import api, native
 from mused_tpu_torch.data.ingest import to_device
 from mused_tpu_torch.data.synthetic import crisis_embedding_stream, make_stream
-from mused_tpu_torch.engine import streaming
-from mused_tpu_torch.ops import affinity, fd, kmeans, spectral
+from mused_tpu_torch.engine import batch, streaming
+from mused_tpu_torch.ops import affinity, blocked_dbscan, blocked_hdbscan, dbscan, fd
+from mused_tpu_torch.ops import kmeans, spectral
 from mused_tpu_torch.ops import blocked_affinity as ba
 from mused_tpu_torch.ops.kernels import affinity_kernel as ak
 from mused_tpu_torch.ops.kernels import blocked_select as bs
@@ -142,6 +161,7 @@ COORDS = {"chord3": 3, "l1": 2}
 HBM_BYTES_PER_S = 3.35e12
 BLOCKS_PER_WINDOW = HUGE_WINDOW // HUGE_BLOCK
 SSVD_SWEEPS = 6              # blocked randomized SVD: sweeps per huge window
+SPECTRAL_SWEEPS = 8          # blocked spectral: degrees, 6 iterations, the Ritz product
 
 
 def nvidia_smi_line() -> str:
@@ -226,9 +246,10 @@ def edge_agreement(a: torch.Tensor, b: torch.Tensor) -> float:
     return 1.0 if union == 0 else inter / union
 
 
-def kernel_cases(mods, engine: streaming.StreamingEngine, device) -> list[tuple]:
-    """(name, metric, x, valid, k, options) at the main path's shapes."""
-    host = engine.featurize([m[:WINDOW] for m in mods], streaming.STANDARD_TYPES)
+def main_cases(mods, engine: streaming.StreamingEngine, device, n_rows: int) -> list[tuple]:
+    """(name, metric, x, valid, k, options) of the main path's four K1 calls on
+    the stream's first ``n_rows`` records."""
+    host = engine.featurize([m[:n_rows] for m in mods], streaming.STANDARD_TYPES)
     loc, tim, _, tags_ids, text_ids, text_cnt, tags_valid = to_device(host, device)
     fc = engine.cfg.features
     lv = torch.all(torch.isfinite(loc), dim=1)
@@ -238,6 +259,17 @@ def kernel_cases(mods, engine: streaming.StreamingEngine, device) -> list[tuple]
     tags = affinity.counts_from_tokens(tags_ids, None, fc.tags_hash_dim)
     xt, xv = affinity.tfidf_rows(affinity.counts_from_tokens(text_ids, text_cnt,
                                                              fc.text_hash_dim))
+    return [("location", "chord3", xyz, lv, K_BASIS, {}),
+            ("time", "l1", t, tv, 3 * K_BASIS, {}),
+            ("tags", "jaccard", tags.contiguous(), tags_valid, K_BASIS, {}),
+            ("text", "dot", xt.contiguous(), xv, K_BASIS, {})]
+
+
+def kernel_cases(mods, engine: streaming.StreamingEngine, device) -> list[tuple]:
+    """(name, metric, x, valid, k, options) at the main path's shapes: its four
+    calls and six more cases."""
+    cases = main_cases(mods, engine, device, WINDOW)
+    xt, xv = cases[3][2], cases[3][3]
     gen = torch.Generator(device=device).manual_seed(SEED)
     emb = torch.randn((WINDOW, 128), generator=gen, device=device)
     dense = torch.randn((WINDOW, 4096), generator=gen, device=device)
@@ -249,12 +281,7 @@ def kernel_cases(mods, engine: streaming.StreamingEngine, device) -> list[tuple]
     city = torch.stack([41.39 + (ij // side) * 0.0018,
                         2.16 + (ij % side) * 0.0024], dim=1).float()
     ones = torch.ones(WINDOW, dtype=torch.bool, device=device)
-    xt = xt.contiguous()
-    return [
-        ("location", "chord3", xyz, lv, K_BASIS, {}),
-        ("time", "l1", t, tv, 3 * K_BASIS, {}),
-        ("tags", "jaccard", tags.contiguous(), tags_valid, K_BASIS, {}),
-        ("text", "dot", xt, xv, K_BASIS, {}),
+    return cases + [
         ("generic_euclidean", "euclidean", emb, ones, K_BASIS - 1, {}),
         ("duplicates_dot", "dot", dup.contiguous(), ones, K_BASIS, {}),
         ("city_200m_chord3", "chord3", ak.location_to_unit_xyz(city).contiguous(), ones,
@@ -265,7 +292,7 @@ def kernel_cases(mods, engine: streaming.StreamingEngine, device) -> list[tuple]
     ]
 
 
-def phase_b(cases) -> list[dict]:
+def phase_b(cases, tag: str = "b", reps: int = 10, plain_reps: int = 10) -> list[dict]:
     rows = []
     for name, metric, x, valid, k, opts in cases:
         plain_opts = {o: v for o, v in opts.items() if o == "input_dtype"}
@@ -279,11 +306,14 @@ def phase_b(cases) -> list[dict]:
                "edges": int(want.sum()), "mismatched_entries": int((got != want).sum()),
                "edge_agreement": agree, "same_degree": same_degree,
                "max_abs_err": float((got - want).abs().max()),
-               "ms": cuda_ms(lambda: ak.knn_adjacency(x, valid, k, metric, **opts)),
+               "ms": cuda_ms(lambda: ak.knn_adjacency(x, valid, k, metric, **opts), reps=reps,
+                             warmup=min(2, reps)),
                "plain_ms": cuda_ms(lambda: ak.knn_adjacency_reference(x, valid, k, metric,
-                                                                      **plain_opts))}
+                                                                      **plain_opts),
+                                   reps=plain_reps, warmup=min(2, plain_reps - 1))}
+        del got, want
         with_bound(row, k1_bound(metric, x.shape[0], x.shape[1]))
-        print("[b]", json.dumps(row), flush=True)
+        print(f"[{tag}]", json.dumps(row), flush=True)
         ok = (row["mismatched_entries"] == 0 if metric in BIT_EQUAL
               else agree >= EDGE_AGREEMENT and same_degree)
         if not ok:
@@ -396,12 +426,98 @@ def gemm_yardstick(metric: str, cols: torch.Tensor, rows: torch.Tensor) -> dict:
         return {"gemm_ms": None, "gemm": f"{how} refused: {e}"[:200]}
 
 
+def k2_check(name: str, metric: str, x, valid, row_sums, k: int, *, start: int,
+             block: int, nbins: int, per_window: dict, tag: str = "e") -> dict:
+    """K2 on rows [start, start + block) of the panel ``x`` against its plain
+    version: bit-equal for jaccard / l1 / chord3 and integer-valued dot,
+    within the tolerances above for dot / chord; times, bound, splits."""
+    x = x.contiguous()
+    n = x.shape[0]
+    rows = slice(start, start + block)
+
+    def run(fn):
+        return fn(x, x[rows], valid, start, metric=metric, nbins=nbins, block=block,
+                  row_sums=row_sums)
+
+    before = bs.launches
+    got, want = run(bs.binned_candidates), run(bs.binned_candidates_plain)
+    torch.cuda.synchronize()
+    real = want[0] > bs.NEG / 2
+    keep_got = bs.budgeted_keep(got[0], valid[rows], k)
+    keep_want = bs.budgeted_keep(want[0], valid[rows], k)
+    row = {"case": name, "metric": metric, "n": n, "block": block, "start": start,
+           "nbins": nbins, "groups": n // nbins, "K": x.shape[1],
+           "dtype": str(x.dtype).replace("torch.", ""), "launched": bs.launches - before,
+           "splits": bs.kernel_splits(n, block, nbins, metric),
+           "bit_equal": bool(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])),
+           "same_real_mask": bool(torch.equal(real, got[0] > bs.NEG / 2)),
+           "max_abs_err": float((got[0] - want[0])[real].abs().max()) if real.any() else 0.0,
+           "value_scale": float(want[0][real].abs().max()) if real.any() else 0.0,
+           "grp_agreement": float((got[1] == want[1]).float().mean()),
+           "keep_agreement": edge_agreement(keep_got, keep_want),
+           "same_kept_counts": bool(torch.equal(keep_got.sum(1), keep_want.sum(1))),
+           "ms": cuda_ms(lambda: run(bs.binned_candidates), reps=5, warmup=1),
+           "plain_ms": cuda_ms(lambda: run(bs.binned_candidates_plain), reps=3, warmup=1),
+           "launches_per_window": per_window}
+    with_bound(row, k2_bound(metric, n, block, nbins, x.shape[1], x.element_size()))
+    if metric in bs.PAIR_METRICS:
+        row["share_of_fma_rate_bound"] = row["bound_fma_rate_ms"] / row["ms"]
+    if metric in ("dot", "jaccard") and name != "text_integer_valued":
+        row.update(gemm_yardstick(metric, x, x[rows]))
+    print(f"[{tag}] K2", json.dumps(row), flush=True)
+    if metric in HUGE_BIT_EQUAL or name == "text_integer_valued":
+        ok = row["bit_equal"]
+    elif metric == "dot":
+        ok = (row["same_real_mask"] and row["max_abs_err"] <= K2_DOT_ATOL
+              and row["grp_agreement"] >= K2_DOT_GROUP_AGREEMENT
+              and row["keep_agreement"] >= KEEP_AGREEMENT)
+    else:
+        ok = (row["same_real_mask"] and row["max_abs_err"] <= DOT_RTOL * row["value_scale"]
+              and row["keep_agreement"] >= KEEP_AGREEMENT and row["same_kept_counts"])
+    if not (ok and row["launched"] == 1):
+        raise AssertionError(f"K2 disagrees with its plain version: {row}")
+    return row
+
+
+def k3_check(xyz, lv, tim, tv, *, start: int, block: int, nbins: int, per_window: dict,
+             tag: str = "e") -> dict:
+    """K3 (location chord3 + time l1) against two K2 launches and the plain
+    version, bit-equal; times and bound."""
+    n = xyz.shape[0]
+    rows = slice(start, start + block)
+
+    def pair():
+        return bs.binned_candidates_pair(xyz, tim, xyz[rows], tim[rows], lv, tv, start,
+                                         metricA="chord3", metricB="l1", nbins=nbins,
+                                         block=block)
+
+    def two_k2(fn):
+        return (*fn(xyz, xyz[rows], lv, start, metric="chord3", nbins=nbins, block=block),
+                *fn(tim, tim[rows], tv, start, metric="l1", nbins=nbins, block=block))
+
+    got, singles, plain = pair(), two_k2(bs.binned_candidates), two_k2(bs.binned_candidates_plain)
+    torch.cuda.synchronize()
+    row = {"case": "location+time", "n": n, "start": start, "nbins": nbins,
+           "groups": n // nbins,
+           "bit_equal_to_two_k2": all(torch.equal(a, b) for a, b in zip(got, singles)),
+           "bit_equal_to_plain": all(torch.equal(a, b) for a, b in zip(got, plain)),
+           "ms": cuda_ms(pair, reps=5, warmup=1),
+           "plain_ms": cuda_ms(lambda: two_k2(bs.binned_candidates_plain), reps=3, warmup=1),
+           "launches_per_window": per_window}
+    with_bound(row, coord_bound([("chord3", xyz.shape[1]), ("l1", tim.shape[1])], n, block,
+                                nbins))
+    row["share_of_fma_rate_bound"] = row["bound_fma_rate_ms"] / row["ms"]
+    print(f"[{tag}] K3", json.dumps(row), flush=True)
+    if not (row["bit_equal_to_two_k2"] and row["bit_equal_to_plain"]):
+        raise AssertionError(f"K3 disagrees with two K2 launches: {row}")
+    return row
+
+
 def phase_e(cols: ba.Columns, device) -> dict:
     print(f"[e] card: {nvidia_smi_line()}", flush=True)
     n, block, start, nbins = cols.n, HUGE_BLOCK, 0, HUGE_NBINS
     if bs.default_nbins(n, k_max=3 * K_BASIS) != nbins:
         raise AssertionError(f"default_nbins({n}) != {nbins}")
-    rows = slice(start, start + block)
     by_kind = dict(zip(cols.kinds, zip(cols.tensors, cols.valids)))
     (xyz, lv), (tim, tv) = by_kind["location_xyz"], by_kind["time"]
     ((tags, sums), tagv), (text, textv) = by_kind["tags"], by_kind["text_bf16"]
@@ -420,81 +536,14 @@ def phase_e(cols: ba.Columns, device) -> dict:
             ("text", "dot", text, textv, None, K_BASIS),
             ("text_integer_valued", "dot", text_int, textv, None, K_BASIS),
             ("generic_default", "chord", dft, dv, sq, K_BASIS - 1)]:
-        x = x.contiguous()
-
-        def run(fn, x=x, valid=valid, row_sums=row_sums, metric=metric):
-            return fn(x, x[rows], valid, start, metric=metric, nbins=nbins, block=block,
-                      row_sums=row_sums)
-
-        before = bs.launches
-        got, want = run(bs.binned_candidates), run(bs.binned_candidates_plain)
-        torch.cuda.synchronize()
-        real = want[0] > bs.NEG / 2
-        keep_got = bs.budgeted_keep(got[0], valid[rows], k)
-        keep_want = bs.budgeted_keep(want[0], valid[rows], k)
-        row = {"case": name, "metric": metric, "n": n, "block": block, "nbins": nbins,
-               "K": x.shape[1], "dtype": str(x.dtype).replace("torch.", ""),
-               "launched": bs.launches - before,
-               "splits": bs.kernel_splits(n, block, nbins, metric),
-               "bit_equal": bool(torch.equal(got[0], want[0])
-                                 and torch.equal(got[1], want[1])),
-               "same_real_mask": bool(torch.equal(real, got[0] > bs.NEG / 2)),
-               "max_abs_err": float((got[0] - want[0])[real].abs().max()) if real.any()
-               else 0.0,
-               "value_scale": float(want[0][real].abs().max()) if real.any() else 0.0,
-               "grp_agreement": float((got[1] == want[1]).float().mean()),
-               "keep_agreement": edge_agreement(keep_got, keep_want),
-               "same_kept_counts": bool(torch.equal(keep_got.sum(1), keep_want.sum(1))),
-               "ms": cuda_ms(lambda: run(bs.binned_candidates), reps=5, warmup=1),
-               "plain_ms": cuda_ms(lambda: run(bs.binned_candidates_plain), reps=3,
-                                   warmup=1),
-               "launches_per_window": {"SWFDMC": per_window.get(name, 0),
-                                       "sSVDMC": SSVD_SWEEPS * per_window.get(name, 0)}}
-        with_bound(row, k2_bound(metric, n, block, nbins, x.shape[1], x.element_size()))
-        if metric in bs.PAIR_METRICS:
-            row["share_of_fma_rate_bound"] = row["bound_fma_rate_ms"] / row["ms"]
-        if metric in ("dot", "jaccard") and name != "text_integer_valued":
-            row.update(gemm_yardstick(metric, x, x[rows]))
-        print("[e] K2", json.dumps(row), flush=True)
-        if metric in HUGE_BIT_EQUAL or name == "text_integer_valued":
-            ok = row["bit_equal"]
-        elif metric == "dot":
-            ok = (row["same_real_mask"] and row["max_abs_err"] <= K2_DOT_ATOL
-                  and row["grp_agreement"] >= K2_DOT_GROUP_AGREEMENT
-                  and row["keep_agreement"] >= KEEP_AGREEMENT)
-        else:
-            ok = (row["same_real_mask"] and row["max_abs_err"] <= DOT_RTOL * row["value_scale"]
-                  and row["keep_agreement"] >= KEEP_AGREEMENT and row["same_kept_counts"])
-        if not (ok and row["launched"] == 1):
-            raise AssertionError(f"K2 disagrees with its plain version: {row}")
-        out["K2"][name] = row
+        out["K2"][name] = k2_check(
+            name, metric, x, valid, row_sums, k, start=start, block=block, nbins=nbins,
+            per_window={"SWFDMC": per_window.get(name, 0),
+                        "sSVDMC": SSVD_SWEEPS * per_window.get(name, 0)})
     del text_int
-
-    def pair():
-        return bs.binned_candidates_pair(xyz, tim, xyz[rows], tim[rows], lv, tv, start,
-                                         metricA="chord3", metricB="l1", nbins=nbins,
-                                         block=block)
-
-    def two_k2(fn):
-        return (*fn(xyz, xyz[rows], lv, start, metric="chord3", nbins=nbins, block=block),
-                *fn(tim, tim[rows], tv, start, metric="l1", nbins=nbins, block=block))
-
-    got, singles, plain = pair(), two_k2(bs.binned_candidates), two_k2(bs.binned_candidates_plain)
-    torch.cuda.synchronize()
-    row = {"case": "location+time", "bit_equal_to_two_k2": all(
-               torch.equal(a, b) for a, b in zip(got, singles)),
-           "bit_equal_to_plain": all(torch.equal(a, b) for a, b in zip(got, plain)),
-           "ms": cuda_ms(pair, reps=5, warmup=1),
-           "plain_ms": cuda_ms(lambda: two_k2(bs.binned_candidates_plain), reps=3, warmup=1),
-           "launches_per_window": {"SWFDMC": BLOCKS_PER_WINDOW,
-                                   "sSVDMC": SSVD_SWEEPS * BLOCKS_PER_WINDOW}}
-    with_bound(row, coord_bound([("chord3", xyz.shape[1]), ("l1", tim.shape[1])], n, block,
-                                nbins))
-    row["share_of_fma_rate_bound"] = row["bound_fma_rate_ms"] / row["ms"]
-    print("[e] K3", json.dumps(row), flush=True)
-    if not (row["bit_equal_to_two_k2"] and row["bit_equal_to_plain"]):
-        raise AssertionError(f"K3 disagrees with two K2 launches: {row}")
-    out["K3"] = row
+    out["K3"] = k3_check(xyz, lv, tim, tv, start=start, block=block, nbins=nbins,
+                         per_window={"SWFDMC": BLOCKS_PER_WINDOW,
+                                     "sSVDMC": SSVD_SWEEPS * BLOCKS_PER_WINDOW})
 
     cand = ba.candidate_rowblock(cols, start, block, K_BASIS, nbins)
     edges_dense = float(cm.dense_rows_reference(cand).sum())
@@ -566,7 +615,8 @@ def phase_e(cols: ba.Columns, device) -> dict:
     return out
 
 
-def phase_f(mods, mtypes, labels, device, approach: str, n_records: int) -> dict:
+def phase_f(mods, mtypes, labels, device, approach: str, n_records: int,
+            tag: str = "f") -> dict:
     cfg = huge_cfg(approach, n_records)
     engine = streaming.StreamingEngine(cfg, device)
     windows = len(streaming.window_triggers(n_records, HUGE_WINDOW, 1))
@@ -584,10 +634,10 @@ def phase_f(mods, mtypes, labels, device, approach: str, n_records: int) -> dict
     secs = time.perf_counter() - t0
     counts = huge_counts()
     blocks = HUGE_WINDOW // HUGE_BLOCK
+    sweeps = SPECTRAL_SWEEPS if approach == "sSpectral" else SSVD_SWEEPS
     per_window = ({"K2": 2 * blocks, "K3": blocks, "K4": 2 * blocks, "K5": blocks}
                   if approach == "SWFDMC" else
-                  {"K2": 2 * SSVD_SWEEPS * blocks, "K3": SSVD_SWEEPS * blocks, "K4": 0,
-                   "K5": 0})
+                  {"K2": 2 * sweeps * blocks, "K3": sweeps * blocks, "K4": 0, "K5": 0})
     out = {"approach": approach, "records": n_records, "windows": windows,
            "launches": counts, "k1_launches": ak.launches,
            "native_hasher_calls": native.calls - hashed, "seconds": secs,
@@ -595,7 +645,7 @@ def phase_f(mods, mtypes, labels, device, approach: str, n_records: int) -> dict
            "nmi": res["nmi_score"][0], "nmi_e": res["nmi_e_score"][0],
            "f1": res["f1_score"][0], "f1_aligned": res["f1_aligned"][0],
            "spans": engine.timer.summary()}
-    print("[f]", json.dumps(out), flush=True)
+    print(f"[{tag}]", json.dumps(out), flush=True)
     want = {k: v * windows for k, v in per_window.items()}
     if counts != want or ak.launches:
         raise AssertionError(f"{approach}: launches {counts} (K1 {ak.launches}), "
@@ -904,10 +954,215 @@ def phase_h5(hmods) -> dict:
                              f"expected {want} and no K1")
     return out
 
+# ---------------------------------------------------------------------------
+# slices 2c + 2d: the batch engine and the blocked clustering family, phase (i)
+# ---------------------------------------------------------------------------
+
+# the reference's own batch subset (PipelineConfig.subset_size) pads to
+# 74 blocks = 151,552 rows, where default_nbins gives 4096 bins over 37 groups
+BATCH_PADDED_ROWS, BATCH_NBINS = 151_552, 4_096
+BATCH_DENSE_ROWS, BATCH_SPECTRAL_ROWS = 32_768, 16_384   # i2: the dense path
+CHECK_DBSCAN_ROWS, CHECK_HDBSCAN_ROWS = 20_000, 16_384   # i4: blocked against dense
+BATCH_APPROACHES = ("SVDMC_batch", "Spectral_batch", "DBSCAN_batch", "HDBSCAN_batch")
+
+
+def batch_cfg(approach: str, n_rows: int) -> PipelineConfig:
+    return PipelineConfig(seed=SEED, subset_size=n_rows, noise_rate=NOISE_RATE,
+                          label_mode="binary", sorting=True, window_size=WINDOW,
+                          reduced_dim=REDUCED_DIM, k_basis=K_BASIS, approach=approach,
+                          n_clusters_override=2)
+
+
+def batch_run(mods, mtypes, labels, approach: str, n_rows: int, tag: str) -> dict:
+    """``api.process_batch_data`` on the stream's first ``n_rows`` records
+    (the card by default), with the launch counts read around it: 4 K1 on
+    the dense path; on the blocked path 2 K2 and 1 K3 per block per sweep
+    (6 sweeps of the blocked SVD, 8 of blocked spectral) and no K1."""
+    blocked = n_rows > batch.MAX_DENSE_ROWS
+    blocks = -(-n_rows // batch.BLOCK_ROWS)
+    sweeps = SPECTRAL_SWEEPS if approach == "Spectral_batch" else SSVD_SWEEPS
+    want = ({"K1": 0, "K2": 2 * sweeps * blocks, "K3": sweeps * blocks, "K4": 0, "K5": 0}
+            if blocked else {"K1": 4, "K2": 0, "K3": 0, "K4": 0, "K5": 0})
+    reset_counts()
+    hashed = native.calls
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    res = api.process_batch_data(
+        results=api.get_initial_results()[0], data_modalities=[m[:n_rows] for m in mods],
+        modality_types=mtypes, reduced_dim=REDUCED_DIM, k_basis=K_BASIS, n_clusters=2,
+        seed=SEED, approach=approach, complete_true_labels=labels[:n_rows],
+        noise_rate=NOISE_RATE, label_mode="binary", sorting=True, eps=1.5, min_samples=2,
+        min_cluster_size=3, window_size=WINDOW, cfg=batch_cfg(approach, n_rows))
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = {"K1": ak.launches, **huge_counts()}
+    out = {"approach": approach, "rows": n_rows, "path": "blocked" if blocked else "dense",
+           "padded_rows": blocks * batch.BLOCK_ROWS if blocked else n_rows,
+           "nbins": bs.default_nbins(blocks * batch.BLOCK_ROWS, k_max=3 * K_BASIS)
+           if blocked else None, "launches": counts,
+           "native_hasher_calls": native.calls - hashed, "seconds": secs,
+           "rows_per_s": n_rows / secs, "nmi": res["nmi_score"][0],
+           "nmi_e": res["nmi_e_score"][0], "f1": res["f1_score"][0],
+           "f1_aligned": res["f1_aligned"][0],
+           "peak_memory_gb": torch.cuda.max_memory_allocated() / 2**30}
+    print(f"[{tag}]", json.dumps(out), flush=True)
+    if counts != want:
+        raise AssertionError(f"{tag} {approach}: launches {counts}, expected {want}")
+    if out["native_hasher_calls"] != 2:           # text + tags, featurized once
+        raise AssertionError(f"featurization did not run the native hasher: {out}")
+    metric_vals = [out[k] for k in ("nmi", "nmi_e", "f1", "f1_aligned")]
+    if not all(np.isfinite(v) and 0.0 <= v <= 1.0 for v in metric_vals):
+        raise AssertionError(f"metrics out of range: {metric_vals}")
+    return out
+
+
+def phase_i1(mods, mtypes, labels) -> list:
+    return [batch_run(mods, mtypes, labels, a, N_RECORDS, "i1") for a in BATCH_APPROACHES]
+
+
+def phase_i2(mods, mtypes, labels) -> list:
+    return [batch_run(mods, mtypes, labels, a,
+                      BATCH_SPECTRAL_ROWS if a == "Spectral_batch" else BATCH_DENSE_ROWS, "i2")
+            for a in BATCH_APPROACHES]
+
+
+def exact_grid(x: torch.Tensor) -> tuple[torch.Tensor, float]:
+    """``x`` rounded to a power-of-two grid fine enough to keep its shape and
+    coarse enough that every squared distance of the expanded-norm form
+    (norms and dot products included) is exact in float32, so the blocked
+    and the dense paths, whatever their product shapes and summation orders,
+    decide every eps test and every MST weight alike.  Returns (grid points,
+    grid step)."""
+    m2 = float(torch.max(torch.sum(x * x, dim=1)))
+    scale = float(2.0 ** np.floor(0.5 * np.log2(2.0 ** 21 / max(m2, 1e-30))))
+    return torch.round(x * scale) / scale, 1.0 / scale
+
+
+def phase_i4(mods, mtypes, device) -> dict:
+    """K2 / K3 at the batch subset's shapes, K1 at the dense batch's, and the
+    blocked DBSCAN / HDBSCAN against their dense counterparts."""
+    out = {}
+    cfg = batch_cfg("SVDMC_batch", N_RECORDS)
+    cols, block = batch._blocked_columns([m[:N_RECORDS] for m in mods], mtypes, cfg, device)
+    n, nbins = cols.n, bs.default_nbins(cols.n, k_max=3 * K_BASIS)
+    if (n, nbins) != (BATCH_PADDED_ROWS, BATCH_NBINS):
+        raise AssertionError(f"batch columns: n={n}, nbins={nbins}")
+    start = n - block                     # the last block: 1,552 padding rows
+    by_kind = dict(zip(cols.kinds, zip(cols.tensors, cols.valids)))
+    (xyz, lv), (tim, tv) = by_kind["location_xyz"], by_kind["time"]
+    ((tags, sums), tagv), (text, textv) = by_kind["tags"], by_kind["text_bf16"]
+    blocks = n // block
+    per = {"SVDMC_batch": SSVD_SWEEPS * blocks, "Spectral_batch": SPECTRAL_SWEEPS * blocks}
+    out["K2"] = {name: k2_check(name, metric, x, valid, row_sums, K_BASIS, start=start,
+                                block=block, nbins=nbins, per_window=per, tag="i4")
+                 for name, metric, x, valid, row_sums in [
+                     ("tags", "jaccard", tags, tagv, sums),
+                     ("text", "dot", text, textv, None)]}
+    out["K3"] = k3_check(xyz, lv, tim, tv, start=start, block=block, nbins=nbins,
+                         per_window=per, tag="i4")
+    del cols, xyz, tim, tags, sums, text, by_kind
+    torch.cuda.empty_cache()
+
+    engine = streaming.StreamingEngine(batch_cfg("SVDMC_batch", BATCH_DENSE_ROWS), device)
+    out["K1"] = phase_b(main_cases(mods, engine, device, BATCH_DENSE_ROWS), tag="i4",
+                        reps=3, plain_reps=1)
+    torch.cuda.empty_cache()
+
+    n_rows = CHECK_DBSCAN_ROWS
+    reduced = batch._blocked_reduce([m[:n_rows] for m in mods], mtypes,
+                                    batch_cfg("DBSCAN_batch", n_rows),
+                                    batch.batch_generator(SEED, device), device)
+    x, step = exact_grid(reduced)
+    t0 = time.perf_counter()
+    got = blocked_dbscan.dbscan_blocked(x, eps=1.5, min_samples=2)
+    t1 = time.perf_counter()
+    want = dbscan.dbscan(x, eps=1.5, min_samples=2)
+    t2 = time.perf_counter()
+    out["dbscan"] = {"rows": n_rows, "eps": 1.5, "min_samples": 2, "grid_step": step,
+                     "clusters": int(want.max()) + 1, "noise_rows": int((want == -1).sum()),
+                     "equal": bool(np.array_equal(got, want)), "blocked_seconds": t1 - t0,
+                     "dense_seconds": t2 - t1}
+    print("[i4] dbscan", json.dumps(out["dbscan"]), flush=True)
+    if not out["dbscan"]["equal"]:
+        raise AssertionError(f"dbscan_blocked differs from the dense dbscan: {out['dbscan']}")
+
+    out["hdbscan"] = hdbscan_check(x[:CHECK_HDBSCAN_ROWS], device)
+    return out
+
+
+def same_partition(a, b) -> bool:
+    pairs = set(zip(np.asarray(a).tolist(), np.asarray(b).tolist()))
+    return len(pairs) == len(set(np.asarray(a).tolist())) == len(set(np.asarray(b).tolist()))
+
+
+def hdbscan_check(xh: torch.Tensor, device) -> dict:
+    """The card's Borůvka HDBSCAN against host Prim at ``len(xh)`` rows:
+      * on ``xh`` (grid points of the reduced embedding: every squared
+        weight exact): the same MST weights, sorted (every MST of a graph has
+        them), within one float32 ulp (torch's and numpy's square roots may
+        round apart), and the
+        labels' agreement, which ties may move: a point whose mutual-
+        reachability edges to two clusters weigh the same joins whichever
+        its MST holds, and Prim and Borůvka break such ties differently;
+      * on as many rows of 16 separated Gaussian blobs (no weight ties
+        across blobs): the same partition, labels included."""
+    n = xh.shape[0]
+    t0 = time.perf_counter()
+    mst_card = blocked_hdbscan._mst_boruvka(xh, 2, batch.BLOCK_ROWS)
+    t1 = time.perf_counter()
+    mst_host = dbscan._prim_mst_mreach(xh.cpu().numpy(), 2)
+    t2 = time.perf_counter()
+    got = blocked_hdbscan.hdbscan_blocked(xh, min_cluster_size=3, min_samples=2)
+    want = dbscan.hdbscan(xh.cpu().numpy(), min_cluster_size=3, min_samples=2, device="cpu")
+    rng = np.random.default_rng(SEED)
+    centers = rng.normal(size=(16, REDUCED_DIM)) * 8
+    blobs = (centers[np.arange(n) % 16] + rng.normal(size=(n, REDUCED_DIM)) * 0.1
+             ).astype(np.float32)
+    t3 = time.perf_counter()
+    got_b = blocked_hdbscan.hdbscan_blocked(torch.from_numpy(blobs).to(device),
+                                            min_cluster_size=3, min_samples=2)
+    t4 = time.perf_counter()
+    want_b = dbscan.hdbscan(blobs, min_cluster_size=3, min_samples=2, device="cpu")
+    t5 = time.perf_counter()
+    out = {"rows": n, "min_cluster_size": 3, "min_samples": 2,
+           "mst_edges": len(mst_card),
+           "same_mst_weights": bool(np.allclose(sorted(w for w, _, _ in mst_card),
+                                                sorted(w for w, _, _ in mst_host),
+                                                rtol=2.0 ** -23, atol=0.0)),
+           "mst_weight_sum": float(sum(w for w, _, _ in mst_card)),
+           "clusters_card": int(got.max()) + 1, "clusters_host": int(want.max()) + 1,
+           "noise_rows_card": int((got == -1).sum()), "noise_rows_host": int((want == -1).sum()),
+           "same_partition": same_partition(got, want),
+           "rows_in_equal_clusters": rows_in_equal_clusters(got, want),
+           "boruvka_mst_card_seconds": t1 - t0, "prim_mst_host_seconds": t2 - t1,
+           "blobs": {"clusters": int(want_b.max()) + 1,
+                     "same_partition": same_partition(got_b, want_b),
+                     "labels_equal": bool(np.array_equal(got_b, want_b)),
+                     "boruvka_card_seconds": t4 - t3, "prim_host_seconds": t5 - t4}}
+    print("[i4] hdbscan", json.dumps(out), flush=True)
+    if not (out["same_mst_weights"] and out["blobs"]["same_partition"]
+            and out["blobs"]["clusters"] == 16):
+        raise AssertionError(f"hdbscan_blocked disagrees with host Prim: {out}")
+    return out
+
+
+def rows_in_equal_clusters(a, b) -> float:
+    """Share of rows whose cluster (noise counted as one) holds the same rows
+    in both labellings."""
+    a, b = np.asarray(a), np.asarray(b)
+    pairs, inv = np.unique(np.stack([a, b], 1), axis=0, return_inverse=True)
+    inv = inv.reshape(-1)
+    size_pair = np.bincount(inv)[inv]
+    size_a = np.unique(a, return_counts=True)
+    size_b = np.unique(b, return_counts=True)
+    na = size_a[1][np.searchsorted(size_a[0], a)]
+    nb = size_b[1][np.searchsorted(size_b[0], b)]
+    return float(np.mean((size_pair == na) & (size_pair == nb)))
+
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--phases", default="abcdefgh",
+    parser.add_argument("--phases", default="abcdefghi",
                         help="phases to run (a always runs); the result lines print "
                              "only when all ran")
     parser.add_argument("--profile", action="store_true",
@@ -951,7 +1206,7 @@ def main() -> int:
     seconds["a"] = time.perf_counter() - t0
 
     rows_b, runs, main_launches = [], [], 0
-    if phases & set("bcdh"):
+    if phases & set("bcdhi"):
         t0 = time.perf_counter()
         mods, mtypes, labels = make_stream(N_RECORDS, noise_rate=NOISE_RATE, binary=True,
                                            sort_by_uploaded=True, seed=SEED)
@@ -978,7 +1233,7 @@ def main() -> int:
         seconds["d"] = time.perf_counter() - t0
 
     kernels_e, huge_runs, huge_launches = {}, [], {"K2": 0, "K3": 0, "K4": 0, "K5": 0}
-    if phases & set("efgh"):
+    if phases & set("efghi"):
         t0 = time.perf_counter()
         hmods, hmtypes, hlabels = make_stream(HUGE_RECORDS, noise_rate=NOISE_RATE,
                                               binary=True, sort_by_uploaded=True,
@@ -1014,9 +1269,28 @@ def main() -> int:
         phase_h4(mods, mtypes, labels)
         phase_h5(hmods)
         seconds["h"] = time.perf_counter() - t0
+    kernels_i = {}
+    if "i" in phases:
+        t0 = time.perf_counter()
+        del cols                    # the huge window's panels: the batch needs the room
+        torch.cuda.empty_cache()
+        phase_i1(mods, mtypes, labels)
+        seconds["i1"] = time.perf_counter() - t0
+        t1 = time.perf_counter()
+        phase_i2(mods, mtypes, labels)
+        seconds["i2"] = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        for approach in ("sSpectral", "DBSCAN_centr"):
+            phase_f(hmods, hmtypes, hlabels, device, approach, HUGE_RECORDS, tag="i3")
+        seconds["i3"] = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        torch.cuda.empty_cache()
+        kernels_i = phase_i4(mods, mtypes, device)
+        seconds["i4"] = time.perf_counter() - t1
+        seconds["i"] = time.perf_counter() - t0
     if args.profile:
         t0 = time.perf_counter()
-        if not phases & set("efgh"):
+        if not phases & set("efghi"):
             hmods, hmtypes, hlabels = make_stream(HUGE_RECORDS, noise_rate=NOISE_RATE,
                                                   binary=True, sort_by_uploaded=True,
                                                   seed=SEED)
@@ -1024,7 +1298,7 @@ def main() -> int:
             profile_huge_window(hmods, hmtypes, hlabels, approach)
         seconds["profile"] = time.perf_counter() - t0
     print("[seconds]", json.dumps(seconds), flush=True)
-    if phases != set("abcdefgh") or args.profile:
+    if phases != set("abcdefghi") or args.profile:
         return 0
 
     main_rows = [r for r in rows_b if r["case"] in ("location", "time", "tags", "text")]
@@ -1057,6 +1331,8 @@ def main() -> int:
                                    "mismatched_entries": r["mismatched_entries"]}
                        for r in rows_b},
         "e2e_windows_per_s": {r["approach"]: r["windows_per_s"] for r in runs},
+        "at_dense_batch_rows": timed(kernels_i["K1"], f"the dense batch's four calls at "
+                                                      f"n = {BATCH_DENSE_ROWS} (phase i4)"),
     }, {
         "name": "binned_candidates", "route": "cuda",
         "source": "mused_tpu_torch/csrc/blocked_select.cu",
@@ -1069,6 +1345,9 @@ def main() -> int:
                               "gemm_ms": r.get("gemm_ms")}
                        for name, r in k2.items()},
         "e2e_windows_per_s": wps,
+        "at_batch_subset": timed(list(kernels_i["K2"].values()),
+                                 f"one block's two calls (tags, text) at n = "
+                                 f"{BATCH_PADDED_ROWS}, nbins = {BATCH_NBINS} (phase i4)"),
     }, {
         "name": "binned_candidates_pair", "route": "cuda",
         "source": "mused_tpu_torch/csrc/blocked_select.cu",
@@ -1076,6 +1355,9 @@ def main() -> int:
         "launches": huge_launches["K3"], "max_abs_err": 0.0,
         **timed([kernels_e["K3"]], "one block's call (location chord3 + time l1)"),
         "bound_fma_rate_ms": kernels_e["K3"]["bound_fma_rate_ms"],
+        "at_batch_subset": timed([kernels_i["K3"]], f"one block's call at n = "
+                                                    f"{BATCH_PADDED_ROWS}, nbins = "
+                                                    f"{BATCH_NBINS} (phase i4)"),
     }, {
         "name": "matvec_t", "route": "cuda",
         "source": "mused_tpu_torch/csrc/cand_matvec.cu",

@@ -2,9 +2,10 @@
 
     from mused_tpu_torch import api as mused
 
-``process_streaming_data`` keeps the reference signature (reference
-main.py:13) and the JAX package's keywords, and adds a keyword ``device``
-(default ``"cuda"``; pass ``"cpu"`` to run the plain versions on the CPU);
+``process_streaming_data`` and ``process_batch_data`` keep the reference
+signatures (reference main.py:13, 132) and the JAX package's keywords, and
+add a keyword ``device`` (default ``"cuda"``; pass ``"cpu"`` to run the
+plain versions on the CPU);
 ``perform_dbscan_clustering``, ``perform_hdbscan_clustering`` and
 ``IncrementalDBSCAN`` keep the reference names and signatures (reference
 matrix_operations.py:235-243, main.py:87-91) and run on the card;
@@ -16,6 +17,7 @@ from the port's copies of the host tier (``utils/metrics``,
 """
 from __future__ import annotations
 
+from mused_tpu_torch.engine.batch import process_batch_data  # noqa: F401
 from mused_tpu_torch.engine.streaming import process_streaming_data  # noqa: F401
 from mused_tpu_torch.ops.dbscan import IncrementalDBSCAN  # noqa: F401
 from mused_tpu_torch.ops.dbscan import dbscan as _dbscan, hdbscan as _hdbscan

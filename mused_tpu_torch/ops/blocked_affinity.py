@@ -3,10 +3,11 @@
 
 A window too large to hold its (n, n) fused adjacency (BASELINE.md #3:
 100k-row windows) is consumed by reductions that only need products with
-it: the FD fold (SWFDMC) and the blocked randomized SVD (sSVDMC family).
+it: the FD fold (SWFDMC), the blocked randomized SVD (sSVDMC family, the
+batch engine) and blocked spectral clustering (``ops/blocked_spectral``).
 Each sweep rebuilds (block, n) row blocks from per-window column panels
-(:class:`Columns`, built once per window) in a Python loop over blocks,
-the counterpart of the JAX package's ``lax.scan``.
+(:class:`Columns`, built once per window) in a Python loop over blocks
+(:func:`scan_blocks`, the counterpart of the JAX package's ``lax.scan``).
 
 Two routes build a block's kNN candidates per modality:
 
@@ -281,6 +282,23 @@ def fused_rowblock(cols: Columns, start: int, block: int, k_basis: int,
     return fused.to(out_dtype)
 
 
+def scan_blocks(cols: Columns, block: int, k_basis: int, approx: bool = False,
+                select: str = "strip", nbins: int = 0, out_dtype=torch.float32):
+    """Yield ``(start, fused_rowblock(...))`` over every row block in order,
+    the counterpart of the JAX package's ``_scan_blocks``, with
+    ``hoist_columns`` applied once per sweep.  The sweeps that accumulate
+    over blocks (degrees, ``A^T v``) would count a clamped last block's rows
+    twice, so ``block`` must divide n: it raises otherwise."""
+    cols = hoist_columns(cols)
+    n = cols.n
+    if n % block:
+        raise ValueError(f"block={block} must divide n={n} (pad rows upstream): a "
+                         "clamped last block would count rows twice")
+    for start in range(0, n, block):
+        yield start, fused_rowblock(cols, start, block, k_basis, approx, select, nbins,
+                                    out_dtype)
+
+
 # ---------------------------------------------------------------------------
 # candidate-form row blocks (the dense block never exists)
 # ---------------------------------------------------------------------------
@@ -407,24 +425,20 @@ def blocked_svd_reduce(cols: Columns, generator: torch.Generator | None, *, rank
     (2 + 2 * n_iter) rematerialized sweeps over row blocks -> (n, rank)."""
     cols = hoist_columns(cols)
     n = cols.n
-    if n % block:
-        raise ValueError(f"block={block} must divide n={n} (pad rows upstream)")
 
-    def blocks():
-        for start in range(0, n, block):
-            yield start, fused_rowblock(cols, start, block, k_basis, approx_knn, select,
-                                        nbins, torch.bfloat16).float()
+    def blocks():          # raises where block does not divide n
+        return scan_blocks(cols, block, k_basis, approx_knn, select, nbins, torch.bfloat16)
 
     def mul_a(v):          # A @ v, one block of rows at a time
         acc = torch.empty((n, v.shape[1]), dtype=torch.float32, device=v.device)
         for start, fused in blocks():
-            acc[start:start + block] = fused @ v
+            acc[start:start + block] = fused.float() @ v
         return acc
 
     def mul_at(v):         # A^T @ v, summed over blocks in order
         acc = torch.zeros((n, v.shape[1]), dtype=torch.float32, device=v.device)
         for start, fused in blocks():
-            acc += fused.T @ v[start:start + block]
+            acc += fused.float().T @ v[start:start + block]
         return acc
 
     return randomized_svd_from_products(mul_a, mul_at, generator, n=n, rank=rank,

@@ -15,9 +15,8 @@ matrix_operations.py:235-243, 265-298; main.py:87-91).
     about its logarithm.  One host sync per step tests convergence.
   * HDBSCAN's MST and condensed tree are sequential host numpy (copied from
     the JAX package: Prim over the implicit mutual-reachability graph).
-    Above ``_PRIM_DENSE_CAP`` rows the JAX package moves the sweeps to a
-    device Boruvka (``blocked_hdbscan``), which comes with the batch engine
-    (slice 2d); on a card that size raises here.
+    Above ``_PRIM_DENSE_CAP`` rows on a card the sweeps move to the device
+    Borůvka (``ops/blocked_hdbscan``), as in the JAX package.
   * ``IncrementalDBSCAN`` keeps its points in a capacity-doubling device
     buffer; each insert's new-rows x all-rows distances and exact
     eps-neighbour lists (a top-k whose order is ``lax.top_k``'s: nearest
@@ -127,8 +126,8 @@ class _UnionFind:
 
 # Above this row count the full (n, n) squared-distance matrix (f32) is not
 # materialized on host: ~1 GiB at the cap.  Beyond it Prim recomputes each
-# row as one BLAS matvec (CPU); the JAX package moves that size to its
-# device Boruvka, which the port has not yet (slice 2d).
+# row as one BLAS matvec (CPU), and on a card the device Borůvka
+# (ops/blocked_hdbscan) takes the sweeps instead.
 _PRIM_DENSE_CAP = 16_384
 
 
@@ -196,20 +195,22 @@ def _prim_mst_mreach(x: np.ndarray, min_samples: int) -> list[tuple]:
 def hdbscan(data, min_cluster_size: int = 5, min_samples: int = 2, *,
             device="cuda") -> np.ndarray:
     """HDBSCAN with excess-of-mass extraction (reference
-    matrix_operations.py:240-243): host Prim MST -> single-linkage merge tree
-    -> condensed tree (min_cluster_size) -> eom selection -> labels.  The
-    work is host numpy at every size the port runs; above
-    ``_PRIM_DENSE_CAP`` rows on a card the JAX package's device Boruvka
-    belongs there, and it raises until the batch slice (2d) ports it."""
+    matrix_operations.py:240-243): MST -> single-linkage merge tree ->
+    condensed tree (min_cluster_size) -> eom selection -> labels.  The MST
+    is host Prim, except above ``_PRIM_DENSE_CAP`` rows on a card, where
+    the sweeps go to the device Borůvka (``ops/blocked_hdbscan``): the same
+    MST weights, the same extraction, as the JAX package routes off the
+    CPU."""
     if isinstance(data, torch.Tensor):
-        device, data = data.device, data.detach().cpu().numpy()
-    x = np.asarray(data, np.float32)
-    n = len(x)
+        device = data.device
+    n = len(data)
     if n > _PRIM_DENSE_CAP and torch.device(device).type == "cuda":
-        raise NotImplementedError(
-            f"hdbscan above {_PRIM_DENSE_CAP} rows runs the device Boruvka "
-            "(mused_tpu/ops/blocked_hdbscan), ported with the batch engine "
-            "(slice 2d)")
+        from mused_tpu_torch.ops import blocked_hdbscan
+        return blocked_hdbscan.hdbscan_blocked(data, min_cluster_size=min_cluster_size,
+                                               min_samples=min_samples, device=device)
+    if isinstance(data, torch.Tensor):
+        data = data.detach().cpu().numpy()
+    x = np.asarray(data, np.float32)
     if n == 0:
         return np.empty(0, np.int64)
     if n == 1:
@@ -505,15 +506,27 @@ def match_centroids(data: np.ndarray, labels: np.ndarray, previous_centroids,
     is the final (re-mapped) label of ``new_centroids[i]``, the pair the next
     window's lookup indexes (the reference's misaligned uniques are the JAX
     package's documented fix)."""
-    unique_clusters = [c for c in np.unique(labels) if c != -1]
-    new_centroids = np.array([data[labels == c].mean(axis=0) for c in unique_clusters]) \
+    labels = np.asarray(labels)
+    # each cluster's rows in their original order (a stable sort groups them),
+    # so every mean sums the same rows in the same order as data[labels == c]
+    order = np.argsort(labels, kind="stable")
+    values, starts = np.unique(labels[order], return_index=True)
+    members = [rows for c, rows in zip(values, np.split(order, starts[1:])) if c != -1]
+    unique_clusters = [c for c in values if c != -1]
+    new_centroids = np.array([data[rows].mean(axis=0) for rows in members]) \
         if unique_clusters else np.empty((0, data.shape[1]), np.float32)
 
     mapping = {}
     if previous_centroids is not None and len(previous_centroids) > 0 \
             and len(new_centroids) > 0:
-        diff = new_centroids[:, None, :] - np.asarray(previous_centroids)[None, :, :]
-        matches = np.argmin(np.linalg.norm(diff, axis=-1), axis=1)
+        prev = np.asarray(previous_centroids)
+        # the (new, previous, d) differences in slabs of rows: the same norms,
+        # without a many-GB temporary when both windows hold thousands of clusters
+        step = max(1, (1 << 26) // max(1, prev.size))
+        matches = np.concatenate([
+            np.argmin(np.linalg.norm(new_centroids[s:s + step, None, :] - prev[None, :, :],
+                                     axis=-1), axis=1)
+            for s in range(0, len(new_centroids), step)])
         prev_labels = np.asarray(previous_labels)
         # positions in unique_clusters ARE the label values (labels are
         # first-occurrence compacted 0..k-1)

@@ -5,7 +5,8 @@ which can flip between two BLAS builds for a pair within an ulp of eps
 (``mused_tpu/ops/dbscan.py:59-60``).  Every fixture here is checked to hold
 no pair within 1e-4 relative of eps, and then the labels must be bit-equal:
 
-  * ``dbscan_labels`` / ``dbscan`` and ``hdbscan`` (host numpy, copied);
+  * ``dbscan_labels`` / ``dbscan`` and ``hdbscan`` (host numpy, copied),
+    and ``hdbscan``'s route to the device Borůvka above its cap on a card;
   * ``IncrementalDBSCAN``'s chunked inserts against the JAX package's and
     against batch ``dbscan`` over the union;
   * its snapshot round trip, and a JAX snapshot restored into the port;
@@ -21,6 +22,7 @@ from mused_tpu import api as japi
 from mused_tpu.ops import dbscan as jdb
 from mused_tpu_torch import api as tapi
 from mused_tpu_torch import native as tnative
+from mused_tpu_torch.ops import blocked_hdbscan as tbh
 from mused_tpu_torch.ops import dbscan as tdb
 
 
@@ -88,10 +90,26 @@ def test_hdbscan_bit_equal(seed, mcs, ms):
     assert list(tdb.hdbscan(x[:1], device="cpu")) == [-1]
 
 
-def test_hdbscan_above_the_dense_cap_waits_for_the_batch_slice():
-    big = np.zeros((tdb._PRIM_DENSE_CAP + 1, 2), np.float32)
-    with pytest.raises(NotImplementedError, match="2d"):
-        tdb.hdbscan(big, device="cuda")
+def test_hdbscan_above_the_dense_cap_waits_for_the_batch_slice(monkeypatch):
+    """The batch slice has come: above ``_PRIM_DENSE_CAP`` rows a CUDA
+    device takes the device Borůvka (``blocked_hdbscan``) instead of
+    raising; the CPU stays on host Prim.  The cap is lowered here so the
+    route shows at a small size; the spy stands in for the card's run."""
+    x = blobs(np.random.default_rng(7), with_noise=4)
+    calls = []
+
+    def spy(data, min_cluster_size=5, min_samples=2, block=2048, *, device="cuda"):
+        calls.append((len(data), min_cluster_size, min_samples, torch.device(device).type))
+        return np.zeros(len(data), np.int64)
+
+    monkeypatch.setattr(tbh, "hdbscan_blocked", spy)
+    monkeypatch.setattr(tdb, "_PRIM_DENSE_CAP", 64)
+    assert (tdb.hdbscan(x, 5, 3, device="cuda") == 0).all()
+    assert calls == [(len(x), 5, 3, "cuda")]
+    np.testing.assert_array_equal(tdb.hdbscan(x, 5, 3, device="cpu"), jdb.hdbscan(x, 5, 3))
+    np.testing.assert_array_equal(tdb.hdbscan(x[:64], 5, 3, device="cuda"),
+                                  jdb.hdbscan(x[:64], 5, 3))       # at the cap: Prim
+    assert len(calls) == 1
 
 
 @pytest.mark.parametrize("seed", [0, 1, 2, 3])
@@ -168,6 +186,21 @@ def test_centroid_matching_bit_equal_over_three_windows():
     for g, w_ in zip(got, want):
         np.testing.assert_array_equal(g, w_)
     assert tdb.dbscan_centroid_incremental(np.zeros(3), None, None, device="cpu")[0] is None
+
+
+def test_centroid_matching_bit_equal_with_thousands_of_clusters():
+    """A huge window's DBSCAN_centr labelling: thousands of clusters, so the
+    port groups rows by one stable sort and takes the distances to the
+    previous centroids in several slabs; the same sums as the JAX package."""
+    rng = np.random.default_rng(8)
+    x = rng.normal(size=(20_000, 40)).astype(np.float32)
+    first = rng.integers(-1, 2000, len(x))
+    got = tdb.match_centroids(x, first, None, None)
+    want = jdb.match_centroids(x, first, None, None)
+    second = rng.integers(-1, 2500, len(x))
+    for g, w_ in zip(tdb.match_centroids(x, second, got[1], got[2]),
+                     jdb.match_centroids(x, second, want[1], want[2])):
+        np.testing.assert_array_equal(g, w_)
 
 
 def test_native_core_against_the_fallback(monkeypatch):

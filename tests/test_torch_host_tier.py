@@ -137,6 +137,18 @@ def test_compute_all_metrics_equal(seed):
     assert tmetrics.nmi(truth, clusters) == jmetrics.nmi(truth, clusters)
 
 
+def test_per_class_metrics_equal_with_many_clusters():
+    """The port counts per class with bincounts, the JAX package with a loop
+    over classes: equal on a batch-like labelling (hundreds of clusters,
+    noise -1, binary truth)."""
+    rng = np.random.default_rng(5)
+    truth = (rng.random(5000) < 0.1).astype(np.int64)
+    clusters = rng.integers(-1, 400, 5000)
+    for name in ("weighted_f1", "weighted_precision", "weighted_recall", "aligned_f1"):
+        assert getattr(tmetrics, name)(truth, clusters) == \
+            getattr(jmetrics, name)(truth, clusters), name
+
+
 def test_metrics_of_an_empty_stream_equal():
     empty = np.empty(0, int)
     for name in ("nmi", "aligned_f1", "accuracy", "mean_absolute_error"):

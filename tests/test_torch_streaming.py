@@ -18,7 +18,9 @@ reduced_dim 8:
     JAX run's labels;
   * on the huge-window blocked path (forced at window 512, binned
     candidates), with the same draws injected, NMI is within 0.02 of the JAX
-    engine for SWFDMC (candidate-native fold) and sSVDMC (blocked SVD).
+    engine for SWFDMC (candidate-native fold) and sSVDMC (blocked SVD), and
+    every metric equals the JAX engine's for sSpectral (blocked spectral)
+    and DBSCAN_centr (blocked SVD + blocked DBSCAN).
 """
 import contextlib
 import io
@@ -186,6 +188,33 @@ def test_huge_window_generic_stream_matches_jax(approach, monkeypatch):
         assert abs(runs["port"][key][0] - runs["jax"][key][0]) <= 0.02
 
 
+@pytest.mark.parametrize("approach", ["sSpectral", "DBSCAN_centr"])
+def test_huge_window_spectral_and_dbscan_centr_match_jax(approach, huge_stream,
+                                                         monkeypatch):
+    """sSpectral (blocked spectral on the columns, no SVD; the eigengap count
+    from the Ritz values) and DBSCAN_centr (blocked SVD, blocked DBSCAN, its
+    own centroid matching) on the huge path, with the JAX side's draws
+    injected (the blocked SVD's test matrix, blocked spectral's probe, the
+    k-means++ init): every metric equal to the JAX engine's."""
+    mods, mtypes, labels = huge_stream
+    runs = {}
+    for name, api, extra in (("jax", japi, {}), ("port", tapi, {"device": "cpu"})):
+        cfg = PipelineConfig(window_size=512, k_basis=3, reduced_dim=8, approach=approach,
+                             n_clusters_override=2, subset_size=1024, seed=0, eps=1.5,
+                             min_samples=2, force_blocked_window=True,
+                             huge_window_fused_select=True,
+                             k_estimate="eigengap" if approach == "sSpectral" else "labels")
+        if name == "port":
+            inject_jax_draws(monkeypatch)
+        with contextlib.redirect_stdout(io.StringIO()):
+            runs[name] = api.process_streaming_data(
+                results=api.get_initial_results()[0], data_modalities=mods,
+                modality_types=mtypes, approach=approach, complete_true_labels=labels,
+                cfg=cfg, **HUGE, **extra)
+    for key in ("nmi_score", "nmi_e_score", "f1_score", "f1_aligned"):
+        assert runs["port"][key] == runs["jax"][key], key
+
+
 def test_huge_window_minibatch_runs(huge_stream):
     mods, mtypes, labels = huge_stream
     cfg = PipelineConfig(window_size=512, k_basis=3, reduced_dim=8, approach="sSVDMC_mini",
@@ -248,9 +277,7 @@ def test_engine_refuses_what_the_slice_does_not_run():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             ts.StreamingEngine(cfg, "cuda")
-    for bad in [dict(window_size=40_000, approach="sSpectral"),
-                dict(force_blocked_window=True, approach="DBSCAN_centr"),
-                dict(force_blocked_window=True, huge_window_layout="columns"),
+    for bad in [dict(force_blocked_window=True, huge_window_layout="columns"),
                 dict(data_shards=2), dict(matching="centroid"), dict(windows_per_batch=4)]:
         with pytest.raises(NotImplementedError):
             ts.StreamingEngine(cfg.replace(**bad), "cpu")
@@ -453,6 +480,9 @@ def test_neither_jax_nor_pandas_is_imported():
             "import mused_tpu_torch.data.features; import mused_tpu_torch.native; "
             "import mused_tpu_torch.serving; import mused_tpu_torch.ops.spectral; "
             "import mused_tpu_torch.ops.dbscan; import mused_tpu_torch.utils.checkpoint; "
+            "import mused_tpu_torch.engine.batch; import mused_tpu_torch.ops.blocked_spectral; "
+            "import mused_tpu_torch.ops.blocked_dbscan; "
+            "import mused_tpu_torch.ops.blocked_hdbscan; "
             "from mused_tpu_torch.native import IncDBHandle, incdb_available; "
             "print([m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'pandas', 'mused_tpu')])"

@@ -39,11 +39,13 @@ def jax_probe(m2: int, r: int) -> np.ndarray:
 
 
 def inject_jax_draws(monkeypatch, svd_signs: bool = False) -> None:
-    """Make the port's streaming engine draw the JAX engine's random numbers:
-    the FD probe (key 7), and per window w the randomized-SVD test matrix
-    (dense or blocked) and the k-means++ init from ``fold_in(key(seed), w)``
-    (the k-means inside ``ops/spectral`` included: it calls the same module
-    attribute).
+    """Make the port's streaming and batch engines draw the JAX engines'
+    random numbers: the FD probe (key 7), and from the JAX key (per window w
+    of a stream ``fold_in(key(seed), w)``, for a batch run ``key(seed)``)
+    the randomized-SVD test matrix (dense or blocked), blocked spectral's
+    Gaussian probe and the k-means++ init (the k-means inside
+    ``ops/spectral`` and ``ops/blocked_spectral`` included: they call the
+    same module attribute).
 
     ``svd_signs``: also flip each column of the dense randomized SVD's output
     to the sign the JAX package's LAPACK gives it.  A singular vector's sign
@@ -51,14 +53,17 @@ def inject_jax_draws(monkeypatch, svd_signs: bool = False) -> None:
     depends on it, but an approach that compares rows of different windows
     (DBSCAN_incr) does."""
     from mused_tpu.ops import kmeans as jkmeans
+    from mused_tpu_torch.engine import batch as tb
     from mused_tpu_torch.engine import streaming as ts
     from mused_tpu_torch.ops import blocked_affinity as tba
+    from mused_tpu_torch.ops import blocked_spectral as tbspec
     from mused_tpu_torch.ops import fd as tfd
 
     current = {}
     orig_gen, orig_svd, orig_kmeans = ts.window_generator, ts.reduction.svd_reduce, \
         ts.kmeans.kmeans
     orig_blocked_svd = tba.randomized_svd_from_products
+    orig_ritz, orig_batch_gen = tbspec.ritz_from_products, tb.batch_generator
 
     def window_generator(seed, window_index, device):
         current["key"] = jax.random.fold_in(jax.random.key(seed), window_index)
@@ -90,11 +95,22 @@ def inject_jax_draws(monkeypatch, svd_signs: bool = False) -> None:
                                       jnp.int32(int(k)), current["key"])
         return orig_kmeans(x, k, generator, k_max=k_max, init=t(init), **kw)
 
+    def ritz(sym_matmul, inv_sqrt, generator, *, n, m, n_iter=6, probe=None):
+        probe = jax.random.normal(current["key"], (n, m), jnp.float32)
+        return orig_ritz(sym_matmul, inv_sqrt, generator, n=n, m=m, n_iter=n_iter,
+                         probe=t(probe).to(inv_sqrt.device))
+
+    def batch_generator(seed, device):
+        current["key"] = jax.random.key(seed)
+        return orig_batch_gen(seed, device)
+
     monkeypatch.setattr(tfd, "default_probe",
                         lambda m2, r, device: t(jax_probe(m2, r)).to(device))
     monkeypatch.setattr(ts, "window_generator", window_generator)
+    monkeypatch.setattr(tb, "batch_generator", batch_generator)
     monkeypatch.setattr(ts.reduction, "svd_reduce", svd_reduce)
     monkeypatch.setattr(tba, "randomized_svd_from_products", blocked_svd)
+    monkeypatch.setattr(tbspec, "ritz_from_products", ritz)
     monkeypatch.setattr(ts.kmeans, "kmeans", kmeans)
 
 
