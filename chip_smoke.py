@@ -87,7 +87,23 @@ Phases (any failure exits non-zero; no phase is skipped):
          reduced embedding (on a grid that makes every squared distance
          exact); the card's Borůvka against host Prim at 16,384 rows: the
          same MST weights there, and the same partition on 16 separated
-         blobs.
+         blobs;
+  (j) slice 4a, the column-sharded layouts:
+      j1 K3 on tags jaccard + text dot (the column-sharded sweep's pair) on
+         (e)'s first block: bit-equal to two K2 launches and held to (e)'s
+         rules against the plain version; its ms beside the two K2
+         launches' and the sum of their bounds;
+      j2 on emulated 2- and 4-way column splits of that window, a shard's
+         columns against a row block of another shard (shard-local start
+         before and past the shard, row_stats pre-sliced): K2 on every
+         metric and K3 on both standard pairs held to (e)'s rules, K4 / K5
+         on the shard's candidate block with its g0, exact on integers;
+      j3 the column-sharded entry points on the card at world size 1 (an
+         NCCL group of one, mesh (1, 1)) on (f)'s first window: fused rows
+         bit-equal to the single-device binned route on 3 blocks; the FD
+         fold with exactly 96 K3, 0 K2, 96 K4 and 48 K5 and the
+         single-device fold's sq_frobenius; the blocked SVD (576 K3) and
+         spectral embedding (768 K3); seconds beside (f)'s and (i3)'s.
 
 Every phase prints its seconds.  ``--phases`` runs a subset (for
 development; the result lines are printed only when all phases ran).
@@ -122,6 +138,7 @@ from mused_tpu_torch.ops.kernels import affinity_kernel as ak
 from mused_tpu_torch.ops.kernels import blocked_select as bs
 from mused_tpu_torch.ops.kernels import build
 from mused_tpu_torch.ops.kernels import cand_matvec as cm
+from mused_tpu_torch.parallel import colsharded as cs
 from mused_tpu_torch.serving import StreamDetector
 from mused_tpu_torch.utils.config import PipelineConfig
 from mused_tpu_torch.utils.metrics import nmi
@@ -426,6 +443,35 @@ def gemm_yardstick(metric: str, cols: torch.Tensor, rows: torch.Tensor) -> dict:
         return {"gemm_ms": None, "gemm": f"{how} refused: {e}"[:200]}
 
 
+def plain_rules(metric: str, got, want, row_valid, k: int) -> dict:
+    """(e)'s rules for a K2 output against its plain version: bit-equal for
+    jaccard / l1 / chord3; dot within K2_DOT_ATOL with the same real mask,
+    >= 99.9% of groups and kept candidates; chord within DOT_RTOL of the
+    values' scale with the same kept counts."""
+    real = want[0] > bs.NEG / 2
+    keep_got = bs.budgeted_keep(got[0], row_valid, k)
+    keep_want = bs.budgeted_keep(want[0], row_valid, k)
+    out = {"metric": metric,
+           "bit_equal": bool(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])),
+           "same_real_mask": bool(torch.equal(real, got[0] > bs.NEG / 2)),
+           "max_abs_err": float((got[0] - want[0])[real].abs().max()) if real.any() else 0.0,
+           "value_scale": float(want[0][real].abs().max()) if real.any() else 0.0,
+           "grp_agreement": float((got[1] == want[1]).float().mean()),
+           "keep_agreement": edge_agreement(keep_got, keep_want),
+           "same_kept_counts": bool(torch.equal(keep_got.sum(1), keep_want.sum(1)))}
+    if metric in HUGE_BIT_EQUAL:
+        out["ok"] = out["bit_equal"]
+    elif metric == "dot":
+        out["ok"] = (out["same_real_mask"] and out["max_abs_err"] <= K2_DOT_ATOL
+                     and out["grp_agreement"] >= K2_DOT_GROUP_AGREEMENT
+                     and out["keep_agreement"] >= KEEP_AGREEMENT)
+    else:
+        out["ok"] = (out["same_real_mask"]
+                     and out["max_abs_err"] <= DOT_RTOL * out["value_scale"]
+                     and out["keep_agreement"] >= KEEP_AGREEMENT and out["same_kept_counts"])
+    return out
+
+
 def k2_check(name: str, metric: str, x, valid, row_sums, k: int, *, start: int,
              block: int, nbins: int, per_window: dict, tag: str = "e") -> dict:
     """K2 on rows [start, start + block) of the panel ``x`` against its plain
@@ -442,38 +488,23 @@ def k2_check(name: str, metric: str, x, valid, row_sums, k: int, *, start: int,
     before = bs.launches
     got, want = run(bs.binned_candidates), run(bs.binned_candidates_plain)
     torch.cuda.synchronize()
-    real = want[0] > bs.NEG / 2
-    keep_got = bs.budgeted_keep(got[0], valid[rows], k)
-    keep_want = bs.budgeted_keep(want[0], valid[rows], k)
+    rules = plain_rules(metric, got, want, valid[rows], k)
     row = {"case": name, "metric": metric, "n": n, "block": block, "start": start,
            "nbins": nbins, "groups": n // nbins, "K": x.shape[1],
            "dtype": str(x.dtype).replace("torch.", ""), "launched": bs.launches - before,
            "splits": bs.kernel_splits(n, block, nbins, metric),
-           "bit_equal": bool(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])),
-           "same_real_mask": bool(torch.equal(real, got[0] > bs.NEG / 2)),
-           "max_abs_err": float((got[0] - want[0])[real].abs().max()) if real.any() else 0.0,
-           "value_scale": float(want[0][real].abs().max()) if real.any() else 0.0,
-           "grp_agreement": float((got[1] == want[1]).float().mean()),
-           "keep_agreement": edge_agreement(keep_got, keep_want),
-           "same_kept_counts": bool(torch.equal(keep_got.sum(1), keep_want.sum(1))),
+           **{key: v for key, v in rules.items() if key not in ("metric", "ok")},
            "ms": cuda_ms(lambda: run(bs.binned_candidates), reps=5, warmup=1),
            "plain_ms": cuda_ms(lambda: run(bs.binned_candidates_plain), reps=3, warmup=1),
            "launches_per_window": per_window}
     with_bound(row, k2_bound(metric, n, block, nbins, x.shape[1], x.element_size()))
-    if metric in bs.PAIR_METRICS:
+    if metric in bs.COORD_METRICS:
         row["share_of_fma_rate_bound"] = row["bound_fma_rate_ms"] / row["ms"]
     if metric in ("dot", "jaccard") and name != "text_integer_valued":
         row.update(gemm_yardstick(metric, x, x[rows]))
     print(f"[{tag}] K2", json.dumps(row), flush=True)
-    if metric in HUGE_BIT_EQUAL or name == "text_integer_valued":
-        ok = row["bit_equal"]
-    elif metric == "dot":
-        ok = (row["same_real_mask"] and row["max_abs_err"] <= K2_DOT_ATOL
-              and row["grp_agreement"] >= K2_DOT_GROUP_AGREEMENT
-              and row["keep_agreement"] >= KEEP_AGREEMENT)
-    else:
-        ok = (row["same_real_mask"] and row["max_abs_err"] <= DOT_RTOL * row["value_scale"]
-              and row["keep_agreement"] >= KEEP_AGREEMENT and row["same_kept_counts"])
+    # integer-valued dot operands sum exactly in any order: bit-equal there
+    ok = row["bit_equal"] if name == "text_integer_valued" else rules["ok"]
     if not (ok and row["launched"] == 1):
         raise AssertionError(f"K2 disagrees with its plain version: {row}")
     return row
@@ -1160,9 +1191,284 @@ def rows_in_equal_clusters(a, b) -> float:
     return float(np.mean((size_pair == na) & (size_pair == nb)))
 
 
+# ---------------------------------------------------------------------------
+# slice 4a: the column-sharded layouts' kernels and entry points, phase (j)
+# ---------------------------------------------------------------------------
+
+J_SHARDS = (2, 4)            # the emulated column splits of j2
+
+
+def huge_operands(cols: ba.Columns, device) -> dict:
+    """name -> (metric, panel, valid, row_sums, k) of the huge window's kNN
+    modalities, and a 128-wide random generic panel for chord."""
+    by_kind = dict(zip(cols.kinds, zip(cols.tensors, cols.valids)))
+    (xyz, lv), (tim, tv) = by_kind["location_xyz"], by_kind["time"]
+    ((tags, sums), tagv), (text, textv) = by_kind["tags"], by_kind["text_bf16"]
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    generic = ba.generic_columns([torch.randn((cols.n, 128), generator=gen, device=device)],
+                                 ("default",), device)
+    (dft, sq), dv = generic.tensors[0], generic.valids[0]
+    return {"location": ("chord3", xyz, lv, None, K_BASIS),
+            "time": ("l1", tim, tv, None, 3 * K_BASIS),
+            "tags": ("jaccard", tags, tagv, sums, K_BASIS),
+            "text": ("dot", text, textv, None, K_BASIS),
+            "generic_default": ("chord", dft, dv, sq, K_BASIS - 1)}
+
+
+def phase_j1(ops: dict, per_window: dict) -> dict:
+    """K3 on tags jaccard + text dot (the column-sharded sweep's pair) on the
+    first block: bit-equal to two K2 launches, held to (e)'s rules against
+    the plain version; its ms beside the two K2 launches' and their bound."""
+    block, nbins, start = HUGE_BLOCK, HUGE_NBINS, 0
+    _, tags, tagv, sums, _ = ops["tags"]
+    _, text, textv, _, _ = ops["text"]
+    n = tags.shape[0]
+    rows = slice(start, start + block)
+    kw = dict(nbins=nbins, block=block)
+
+    def pair():
+        return bs.binned_candidates_pair(tags, text, tags[rows], text[rows], tagv, textv,
+                                         start, metricA="jaccard", metricB="dot",
+                                         row_sumsA=sums, **kw)
+
+    def two(fn):
+        return (*fn(tags, tags[rows], tagv, start, metric="jaccard", row_sums=sums, **kw),
+                *fn(text, text[rows], textv, start, metric="dot", **kw))
+
+    before = bs.pair_launches
+    got, singles, plain = pair(), two(bs.binned_candidates), two(bs.binned_candidates_plain)
+    torch.cuda.synchronize()
+    rules = [plain_rules("jaccard", got[:2], plain[:2], tagv[rows], K_BASIS),
+             plain_rules("dot", got[2:], plain[2:], textv[rows], K_BASIS)]
+    bounds = [k2_bound("jaccard", n, block, nbins, tags.shape[1], tags.element_size()),
+              k2_bound("dot", n, block, nbins, text.shape[1], text.element_size())]
+    t_ops = sum(b["ops"] / b["peak_ops_per_s"] * 1e3 for b in bounds)
+    t_bytes = sum(b["bytes"] / b["bytes_per_s"] * 1e3 for b in bounds)
+    row = {"case": "tags+text", "route": bs.pair_route("jaccard", "dot"), "n": n,
+           "block": block, "nbins": nbins, "launched": bs.pair_launches - before,
+           "splits": bs.pair_splits(n, block, nbins),
+           "bit_equal_to_two_k2": all(torch.equal(a, b) for a, b in zip(got, singles)),
+           "plain_rules": rules,
+           "max_abs_err": max(r["max_abs_err"] for r in rules),
+           "ms": cuda_ms(pair, reps=5, warmup=1),
+           "two_k2_ms": cuda_ms(lambda: two(bs.binned_candidates), reps=5, warmup=1),
+           "plain_ms": cuda_ms(lambda: two(bs.binned_candidates_plain), reps=3, warmup=1),
+           "bound_ms": sum(b["bound_ms"] for b in bounds),
+           "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+           "bound": "the sum of the two K2 bounds (k2_bound)", "library_ms": None,
+           "launches_per_window": per_window}
+    row["share_of_bound"] = row["bound_ms"] / row["ms"]
+    # the same tile program with both halves of one metric: whether mixing
+    # the metrics in one grid is what costs
+    row["same_metric_pairs"] = {}
+    for m, x, v, sums in (("dot", text, textv, None), ("jaccard", tags, tagv, sums)):
+        def same_pair(m=m, x=x, v=v, sums=sums):
+            return bs.binned_candidates_pair(x, x, x[rows], x[rows], v, v, start, metricA=m,
+                                             metricB=m, row_sumsA=sums, row_sumsB=sums, **kw)
+
+        def same_two(m=m, x=x, v=v, sums=sums):
+            one = bs.binned_candidates(x, x[rows], v, start, metric=m, row_sums=sums, **kw)
+            return (*one, *bs.binned_candidates(x, x[rows], v, start, metric=m,
+                                                row_sums=sums, **kw))
+
+        equal = all(torch.equal(a, b) for a, b in zip(same_pair(), same_two()))
+        row["same_metric_pairs"][f"{m}+{m}"] = {
+            "bit_equal_to_two_k2": equal, "ms": cuda_ms(same_pair, reps=5, warmup=1),
+            "two_k2_ms": cuda_ms(same_two, reps=5, warmup=1)}
+    # one K2 launch over twice the rows: whether the doubled grid is what costs
+    row["k2_dot_twice_the_rows_ms"] = cuda_ms(
+        lambda: bs.binned_candidates(text, text[:2 * block], textv, 0, metric="dot",
+                                     nbins=nbins, block=2 * block), reps=5, warmup=1)
+    print("[j1] K3", json.dumps(row), flush=True)
+    if not (row["bit_equal_to_two_k2"] and all(r["ok"] for r in rules)
+            and row["launched"] == 1
+            and all(p["bit_equal_to_two_k2"] for p in row["same_metric_pairs"].values())):
+        raise AssertionError(f"j1: K3 jaccard + dot disagrees: {row}")
+    return row
+
+
+def shard_cases(n: int) -> list:
+    """(p, shard q, first row of the block) of j2: a row block from another
+    shard, before this shard's columns (start local < 0) and past them."""
+    out = []
+    for p in J_SHARDS:
+        n_local = n // p
+        out += [(p, 1, 0), (p, 0, n - HUGE_BLOCK)]
+        assert n_local % HUGE_NBINS == 0
+    return out
+
+
+def phase_j2(ops: dict, uid: torch.Tensor, uid_valid: torch.Tensor, device) -> list:
+    """K2 on every metric, K3 on both standard pairs and K4 / K5 with the
+    shard's offset g0, on a column shard of the huge window and a row block
+    of another shard (shard-local start, row_stats pre-sliced), against the
+    plain versions."""
+    block, nbins = HUGE_BLOCK, HUGE_NBINS
+    n = uid.shape[0]
+    results = []
+    for p, q, r0 in shard_cases(n):
+        n_local = n // p
+        cs_, rows = slice(q * n_local, (q + 1) * n_local), slice(r0, r0 + block)
+        start = r0 - q * n_local
+        case = {"p": p, "shard": q, "rows_from": r0, "start_local": start, "checks": []}
+
+        def shard(name):
+            metric, x, valid, sums, k = ops[name]
+            return (metric, x[cs_], x[rows], valid[cs_], valid[rows],
+                    None if sums is None else sums[cs_],
+                    None if sums is None else sums[rows].contiguous(), k)
+
+        cands = {}
+        for name in ops:
+            metric, cx, rx, cv, rv, sc, sr, k = shard(name)
+            kw = dict(metric=metric, nbins=nbins, block=block, row_sums=sc, row_stats=sr)
+            before = bs.launches
+            got = bs.binned_candidates(cx, rx, cv, start, **kw)
+            want = bs.binned_candidates_plain(cx, rx, cv, start, **kw)
+            torch.cuda.synchronize()
+            chk = {"kernel": "K2", "case": name, "launched": bs.launches - before,
+                   **plain_rules(metric, got, want, rv, k)}
+            case["checks"].append(chk)
+            cands[name] = (got, rv, k)
+        for a, b in (("location", "time"), ("tags", "text")):
+            ma, ca, ra, cva, rva, sca, sra, ka = shard(a)
+            mb, cb, rb, cvb, rvb, scb, srb, kb = shard(b)
+            before = bs.pair_launches
+            got = bs.binned_candidates_pair(ca, cb, ra, rb, cva, cvb, start, metricA=ma,
+                                            metricB=mb, nbins=nbins, block=block,
+                                            row_sumsA=sca, row_statsA=sra, row_sumsB=scb,
+                                            row_statsB=srb)
+            torch.cuda.synchronize()
+            for half, (m, rv, k, single) in enumerate(((ma, rva, ka, cands[a][0]),
+                                                       (mb, rvb, kb, cands[b][0]))):
+                pair_out = got[2 * half:2 * half + 2]
+                want = bs.binned_candidates_plain(*(shard(a if half == 0 else b)[1:4]),
+                                                  start, metric=m, nbins=nbins, block=block,
+                                                  row_sums=(sca, scb)[half],
+                                                  row_stats=(sra, srb)[half])
+                chk = {"kernel": "K3", "case": f"{a}+{b}", "half": half,
+                       "launched": bs.pair_launches - before,
+                       "equal_to_k2": all(torch.equal(x, y) for x, y in zip(pair_out, single)),
+                       **plain_rules(m, pair_out, want, rv, k)}
+                chk["ok"] = chk["ok"] and chk["equal_to_k2"]
+                case["checks"].append(chk)
+        # K4 / K5 on this shard's candidate block: local group ids, g0 != 0
+        # where the shard is not the first
+        groups_local = n_local // nbins
+        slabs = torch.stack([cm.pack_slab(bs.budgeted_keep(v[0], rv, k), v[1])
+                             for v, rv, k in (cands[name] for name in
+                                              ("location", "time", "tags", "text"))])
+        uid_rows = torch.where(uid_valid[rows], uid[rows], -1).to(torch.int32).reshape(-1, 1)
+        uid_cols = torch.where(uid_valid[cs_], uid[cs_], -2).to(torch.int32).reshape(
+            groups_local, nbins)
+        cand = cm.CandBlock(slabs.contiguous(), uid_rows.contiguous(), uid_cols.contiguous(),
+                            r0, q * groups_local)
+        ints = torch.Generator(device=device).manual_seed(SEED + 2)
+        for name, fn, ref, shape in (("K4", cm.matvec_t, cm.matvec_t_reference, (66, block)),
+                                     ("K5", cm.matvec, cm.matvec_reference, (n_local, 66))):
+            xi = torch.randint(-4, 5, shape, generator=ints, device=device).to(torch.bfloat16)
+            g, w = fn(cand, xi), ref(cand, xi)
+            torch.cuda.synchronize()
+            if name == "K4":
+                (g, ge), (w, we) = g, w
+            chk = {"kernel": name, "g0": cand.g0, "exact_on_integers": bool(torch.equal(g, w))}
+            if name == "K4":
+                chk["edges_exact"] = float(ge) == float(we)
+            chk["ok"] = chk["exact_on_integers"] and chk.get("edges_exact", True)
+            case["checks"].append(chk)
+        print("[j2]", json.dumps(case), flush=True)
+        bad = [c for c in case["checks"] if not c["ok"] or c.get("launched", 1) != 1]
+        if bad:
+            raise AssertionError(f"j2: p={p} shard {q}: kernels disagree with their plain "
+                                 f"versions: {bad}")
+        results.append(case)
+    return results
+
+
+@contextlib.contextmanager
+def nccl_world_of_one():
+    """A torch.distributed process group of one NCCL rank on this card (the
+    column-sharded entry points at world size 1), and its (1, 1) mesh."""
+    import socket
+
+    import torch.distributed as dist
+    from mused_tpu_torch.parallel import mesh
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}", rank=0,
+                            world_size=1, device_id=torch.device("cuda", 0))
+    try:
+        yield mesh.make_mesh(1, 1, "cuda")
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_j3(hmods, cols: ba.Columns, device, single_seconds: dict) -> dict:
+    """The column-sharded entry points at world size 1 on the huge stream's
+    first window at full width: fused rows bit-equal to the single-device
+    binned route on 3 blocks; the FD fold (candidate fold) with exactly
+    96 K3, 0 K2, 96 K4, 48 K5 and the single-device fold's sq_frobenius;
+    the blocked SVD (576 K3) and spectral embedding (768 K3); seconds of
+    each beside the single-device path's per window."""
+    engine = streaming.StreamingEngine(huge_cfg(), device)
+    host = engine.featurize([m[:HUGE_WINDOW] for m in hmods], streaming.STANDARD_TYPES)
+    feats, types = tuple(host), streaming.types_for(host, streaming.STANDARD_TYPES)
+    n, block, nbins = HUGE_WINDOW, HUGE_BLOCK, HUGE_NBINS
+    out = {"n": n, "block": block, "nbins": nbins, "world_size": 1}
+    with nccl_world_of_one() as mesh:
+        kw = dict(block=block, k_basis=K_BASIS, mesh=mesh, nbins=nbins)
+        if cs.default_nbins_colsharded(n, 1, k_max=3 * K_BASIS) != nbins:
+            raise AssertionError("j3: the column-sharded bins differ from the single path's")
+        rows_equal = []
+        for start in (0, n // 2, n - block):
+            got = cs.colsharded_fused_rows(feats, types, start=start, **kw)
+            want = ba.fused_rowblock(cols, start, block, K_BASIS, select="binned",
+                                     nbins=nbins, out_dtype=torch.bool)
+            rows_equal.append(bool(torch.equal(got, want)))
+        out["fused_rows_bit_equal"] = rows_equal
+        ell = min(REDUCED_DIM, n)
+        _, sq1, _ = ba.blocked_fd_sketch(cols, ell=ell, block=block, k_basis=K_BASIS,
+                                         select="binned", nbins=nbins, cand_fold=True)
+        runs = {}
+        gen = streaming.window_generator(SEED, 0, device)
+        for name, fn in (
+                ("fd", lambda: cs.colsharded_blocked_fd_sketch(feats, types, ell=ell, **kw)),
+                ("svd", lambda: cs.colsharded_blocked_svd_reduce(feats, types, gen,
+                                                                 rank=REDUCED_DIM, **kw)),
+                ("spectral", lambda: cs.colsharded_spectral_embedding(
+                    feats, types, gen, k_max=2, **kw))):
+            torch.cuda.synchronize()
+            reset_counts()
+            t0 = time.perf_counter()
+            res = fn()
+            torch.cuda.synchronize()
+            runs[name] = {"seconds": time.perf_counter() - t0, "launches": huge_counts(),
+                          "finite": bool(all(torch.isfinite(r).all() for r in
+                                             (res if isinstance(res, tuple) else (res,))))}
+            if name == "fd":
+                runs[name]["sq_frobenius"] = float(res[1])
+                runs[name]["sq_frobenius_single_device"] = float(sq1)
+    out["runs"] = runs
+    out["single_device_seconds_per_window"] = single_seconds
+    print("[j3]", json.dumps(out), flush=True)
+    blocks = n // block
+    want = {"fd": {"K2": 0, "K3": 2 * blocks, "K4": 2 * blocks, "K5": blocks},
+            "svd": {"K2": 0, "K3": 2 * SSVD_SWEEPS * blocks, "K4": 0, "K5": 0},
+            "spectral": {"K2": 0, "K3": 2 * SPECTRAL_SWEEPS * blocks, "K4": 0, "K5": 0}}
+    if not all(rows_equal):
+        raise AssertionError(f"j3: column-sharded fused rows differ: {rows_equal}")
+    for name, w in want.items():
+        if runs[name]["launches"] != w or not runs[name]["finite"]:
+            raise AssertionError(f"j3 {name}: {runs[name]}, expected launches {w}")
+    if runs["fd"]["sq_frobenius"] != runs["fd"]["sq_frobenius_single_device"]:
+        raise AssertionError(f"j3: sq_frobenius differs from the single-device fold: {runs}")
+    return out
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--phases", default="abcdefghi",
+    parser.add_argument("--phases", default="abcdefghij",
                         help="phases to run (a always runs); the result lines print "
                              "only when all ran")
     parser.add_argument("--profile", action="store_true",
@@ -1233,7 +1539,8 @@ def main() -> int:
         seconds["d"] = time.perf_counter() - t0
 
     kernels_e, huge_runs, huge_launches = {}, [], {"K2": 0, "K3": 0, "K4": 0, "K5": 0}
-    if phases & set("efghi"):
+    single_seconds = {}           # single-device seconds per huge window (f, i3)
+    if phases & set("efghij"):
         t0 = time.perf_counter()
         hmods, hmtypes, hlabels = make_stream(HUGE_RECORDS, noise_rate=NOISE_RATE,
                                               binary=True, sort_by_uploaded=True,
@@ -1253,6 +1560,7 @@ def main() -> int:
         for approach in ("SWFDMC", "sSVDMC"):
             huge_runs.append(phase_f(hmods, hmtypes, hlabels, device, approach,
                                      HUGE_RECORDS))
+            single_seconds[approach] = huge_runs[-1]["seconds"] / huge_runs[-1]["windows"]
             for k, v in huge_runs[-1]["launches"].items():
                 huge_launches[k] += v
         seconds["f"] = time.perf_counter() - t0
@@ -1281,16 +1589,41 @@ def main() -> int:
         seconds["i2"] = time.perf_counter() - t1
         t1 = time.perf_counter()
         for approach in ("sSpectral", "DBSCAN_centr"):
-            phase_f(hmods, hmtypes, hlabels, device, approach, HUGE_RECORDS, tag="i3")
+            r = phase_f(hmods, hmtypes, hlabels, device, approach, HUGE_RECORDS, tag="i3")
+            single_seconds[approach] = r["seconds"] / r["windows"]
         seconds["i3"] = time.perf_counter() - t1
         t1 = time.perf_counter()
         torch.cuda.empty_cache()
         kernels_i = phase_i4(mods, mtypes, device)
         seconds["i4"] = time.perf_counter() - t1
         seconds["i"] = time.perf_counter() - t0
+    kernels_j = {}
+    if "j" in phases:
+        t0 = time.perf_counter()
+        if "i" in phases:           # phase (i) dropped the huge window's panels
+            cols = huge_columns(hmods, device)
+        ops = huge_operands(cols, device)
+        by_kind = dict(zip(cols.kinds, zip(cols.tensors, cols.valids)))
+        uid, uid_valid = by_kind["username"]
+        blocks = BLOCKS_PER_WINDOW
+        kernels_j["K3"] = phase_j1(ops, {"colsharded SWFDMC": blocks,
+                                         "colsharded sSVDMC": SSVD_SWEEPS * blocks,
+                                         "colsharded sSpectral": SPECTRAL_SWEEPS * blocks})
+        seconds["j1"] = time.perf_counter() - t0
+        t1 = time.perf_counter()
+        phase_j2(ops, uid, uid_valid, device)
+        seconds["j2"] = time.perf_counter() - t1
+        del ops, by_kind, uid, uid_valid
+        t1 = time.perf_counter()
+        j3 = phase_j3(hmods, cols, device, single_seconds)
+        for run in j3["runs"].values():
+            for k, v in run["launches"].items():
+                huge_launches[k] += v
+        seconds["j3"] = time.perf_counter() - t1
+        seconds["j"] = time.perf_counter() - t0
     if args.profile:
         t0 = time.perf_counter()
-        if not phases & set("efghi"):
+        if not phases & set("efghij"):
             hmods, hmtypes, hlabels = make_stream(HUGE_RECORDS, noise_rate=NOISE_RATE,
                                                   binary=True, sort_by_uploaded=True,
                                                   seed=SEED)
@@ -1298,7 +1631,7 @@ def main() -> int:
             profile_huge_window(hmods, hmtypes, hlabels, approach)
         seconds["profile"] = time.perf_counter() - t0
     print("[seconds]", json.dumps(seconds), flush=True)
-    if phases != set("abcdefghi") or args.profile:
+    if phases != set("abcdefghij") or args.profile:
         return 0
 
     main_rows = [r for r in rows_b if r["case"] in ("location", "time", "tags", "text")]
@@ -1352,9 +1685,17 @@ def main() -> int:
         "name": "binned_candidates_pair", "route": "cuda",
         "source": "mused_tpu_torch/csrc/blocked_select.cu",
         "replaces": "mused_tpu/ops/pallas/blocked_select.py:305",
-        "launches": huge_launches["K3"], "max_abs_err": 0.0,
+        "launches": huge_launches["K3"],
+        "max_abs_err": max(0.0, kernels_j["K3"]["max_abs_err"]),
         **timed([kernels_e["K3"]], "one block's call (location chord3 + time l1)"),
         "bound_fma_rate_ms": kernels_e["K3"]["bound_fma_rate_ms"],
+        "per_pair": {
+            "chord3+l1": {"route": "coordinate", "ms": kernels_e["K3"]["ms"],
+                          "plain_ms": kernels_e["K3"]["plain_ms"],
+                          "bound_ms": kernels_e["K3"]["bound_ms"]},
+            "jaccard+dot": {k: kernels_j["K3"][k] for k in
+                            ("route", "ms", "two_k2_ms", "plain_ms", "bound_ms", "bound_by",
+                             "share_of_bound", "splits", "max_abs_err")}},
         "at_batch_subset": timed([kernels_i["K3"]], f"one block's call at n = "
                                                     f"{BATCH_PADDED_ROWS}, nbins = "
                                                     f"{BATCH_NBINS} (phase i4)"),

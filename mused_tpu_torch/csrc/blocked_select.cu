@@ -46,7 +46,19 @@
 //     are loaded as +inf coordinates, which never win, and the self test
 //     runs only in the (at most 2) groups that can hold a row's own column.
 //     K3 runs two such metrics in one pass and shares the not-self test;
-//     each of its outputs is bit-identical to a K2 launch.
+//     each of its outputs is bit-identical to a K2 launch;
+//   * K3 on two tensor-core metrics (the column-sharded sweep pairs tags
+//     jaccard with text dot; embedding streams pair dot with dot) is one
+//     launch of K2's tile program with twice the row tiles: blockIdx.z picks
+//     the half, so each output is bit-identical to its K2 launch and the
+//     pair fills the card with twice the CTAs of one K2 launch.  A mixed
+//     pair (one tensor-core and one coordinate metric, generic streams
+//     only) runs a simple CUDA-core kernel, right first and not fast;
+//   * the row side is given whole: rows (block, K) and their statistics
+//     s_r (block,) need not be a slice of the column panel, and `start` (the
+//     rows' global index, read only by the self-column test) may be negative
+//     or past n, as it is for a row block that lives on another column
+//     shard.
 //
 // What bounds it on an H100: at the huge-window shape (n = 98,304,
 // block = 2048, nbins = 1536) text is 1.65 TFLOP of bf16 tensor-core work
@@ -265,20 +277,37 @@ __device__ __forceinline__ void take(float& best, uint32_t& packed, int e, float
   }
 }
 
+// One metric's operands on the tensor-core route: column validity, the
+// hoisted statistics (s_r the rows', s_c the columns'; unread for dot), the
+// outputs, and the feature width in bytes.
+struct MmaHalf {
+  const uint8_t* colv;
+  const float* s_r;
+  const float* s_c;
+  float* vals;
+  int8_t* grp;
+  int kbytes;
+};
+
 // One cluster of `splits` CTAs owns a 128-row x 128-slot output tile; CTA z
 // (the cluster rank, == blockIdx.x) sweeps groups [z, z + 1) * groups /
 // splits.  Warpgroups 0-1 consume (64 rows each), warpgroup 2 produces.
 // Accumulator element i of a consumer thread (warp w of its warpgroup, lane
 // l): row 16 w + l / 4 + 8 ((i >> 1) & 1), slot 8 (i >> 2) + 2 (l & 3) + (i & 1).
+// `start` is the global index of row 0, used only by the self-column test:
+// any value (negative, or past n) is taken, so a row block from another
+// column shard compares against this shard's columns as it should.
 template <int METRIC>
-__global__ void __launch_bounds__(kThreads, 1)
-binned_mma_kernel(const __grid_constant__ CUtensorMap cols_map,
-                  const __grid_constant__ CUtensorMap rows_map,
-                  const uint8_t* __restrict__ colv, const float* __restrict__ s_r,
-                  const float* __restrict__ s_c, float* __restrict__ vals,
-                  int8_t* __restrict__ grp, int n, int block, int kbytes, int nbins,
-                  int start) {
+__device__ __forceinline__ void mma_tile(const CUtensorMap* cols_map, const CUtensorMap* rows_map,
+                                         const MmaHalf& op, int n, int block, int nbins,
+                                         int start, int row_tile) {
   using Acc = std::conditional_t<METRIC == kJaccard, int, float>;
+  const uint8_t* __restrict__ colv = op.colv;
+  const float* __restrict__ s_r = op.s_r;
+  const float* __restrict__ s_c = op.s_c;
+  float* __restrict__ vals = op.vals;
+  int8_t* __restrict__ grp = op.grp;
+  const int kbytes = op.kbytes;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* base = smem_raw + ((1024u - (smem_u32(smem_raw) & 1023u)) & 1023u);
   const uint32_t sbase = smem_u32(base);
@@ -291,7 +320,7 @@ binned_mma_kernel(const __grid_constant__ CUtensorMap cols_map,
   const int gper = n / nbins / splits, g_begin = static_cast<int>(rank) * gper;
   const int nk = (kbytes + kChunk - 1) / kChunk;
   const int steps = gper * nk;
-  const int slot0 = blockIdx.y * kTileSlots, row0 = blockIdx.z * kTileRows;
+  const int slot0 = blockIdx.y * kTileSlots, row0 = row_tile * kTileRows;
   const int wg = threadIdx.x >> 7, tid = threadIdx.x & 127;
 
   if (threadIdx.x == 0) {
@@ -317,11 +346,11 @@ binned_mma_kernel(const __grid_constant__ CUtensorMap cols_map,
         const uint32_t full = full0 + 8 * s, a = sbase + s * kStageBytes;
         mbar_expect_tx(full, kStageBytes);
         const int g = g_begin + t / nk, kc = (t % nk) * kChunk;
-        tma_load(a + kTileBytes, &cols_map, full, kc, g * nbins + slot0);
+        tma_load(a + kTileBytes, cols_map, full, kc, g * nbins + slot0);
         if (splits == 1)
-          tma_load(a, &rows_map, full, kc, row0);
+          tma_load(a, rows_map, full, kc, row0);
         else
-          tma_load_multicast(a + rank * slice * kChunk, &rows_map, full, kc,
+          tma_load_multicast(a + rank * slice * kChunk, rows_map, full, kc,
                              row0 + static_cast<int>(rank) * slice, mask);
       }
     }
@@ -382,15 +411,14 @@ binned_mma_kernel(const __grid_constant__ CUtensorMap cols_map,
           wgmma_bf16(acc, da + 2 * k, db + 2 * k, (kc | k) != 0);
       }
       wgmma_commit();
-      if (kc + 1 < nk) {
-        wgmma_wait<1>();   // the previous stage's products are done
-        if (kc > 0) release(t - 1);
-      } else {
-        wgmma_wait<0>();
-        if (kc > 0) release(t - 1);
-        release(t);
-      }
+      wgmma_wait<1>();     // the previous stage's products are done
+      if (kc > 0) release(t - 1);
     }
+    // One unconditional wait for the group's last products, so no use of the
+    // accumulators can precede it on any path: ptxas then injects no wait of
+    // its own, which inside K3's per-half branch would serialize every wgmma.
+    wgmma_wait<0>();
+    release(t - 1);
     reg_fence(acc);
     consumer_sync();
 
@@ -472,6 +500,44 @@ binned_mma_kernel(const __grid_constant__ CUtensorMap cols_map,
   cluster_sync();   // peers are done reading this CTA's partials
 }
 
+// K2 on the tensor cores: grid (splits, slot tiles, row tiles).
+template <int METRIC>
+__global__ void __launch_bounds__(kThreads, 1)
+binned_mma_kernel(const __grid_constant__ CUtensorMap cols_map,
+                  const __grid_constant__ CUtensorMap rows_map,
+                  const __grid_constant__ MmaHalf op, int n,
+                  int block, int nbins, int start) {
+  mma_tile<METRIC>(&cols_map, &rows_map, op, n, block, nbins, start,
+                   static_cast<int>(blockIdx.z));
+}
+
+// K3 on two tensor-core metrics: grid (splits, slot tiles, 2 x row tiles);
+// blockIdx.z < row_tiles runs half A, the rest half B, each with K2's tile
+// program above, so each output is bit-equal to its K2 launch.  The metric
+// of a half is a runtime value (one kernel for the nine pairs); every CTA of
+// a cluster shares its blockIdx.z, so a cluster never mixes the halves.
+__global__ void __launch_bounds__(kThreads, 1)
+binned_mma_pair_kernel(const __grid_constant__ CUtensorMap cols_a,
+                       const __grid_constant__ CUtensorMap rows_a,
+                       const __grid_constant__ CUtensorMap cols_b,
+                       const __grid_constant__ CUtensorMap rows_b,
+                       const __grid_constant__ MmaHalf a,
+                       const __grid_constant__ MmaHalf b, int metric_a, int metric_b,
+                       int n, int block, int nbins, int start, int row_tiles) {
+  const int z = static_cast<int>(blockIdx.z);
+  const bool second = z >= row_tiles;
+  const CUtensorMap* cols = second ? &cols_b : &cols_a;
+  const CUtensorMap* rows = second ? &rows_b : &rows_a;
+  const MmaHalf& op = second ? b : a;
+  const int metric = second ? metric_b : metric_a, tile = second ? z - row_tiles : z;
+  if (metric == kJaccard)
+    mma_tile<kJaccard>(cols, rows, op, n, block, nbins, start, tile);
+  else if (metric == kChord)
+    mma_tile<kChord>(cols, rows, op, n, block, nbins, start, tile);
+  else
+    mma_tile<kDot>(cols, rows, op, n, block, nbins, start, tile);
+}
+
 // ---------------------------------------------------------------------------
 // coordinate kernel (chord3, l1; one metric, or a pair sharing the sweep)
 // ---------------------------------------------------------------------------
@@ -483,6 +549,10 @@ constexpr float kFar = 1e30f;        // -kNeg: the running best distance starts 
 
 template <int METRIC>
 __host__ __device__ constexpr int coords() { return METRIC == kChord3 ? 3 : 2; }
+
+__device__ __forceinline__ int floor_div(int a, int b) {   // b > 0
+  return a >= 0 ? a / b : -((b - 1 - a) / b);
+}
 
 // Distance of a coordinate metric, sim = -dist, in the plain version's
 // unfused order (coordinate 0, 1, 2).  The plain version starts from
@@ -579,8 +649,10 @@ binned_coord_kernel(CoordOperand A, CoordOperand B, int n, int block, int nbins,
   const int groups = n / nbins;
   // Only the groups holding columns start + row0 .. start + row0 + 15 can
   // hold a row's own column: the self test runs for those (warp-uniform).
-  const int self_lo = (start + row0) / nbins;
-  const int self_hi = (start + row0 + kCoordRows - 1) / nbins;
+  // Floor division: a shard-local start may be negative, and the range may
+  // lie wholly outside [0, groups), where no group runs the test.
+  const int self_lo = floor_div(start + row0, nbins);
+  const int self_hi = floor_div(start + row0 + kCoordRows - 1, nbins);
 
   float ca[kCoordSlots][3], cb[kCoordSlots][3];
 #pragma unroll
@@ -624,7 +696,7 @@ binned_coord_kernel(CoordOperand A, CoordOperand B, int n, int block, int nbins,
       load_col<MA>(A, (g + 1) * nbins + slot[j], more && in[j], na[j]);
       if (kPair) load_col<kMB>(B, (g + 1) * nbins + slot[j], more && in[j], nb[j]);
     }
-    if (g == self_lo || g == self_hi) sweep(g, std::true_type{});
+    if (g >= self_lo && g <= self_hi) sweep(g, std::true_type{});
     else sweep(g, std::false_type{});
 #pragma unroll
     for (int j = 0; j < kCoordSlots; ++j)
@@ -650,6 +722,154 @@ binned_coord_kernel(CoordOperand A, CoordOperand B, int n, int block, int nbins,
         B.grp[o] = static_cast<int8_t>(g_b[r][j]);
       }
     }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// simple kernel (K3 on a mixed pair: one tensor-core metric, one coordinate)
+// ---------------------------------------------------------------------------
+
+constexpr int kSimpleThreads = 128;   // one slot per thread
+constexpr int kSimpleRows = 8;        // rows per CTA
+constexpr int kSimpleChunk = 32;      // features of the rows staged per step
+
+struct SimpleHalf {
+  const void* cols;      // (n, k): bf16 (dot / chord), int8 (jaccard), f32 (chord3 / l1)
+  const void* rows;      // (block, k), the same type
+  const uint8_t* colv;   // (n,) bytes 0/1
+  const float* s_r;      // (block,) jaccard / chord row statistics
+  const float* s_c;      // (n,) their column statistics
+  float* vals;
+  int8_t* grp;
+  int k;
+  int metric;
+};
+
+__device__ __forceinline__ float bf16_at(const void* p, size_t i) {   // exact widening
+  return __uint_as_float(static_cast<uint32_t>(static_cast<const uint16_t*>(p)[i]) << 16);
+}
+
+// One launch for both halves of a pair that mixes the routes (grid z picks
+// the half).  A thread owns one slot and the CTA's kSimpleRows rows and walks
+// the groups in ascending order with strict >, as K2 does; the products are
+// plain loops over the features (rows staged in shared memory).  Coordinate
+// metrics and jaccard (integer counts) are bit-equal to the plain version;
+// dot and chord sum in f32 in feature order, within the plain version's
+// rounding.  Only generic numeric streams form such pairs: this kernel is
+// right first, not fast.
+__global__ void __launch_bounds__(kSimpleThreads)
+binned_simple_kernel(const __grid_constant__ SimpleHalf a,
+                     const __grid_constant__ SimpleHalf b, int n, int block, int nbins,
+                     int start) {
+  const SimpleHalf& h = blockIdx.z ? b : a;
+  __shared__ float rf[kSimpleRows][kSimpleChunk];
+  __shared__ int ri[kSimpleRows][kSimpleChunk];
+  const int tid = threadIdx.x;
+  const int slot = blockIdx.x * kSimpleThreads + tid;
+  const int row0 = blockIdx.y * kSimpleRows;
+  const bool in = slot < nbins;
+  const bool coord = h.metric == kChord3 || h.metric == kL1;
+  const bool stats = h.metric == kJaccard || h.metric == kChord;
+  const int groups = n / nbins;
+  float best[kSimpleRows], sr[kSimpleRows];
+  int bg[kSimpleRows];
+  float4 xr[kSimpleRows];
+#pragma unroll
+  for (int r = 0; r < kSimpleRows; ++r) {
+    const bool live = row0 + r < block;
+    best[r] = kNeg;
+    bg[r] = 0;
+    sr[r] = stats && live ? h.s_r[row0 + r] : 0.f;
+    xr[r] = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (coord && live) {
+      const float* p = static_cast<const float*>(h.rows) + static_cast<size_t>(row0 + r) * h.k;
+      xr[r].x = p[0];
+      xr[r].y = p[1];
+      if (h.metric == kChord3) xr[r].z = p[2];
+    }
+  }
+  for (int g = 0; g < groups; ++g) {
+    const int col = g * nbins + slot;
+    float sim[kSimpleRows];
+    if (coord) {
+      if (in) {
+        const float* p = static_cast<const float*>(h.cols) + static_cast<size_t>(col) * h.k;
+        const float c[3] = {p[0], p[1], h.metric == kChord3 ? p[2] : 0.f};
+#pragma unroll
+        for (int r = 0; r < kSimpleRows; ++r)
+          sim[r] = -(h.metric == kChord3 ? coord_dist<kChord3>(xr[r], c)
+                                         : coord_dist<kL1>(xr[r], c));
+      }
+    } else {
+      float accf[kSimpleRows];
+      int acci[kSimpleRows];
+#pragma unroll
+      for (int r = 0; r < kSimpleRows; ++r) {
+        accf[r] = 0.f;
+        acci[r] = 0;
+      }
+      for (int k0 = 0; k0 < h.k; k0 += kSimpleChunk) {
+        __syncthreads();   // the previous chunk is consumed
+        for (int e = tid; e < kSimpleRows * kSimpleChunk; e += kSimpleThreads) {
+          const int r = e / kSimpleChunk, kk = e % kSimpleChunk;
+          const bool ok = row0 + r < block && k0 + kk < h.k;
+          const size_t i = static_cast<size_t>(row0 + r) * h.k + k0 + kk;
+          if (h.metric == kJaccard)
+            ri[r][kk] = ok ? static_cast<const int8_t*>(h.rows)[i] : 0;
+          else
+            rf[r][kk] = ok ? bf16_at(h.rows, i) : 0.f;
+        }
+        __syncthreads();
+        if (!in) continue;
+        const int kend = min(kSimpleChunk, h.k - k0);
+        const size_t c0 = static_cast<size_t>(col) * h.k + k0;
+        for (int kk = 0; kk < kend; ++kk) {
+          if (h.metric == kJaccard) {
+            const int cv = static_cast<const int8_t*>(h.cols)[c0 + kk];
+#pragma unroll
+            for (int r = 0; r < kSimpleRows; ++r) acci[r] += ri[r][kk] * cv;
+          } else {
+            const float cv = bf16_at(h.cols, c0 + kk);
+#pragma unroll
+            for (int r = 0; r < kSimpleRows; ++r) accf[r] = fmaf(rf[r][kk], cv, accf[r]);
+          }
+        }
+      }
+      if (in) {
+        const float sc = stats ? h.s_c[col] : 0.f;
+#pragma unroll
+        for (int r = 0; r < kSimpleRows; ++r) {
+          if (h.metric == kDot) {
+            sim[r] = accf[r];
+          } else if (h.metric == kJaccard) {   // as K2's epilogue
+            sim[r] = 0.f;
+            if (acci[r] != 0) {
+              const float inter = static_cast<float>(acci[r]);
+              const float uni = __fsub_rn(__fadd_rn(sr[r], sc), inter);
+              sim[r] = __fdiv_rn(inter, fmaxf(uni, 1e-9f));
+            }
+          } else {
+            const float d2 = __fsub_rn(__fadd_rn(sr[r], sc), __fmul_rn(2.f, accf[r]));
+            sim[r] = -fmaxf(d2, 0.f);
+          }
+        }
+      }
+    }
+    if (!in || h.colv[col] == 0) continue;
+#pragma unroll
+    for (int r = 0; r < kSimpleRows; ++r)
+      if (start + row0 + r != col && sim[r] > best[r]) {
+        best[r] = sim[r];
+        bg[r] = g;
+      }
+  }
+  if (!in) return;
+#pragma unroll
+  for (int r = 0; r < kSimpleRows; ++r) {
+    if (row0 + r >= block) break;
+    const size_t o = static_cast<size_t>(row0 + r) * nbins + slot;
+    h.vals[o] = best[r];
+    h.grp[o] = static_cast<int8_t>(bg[r]);
   }
 }
 
@@ -691,15 +911,32 @@ bool byte_panel_map(CUtensorMap* map, const void* ptr, int rows, int kbytes, int
          CUDA_SUCCESS;
 }
 
-template <int METRIC>
-cudaError_t set_smem_attribute() {
-  static const cudaError_t e = cudaFuncSetAttribute(
-      reinterpret_cast<const void*>(&binned_mma_kernel<METRIC>),
-      cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
-  return e;
+// A tensor-core kernel (K2 for one metric, or the K3 pair) with its dynamic
+// shared-memory attribute set once and its co-resident clusters per split
+// choice, asked once.
+struct MmaKernel {
+  const void* fn;
+  cudaError_t smem;
+  int active[3];
+};
+
+MmaKernel make_mma_kernel(const void* fn) {
+  MmaKernel k{fn, cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       kSmemBytes), {-1, -1, -1}};
+  return k;
 }
 
 template <int METRIC>
+MmaKernel& mma_single() {
+  static MmaKernel k = make_mma_kernel(reinterpret_cast<const void*>(&binned_mma_kernel<METRIC>));
+  return k;
+}
+
+MmaKernel& mma_pair() {
+  static MmaKernel k = make_mma_kernel(reinterpret_cast<const void*>(&binned_mma_pair_kernel));
+  return k;
+}
+
 cudaLaunchConfig_t mma_config(int splits, int slot_tiles, int row_tiles, cudaStream_t stream,
                               cudaLaunchAttribute* attr) {
   cudaLaunchConfig_t cfg = {};
@@ -718,28 +955,25 @@ cudaLaunchConfig_t mma_config(int splits, int slot_tiles, int row_tiles, cudaStr
 
 // Group-range splits (the cluster size) for `tiles` output tiles over
 // `groups` groups: the fewest waves x groups per CTA, ties to more splits
-// (the rows tile is then fetched once for more CTAs).
-template <int METRIC>
-int choose_splits(int tiles, int groups) {
-  static int active[3] = {-1, -1, -1};   // co-resident clusters per choice
-  if (set_smem_attribute<METRIC>() != cudaSuccess) return 1;
+// (the rows tile is then fetched once for more CTAs).  Splits change no
+// value: the partials merge in group order with strict >.
+int choose_splits(MmaKernel& k, int tiles, int groups) {
+  if (k.smem != cudaSuccess) return 1;
   int best = 1;
   long long best_cost = -1;
   for (int c = 0; c < 3; ++c) {
     const int splits = kSplitChoices[c];
     if (groups % splits) continue;
-    if (active[c] < 0) {
+    if (k.active[c] < 0) {
       cudaLaunchAttribute attr;
-      const cudaLaunchConfig_t cfg = mma_config<METRIC>(splits, 1, 1, nullptr, &attr);
+      const cudaLaunchConfig_t cfg = mma_config(splits, 1, 1, nullptr, &attr);
       int num = 0;
-      active[c] = cudaOccupancyMaxActiveClusters(
-                      &num, reinterpret_cast<const void*>(&binned_mma_kernel<METRIC>), &cfg) ==
-                          cudaSuccess ? num : 0;
+      k.active[c] = cudaOccupancyMaxActiveClusters(&num, k.fn, &cfg) == cudaSuccess ? num : 0;
       cudaGetLastError();   // a refused query leaves no error behind
     }
-    if (active[c] <= 0) continue;
+    if (k.active[c] <= 0) continue;
     const long long cost =
-        static_cast<long long>((tiles + active[c] - 1) / active[c]) * (groups / splits);
+        static_cast<long long>((tiles + k.active[c] - 1) / k.active[c]) * (groups / splits);
     if (best_cost < 0 || cost <= best_cost) {
       best_cost = cost;
       best = splits;
@@ -748,32 +982,57 @@ int choose_splits(int tiles, int groups) {
   return best;
 }
 
+int slot_tiles_of(int nbins) { return (nbins + kTileSlots - 1) / kTileSlots; }
+int row_tiles_of(int block) { return (block + kTileRows - 1) / kTileRows; }
+
 template <int METRIC>
 int mma_splits(int n, int block, int nbins) {
-  return choose_splits<METRIC>(((nbins + kTileSlots - 1) / kTileSlots) *
-                                   ((block + kTileRows - 1) / kTileRows),
-                               n / nbins);
+  return choose_splits(mma_single<METRIC>(), slot_tiles_of(nbins) * row_tiles_of(block),
+                       n / nbins);
+}
+
+int mma_pair_splits(int n, int block, int nbins) {
+  return choose_splits(mma_pair(), 2 * slot_tiles_of(nbins) * row_tiles_of(block), n / nbins);
 }
 
 template <int METRIC>
-cudaError_t launch_mma(const void* cols, const void* rows, const void* colv,
-                       const float* s_r, const float* s_c, float* vals, int8_t* grp,
-                       int n, int block, int kbytes, int nbins, int start,
-                       cudaStream_t stream) {
-  cudaError_t e = set_smem_attribute<METRIC>();
-  if (e != cudaSuccess) return e;
-  const int slot_tiles = (nbins + kTileSlots - 1) / kTileSlots;
-  const int row_tiles = (block + kTileRows - 1) / kTileRows;
+cudaError_t launch_mma(const void* cols, const void* rows, const MmaHalf& op, int n, int block,
+                       int nbins, int start, cudaStream_t stream) {
+  MmaKernel& k = mma_single<METRIC>();
+  if (k.smem != cudaSuccess) return k.smem;
   const int splits = mma_splits<METRIC>(n, block, nbins);
   CUtensorMap cols_map, rows_map;
-  if (!byte_panel_map(&cols_map, cols, n, kbytes, kTileSlots) ||
-      !byte_panel_map(&rows_map, rows, block, kbytes, kTileRows / splits))
+  if (!byte_panel_map(&cols_map, cols, n, op.kbytes, kTileSlots) ||
+      !byte_panel_map(&rows_map, rows, block, op.kbytes, kTileRows / splits))
     return cudaErrorInvalidValue;
   cudaLaunchAttribute attr;
-  const cudaLaunchConfig_t cfg = mma_config<METRIC>(splits, slot_tiles, row_tiles, stream, &attr);
-  e = cudaLaunchKernelEx(&cfg, binned_mma_kernel<METRIC>, cols_map, rows_map,
-                         static_cast<const uint8_t*>(colv), s_r, s_c, vals, grp, n, block,
-                         kbytes, nbins, start);
+  const cudaLaunchConfig_t cfg =
+      mma_config(splits, slot_tiles_of(nbins), row_tiles_of(block), stream, &attr);
+  const cudaError_t e = cudaLaunchKernelEx(&cfg, binned_mma_kernel<METRIC>, cols_map, rows_map,
+                                           op, n, block, nbins, start);
+  return e != cudaSuccess ? e : cudaGetLastError();
+}
+
+cudaError_t launch_mma_pair(const void* cols_a, const void* rows_a, const MmaHalf& a,
+                            int metric_a, const void* cols_b, const void* rows_b,
+                            const MmaHalf& b, int metric_b, int n, int block, int nbins,
+                            int start, cudaStream_t stream) {
+  MmaKernel& k = mma_pair();
+  if (k.smem != cudaSuccess) return k.smem;
+  const int splits = mma_pair_splits(n, block, nbins);
+  CUtensorMap ca, ra, cb, rb;
+  if (!byte_panel_map(&ca, cols_a, n, a.kbytes, kTileSlots) ||
+      !byte_panel_map(&ra, rows_a, block, a.kbytes, kTileRows / splits) ||
+      !byte_panel_map(&cb, cols_b, n, b.kbytes, kTileSlots) ||
+      !byte_panel_map(&rb, rows_b, block, b.kbytes, kTileRows / splits))
+    return cudaErrorInvalidValue;
+  const int row_tiles = row_tiles_of(block);
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg =
+      mma_config(splits, slot_tiles_of(nbins), 2 * row_tiles, stream, &attr);
+  const cudaError_t e = cudaLaunchKernelEx(&cfg, binned_mma_pair_kernel, ca, ra, cb, rb, a, b,
+                                           metric_a, metric_b, n, block, nbins, start,
+                                           row_tiles);
   return e != cudaSuccess ? e : cudaGetLastError();
 }
 
@@ -787,8 +1046,44 @@ cudaError_t launch_coord(const CoordOperand& a, const CoordOperand& b, int n, in
   return cudaGetLastError();
 }
 
+cudaError_t launch_simple(const SimpleHalf& a, const SimpleHalf& b, int n, int block, int nbins,
+                          int start, cudaStream_t stream) {
+  const dim3 grid((nbins + kSimpleThreads - 1) / kSimpleThreads,
+                  (block + kSimpleRows - 1) / kSimpleRows, 2);
+  binned_simple_kernel<<<grid, kSimpleThreads, 0, stream>>>(a, b, n, block, nbins, start);
+  return cudaGetLastError();
+}
+
 bool shape_ok(int n, int block, int nbins) {
   return n > 0 && block > 0 && nbins > 0 && n % nbins == 0 && n / nbins <= 127;
+}
+
+bool is_mma(int metric) { return metric == kDot || metric == kJaccard || metric == kChord; }
+bool is_coord(int metric) { return metric == kChord3 || metric == kL1; }
+int elem_bytes(int metric) { return metric == kJaccard ? 1 : (is_mma(metric) ? 2 : 4); }
+
+// The operand widths a metric takes: tensor-core panels in whole 64-byte
+// steps, coordinate panels with their 3 (chord3) or 2 (l1) coordinates.
+bool width_ok(int metric, int k) {
+  if (is_mma(metric)) return k > 0 && (k * elem_bytes(metric)) % kFeatureAlign == 0;
+  if (is_coord(metric)) return k >= (metric == kChord3 ? 3 : 2);
+  return false;
+}
+
+cudaError_t launch_coord_pair(const CoordOperand& a, int ma, const CoordOperand& b, int mb,
+                              int n, int block, int nbins, int start, cudaStream_t s) {
+  const bool a3 = ma == kChord3, b3 = mb == kChord3;
+  if (a3 && b3) return launch_coord<kChord3, kChord3>(a, b, n, block, nbins, start, s);
+  if (a3) return launch_coord<kChord3, kL1>(a, b, n, block, nbins, start, s);
+  if (b3) return launch_coord<kL1, kChord3>(a, b, n, block, nbins, start, s);
+  return launch_coord<kL1, kL1>(a, b, n, block, nbins, start, s);
+}
+
+cudaError_t launch_mma_metric(int metric, const void* cols, const void* rows, const MmaHalf& op,
+                              int n, int block, int nbins, int start, cudaStream_t s) {
+  if (metric == kJaccard) return launch_mma<kJaccard>(cols, rows, op, n, block, nbins, start, s);
+  if (metric == kChord) return launch_mma<kChord>(cols, rows, op, n, block, nbins, start, s);
+  return launch_mma<kDot>(cols, rows, op, n, block, nbins, start, s);
 }
 
 }  // namespace
@@ -798,43 +1093,29 @@ extern "C" {
 // K2.  cols (n, k) and rows (block, k): bf16 for dot / chord, int8 for
 // jaccard (k * bytes a multiple of 64, rows 16-byte aligned), f32 for chord3
 // (k >= 3) / l1 (k >= 2).  colv (n,) bytes 0/1; s_r (block,) and s_c (n,)
-// f32 statistics for jaccard / chord.  vals (block, nbins) f32, grp (block,
-// nbins) int8.  Returns cudaGetLastError() after the launch.
+// f32 statistics for jaccard / chord.  `start` is the global index of the
+// rows' first row, for the self-column test only (any value).  vals (block,
+// nbins) f32, grp (block, nbins) int8.  Returns cudaGetLastError() after the
+// launch.
 int mused_binned_candidates(const void* cols, const void* rows, const void* colv,
                             const void* s_r, const void* s_c, void* vals, void* grp,
                             int n, int block, int k, int nbins, int start, int metric,
                             void* stream) {
-  if (!shape_ok(n, block, nbins) || k <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (!shape_ok(n, block, nbins) || !width_ok(metric, k))
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const float* sr = static_cast<const float*>(s_r);
-  const float* sc = static_cast<const float*>(s_c);
   float* v = static_cast<float*>(vals);
   int8_t* gp = static_cast<int8_t*>(grp);
-  const CoordOperand a{static_cast<const float*>(cols), static_cast<const float*>(rows),
-                       static_cast<const uint8_t*>(colv), k, v, gp};
-  switch (metric) {
-    case kDot:
-      if ((k * 2) % kFeatureAlign) break;
-      return static_cast<int>(
-          launch_mma<kDot>(cols, rows, colv, sr, sc, v, gp, n, block, k * 2, nbins, start, s));
-    case kJaccard:
-      if (k % kFeatureAlign) break;
-      return static_cast<int>(
-          launch_mma<kJaccard>(cols, rows, colv, sr, sc, v, gp, n, block, k, nbins, start, s));
-    case kChord:
-      if ((k * 2) % kFeatureAlign) break;
-      return static_cast<int>(
-          launch_mma<kChord>(cols, rows, colv, sr, sc, v, gp, n, block, k * 2, nbins, start, s));
-    case kChord3:
-      if (k < 3) break;
-      return static_cast<int>(launch_coord<kChord3, -1>(a, a, n, block, nbins, start, s));
-    case kL1:
-      if (k < 2) break;
-      return static_cast<int>(launch_coord<kL1, -1>(a, a, n, block, nbins, start, s));
-    default:
-      break;
+  if (is_coord(metric)) {
+    const CoordOperand a{static_cast<const float*>(cols), static_cast<const float*>(rows),
+                         static_cast<const uint8_t*>(colv), k, v, gp};
+    return static_cast<int>(metric == kChord3
+                                ? launch_coord<kChord3, -1>(a, a, n, block, nbins, start, s)
+                                : launch_coord<kL1, -1>(a, a, n, block, nbins, start, s));
   }
-  return static_cast<int>(cudaErrorInvalidValue);
+  const MmaHalf op{static_cast<const uint8_t*>(colv), static_cast<const float*>(s_r),
+                   static_cast<const float*>(s_c), v, gp, k * elem_bytes(metric)};
+  return static_cast<int>(launch_mma_metric(metric, cols, rows, op, n, block, nbins, start, s));
 }
 
 // Group-range splits (CTAs per cluster) K2 takes for a tensor-core metric at
@@ -849,29 +1130,51 @@ int mused_binned_candidates_splits(int n, int block, int nbins, int metric) {
   }
 }
 
-// K3: two coordinate metrics (chord3 / l1) over the same rows in one launch.
+// The same for K3 on two tensor-core metrics.
+int mused_binned_candidates_pair_splits(int n, int block, int nbins) {
+  return shape_ok(n, block, nbins) ? mma_pair_splits(n, block, nbins) : 0;
+}
+
+// K3: two metrics over the same rows in one launch, any pair of the five.
+// Each half takes K2's operands (cols, rows, colv, s_r, s_c, k, metric) and
+// writes K2's outputs.  Two coordinate metrics share the coordinate kernel's
+// sweep, two tensor-core metrics run K2's tile program per half, and a mixed
+// pair runs the simple kernel.
 int mused_binned_candidates_pair(const void* cols_a, const void* rows_a, const void* colv_a,
-                                 int k_a, int metric_a, const void* cols_b,
-                                 const void* rows_b, const void* colv_b, int k_b,
-                                 int metric_b, void* vals_a, void* grp_a, void* vals_b,
-                                 void* grp_b, int n, int block, int nbins, int start,
-                                 void* stream) {
-  if (!shape_ok(n, block, nbins)) return static_cast<int>(cudaErrorInvalidValue);
-  const CoordOperand a{static_cast<const float*>(cols_a), static_cast<const float*>(rows_a),
-                       static_cast<const uint8_t*>(colv_a), k_a,
-                       static_cast<float*>(vals_a), static_cast<int8_t*>(grp_a)};
-  const CoordOperand b{static_cast<const float*>(cols_b), static_cast<const float*>(rows_b),
-                       static_cast<const uint8_t*>(colv_b), k_b,
-                       static_cast<float*>(vals_b), static_cast<int8_t*>(grp_b)};
-  const bool a3 = metric_a == kChord3, b3 = metric_b == kChord3;
-  if ((metric_a != kChord3 && metric_a != kL1) || (metric_b != kChord3 && metric_b != kL1) ||
-      k_a < (a3 ? 3 : 2) || k_b < (b3 ? 3 : 2))
+                                 const void* s_r_a, const void* s_c_a, int k_a, int metric_a,
+                                 const void* cols_b, const void* rows_b, const void* colv_b,
+                                 const void* s_r_b, const void* s_c_b, int k_b, int metric_b,
+                                 void* vals_a, void* grp_a, void* vals_b, void* grp_b, int n,
+                                 int block, int nbins, int start, void* stream) {
+  if (!shape_ok(n, block, nbins) || !width_ok(metric_a, k_a) || !width_ok(metric_b, k_b))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (a3 && b3) return static_cast<int>(launch_coord<kChord3, kChord3>(a, b, n, block, nbins, start, s));
-  if (a3) return static_cast<int>(launch_coord<kChord3, kL1>(a, b, n, block, nbins, start, s));
-  if (b3) return static_cast<int>(launch_coord<kL1, kChord3>(a, b, n, block, nbins, start, s));
-  return static_cast<int>(launch_coord<kL1, kL1>(a, b, n, block, nbins, start, s));
+  if (is_coord(metric_a) && is_coord(metric_b)) {
+    const CoordOperand a{static_cast<const float*>(cols_a), static_cast<const float*>(rows_a),
+                         static_cast<const uint8_t*>(colv_a), k_a,
+                         static_cast<float*>(vals_a), static_cast<int8_t*>(grp_a)};
+    const CoordOperand b{static_cast<const float*>(cols_b), static_cast<const float*>(rows_b),
+                         static_cast<const uint8_t*>(colv_b), k_b,
+                         static_cast<float*>(vals_b), static_cast<int8_t*>(grp_b)};
+    return static_cast<int>(launch_coord_pair(a, metric_a, b, metric_b, n, block, nbins, start, s));
+  }
+  if (is_mma(metric_a) && is_mma(metric_b)) {
+    const MmaHalf a{static_cast<const uint8_t*>(colv_a), static_cast<const float*>(s_r_a),
+                    static_cast<const float*>(s_c_a), static_cast<float*>(vals_a),
+                    static_cast<int8_t*>(grp_a), k_a * elem_bytes(metric_a)};
+    const MmaHalf b{static_cast<const uint8_t*>(colv_b), static_cast<const float*>(s_r_b),
+                    static_cast<const float*>(s_c_b), static_cast<float*>(vals_b),
+                    static_cast<int8_t*>(grp_b), k_b * elem_bytes(metric_b)};
+    return static_cast<int>(launch_mma_pair(cols_a, rows_a, a, metric_a, cols_b, rows_b, b,
+                                            metric_b, n, block, nbins, start, s));
+  }
+  const SimpleHalf a{cols_a, rows_a, static_cast<const uint8_t*>(colv_a),
+                     static_cast<const float*>(s_r_a), static_cast<const float*>(s_c_a),
+                     static_cast<float*>(vals_a), static_cast<int8_t*>(grp_a), k_a, metric_a};
+  const SimpleHalf b{cols_b, rows_b, static_cast<const uint8_t*>(colv_b),
+                     static_cast<const float*>(s_r_b), static_cast<const float*>(s_c_b),
+                     static_cast<float*>(vals_b), static_cast<int8_t*>(grp_b), k_b, metric_b};
+  return static_cast<int>(launch_simple(a, b, n, block, nbins, start, s));
 }
 
 }  // extern "C"

@@ -182,7 +182,7 @@ def _binned_ok(kind: str, t) -> bool:
     """Whether a kind has a binned route: the coordinate metrics always, the
     tensor-core metrics on panels whose width is a multiple of 128."""
     tt = t[0] if isinstance(t, tuple) else t
-    return kind in _METRIC and (_METRIC[kind] in bs.PAIR_METRICS or tt.shape[1] % 128 == 0)
+    return kind in _METRIC and (_METRIC[kind] in bs.COORD_METRICS or tt.shape[1] % 128 == 0)
 
 
 def _modality_candidates(t, tr, valid, vr, k, metric, *, start: int, block: int,

@@ -14,6 +14,12 @@ Shrinks:
   ``shrink_rr_cands`` the same with the rows in candidate form (the
                     huge-window fold; products through kernels K4 / K5)
 
+Every shrink and update takes an ``allreduce``: the identity on one device;
+a column-sharded fold (``parallel/colsharded``, the sketch's columns split
+over ranks) passes the sum over the shards, and each contraction over the
+sharded axis (the Gram, S y, y^T y, the norms) sums its partials, so the
+shrink runs on every rank alike.
+
 The randomized shrinks take an optional ``probe`` (m2, r) tensor.  Without
 it the probe is drawn from a ``torch.Generator`` seeded 7 on the tensor's
 device, the counterpart of the JAX package's fixed ``jax.random.key(7)``
@@ -33,6 +39,10 @@ import torch
 from mused_tpu_torch.ops.kernels import cand_matvec as cm
 
 PROBE_SEED = 7
+
+
+def _local(x: torch.Tensor) -> torch.Tensor:
+    return x
 
 
 class FDState(NamedTuple):
@@ -69,14 +79,14 @@ def default_probe(m2: int, r: int, device) -> torch.Tensor:
     return torch.randn((m2, r), generator=gen, device=device, dtype=torch.float32)
 
 
-def shrink(stacked: torch.Tensor, ell: int, *, eps: float = 1e-30):
+def shrink(stacked: torch.Tensor, ell: int, *, eps: float = 1e-30, allreduce=_local):
     """Exact FD shrink of an (m, d) stack to ``ell`` rows -> (B', delta).
 
     A stack with m <= ell rows passes through unchanged."""
     m = stacked.shape[0]
     if m <= ell:
         return stacked, torch.zeros((), dtype=stacked.dtype, device=stacked.device)
-    gram = stacked @ stacked.T
+    gram = allreduce(stacked @ stacked.T)
     lam, u = torch.linalg.eigh(gram)              # ascending
     lam = torch.clamp(lam.flip(0), min=0.0)       # descending, clamped
     u = u.flip(1)
@@ -99,13 +109,13 @@ def _check_power_iters(power_iters: int) -> None:
             "comes from the final iteration's orthonormal Q (Q Q^T <= I)")
 
 
-def _rr_finish(y: torch.Tensor, ell: int, sq_total: torch.Tensor):
+def _rr_finish(y: torch.Tensor, ell: int, sq_total: torch.Tensor, allreduce=_local):
     """Rayleigh-Ritz tail shared by the rr shrinks: y = S^T Q (d, r)."""
-    h = y.T @ y                                   # == Q^T G Q
+    h = allreduce(y.T @ y)                        # == Q^T G Q
     h = 0.5 * (h + h.T)
     _, p = torch.linalg.eigh(h)                   # ascending
     b = p.flip(1)[:, :ell].T @ y.T                # (ell, d)
-    delta = torch.clamp(sq_total - torch.sum(b * b), min=0.0)
+    delta = torch.clamp(sq_total - allreduce(torch.sum(b * b)), min=0.0)
     return b, delta
 
 
@@ -131,7 +141,7 @@ def shrink_rr(stacked: torch.Tensor, ell: int, *, oversample: int = 16,
 
 def shrink_rr_pair(sketch: torch.Tensor, rows: torch.Tensor, ell: int, *,
                    oversample: int = 16, power_iters: int = 1,
-                   probe: torch.Tensor | None = None):
+                   probe: torch.Tensor | None = None, allreduce=_local):
     """shrink_rr on the implicit stack [sketch; rows]; the operands are never
     concatenated and ``rows`` may arrive in a narrower dtype."""
     _check_power_iters(power_iters)
@@ -144,18 +154,19 @@ def shrink_rr_pair(sketch: torch.Tensor, rows: torch.Tensor, ell: int, *,
         return sketch.T @ v[:ellr] + rows_f.T @ v[ellr:]
 
     def s(y):       # S y: (m2, r)
-        return torch.cat([sketch @ y, rows_f @ y], dim=0)
+        return allreduce(torch.cat([sketch @ y, rows_f @ y], dim=0))
 
     v = default_probe(m2, r, sketch.device) if probe is None else probe
     for _ in range(power_iters):
         v = torch.linalg.qr(s(st(v)))[0]
-    sq = torch.sum(sketch * sketch) + torch.sum(rows_f * rows_f)
-    b, delta = _rr_finish(st(v), ell, sq)
+    sq = allreduce(torch.sum(sketch * sketch) + torch.sum(rows_f * rows_f))
+    b, delta = _rr_finish(st(v), ell, sq, allreduce)
     return b.to(sketch.dtype), delta.to(sketch.dtype)
 
 
 def shrink_rr_cands(sketch: torch.Tensor, cand, ell: int, *, oversample: int = 16,
-                    power_iters: int = 1, probe: torch.Tensor | None = None):
+                    power_iters: int = 1, probe: torch.Tensor | None = None,
+                    allreduce=_local):
     """shrink_rr_pair where the rows are a candidate-form block
     (``ops/kernels/cand_matvec.CandBlock``): every product with the rows
     runs off the int8 slabs (K4 / K5), the dense (block, n) block never
@@ -169,13 +180,15 @@ def shrink_rr_cands(sketch: torch.Tensor, cand, ell: int, *, oversample: int = 1
     are fp32.  K4 and K5 take the live r (2r for [hi | lo]); the JAX
     package pads them to its 128 lanes, which changes no value.  A block
     with no kept candidate and no valid uid row is an exact FD no-op and
-    skips everything (one host sync per block)."""
+    skips everything (one host sync per block; a column shard's slabs may be
+    empty while the block has edges on another shard, so the test is summed
+    too, and every rank takes the same branch)."""
     _check_power_iters(power_iters)
     nonzero = torch.any(cand.slabs != -1)
     if cand.uid_rows is not None:
         nonzero = nonzero | torch.any(cand.uid_rows >= 0)
     zero = torch.zeros((), dtype=torch.float32, device=sketch.device)
-    if not bool(nonzero):
+    if not bool(allreduce(nonzero.to(torch.int32)) > 0):
         return sketch, zero, zero
     ellr = sketch.shape[0]
     m2 = ellr + cand.block
@@ -186,19 +199,20 @@ def shrink_rr_cands(sketch: torch.Tensor, cand, ell: int, *, oversample: int = 1
         return out_t.T
 
     def a_rows(y):                   # probe-precision rows @ y: (d, r) -> (m, r)
-        return cm.matvec(cand, y.to(torch.bfloat16).contiguous())
+        return allreduce(cm.matvec(cand, y.to(torch.bfloat16).contiguous()))
 
     v = default_probe(m2, r, sketch.device) if probe is None else probe
     for _ in range(power_iters):
         y0 = sketch.T @ v[:ellr] + at_rows(v[ellr:])
-        v = torch.linalg.qr(torch.cat([sketch @ y0, a_rows(y0)], dim=0))[0]
+        v = torch.linalg.qr(torch.cat([allreduce(sketch @ y0), a_rows(y0)], dim=0))[0]
     v_r = v[ellr:]
     v_hi = v_r.to(torch.bfloat16)
     v_lo = (v_r - v_hi.float()).to(torch.bfloat16)
     x_t = torch.cat([v_hi.T, v_lo.T], dim=0).contiguous()               # (2r, m)
     out_t, edges = cm.matvec_t(cand, x_t)
+    edges = allreduce(edges)
     y = sketch.T @ v[:ellr] + (out_t[:r] + out_t[r:]).T                 # (d, r)
-    b, delta = _rr_finish(y, ell, torch.sum(sketch * sketch) + edges)
+    b, delta = _rr_finish(y, ell, allreduce(torch.sum(sketch * sketch)) + edges, allreduce)
     return b.to(sketch.dtype), delta.float(), edges.float()
 
 
@@ -215,7 +229,8 @@ def resolve_fold_mode(mode: str) -> str:
 
 
 def update_block(state: FDState, rows: torch.Tensor, valid: torch.Tensor | None = None,
-                 mode: str = "eigh", probe: torch.Tensor | None = None) -> FDState:
+                 mode: str = "eigh", probe: torch.Tensor | None = None,
+                 allreduce=_local) -> FDState:
     """Absorb a block of rows (c, d); ``valid`` (c,) bool zeroes padding rows.
 
     An all-zero block is an exact no-op and skips the shrink (one host
@@ -234,16 +249,18 @@ def update_block(state: FDState, rows: torch.Tensor, valid: torch.Tensor | None 
         n_new = torch.sum(valid.to(torch.int32))
     else:
         n_new = torch.tensor(rows.shape[0], dtype=torch.int32, device=rows.device)
-    if bool(torch.any(rows != 0)):
+    if bool(allreduce(torch.any(rows != 0).to(torch.int32)) > 0):
         if mode == "rr":
-            sketch, delta = shrink_rr_pair(state.sketch, rows, state.ell, probe=probe)
+            sketch, delta = shrink_rr_pair(state.sketch, rows, state.ell, probe=probe,
+                                           allreduce=allreduce)
         else:
-            sketch, delta = shrink(torch.cat([state.sketch, rows], dim=0), state.ell)
+            sketch, delta = shrink(torch.cat([state.sketch, rows], dim=0), state.ell,
+                                   allreduce=allreduce)
     else:
         sketch, delta = state.sketch, torch.zeros_like(state.shrink_loss)
     return FDState(
         sketch=sketch,
-        sq_frobenius=state.sq_frobenius + torch.sum(rows.float() ** 2).to(
+        sq_frobenius=state.sq_frobenius + allreduce(torch.sum(rows.float() ** 2)).to(
             state.sq_frobenius.dtype),
         shrink_loss=state.shrink_loss + delta,
         count=state.count + n_new,
@@ -251,7 +268,8 @@ def update_block(state: FDState, rows: torch.Tensor, valid: torch.Tensor | None 
 
 
 def update_stream(state: FDState, rows: torch.Tensor, *, block_rows: int | None = None,
-                  mode: str = "eigh", probe: torch.Tensor | None = None) -> FDState:
+                  mode: str = "eigh", probe: torch.Tensor | None = None,
+                  allreduce=_local) -> FDState:
     """Absorb (m, d) rows in blocks of ``block_rows`` (zero-padded tail).
 
     Default block: ell for eigh (its cost grows with the stack); for rr the
@@ -267,7 +285,7 @@ def update_stream(state: FDState, rows: torch.Tensor, *, block_rows: int | None 
     idx = torch.arange(n_blocks * block, device=rows.device).reshape(n_blocks, block)
     for i in range(n_blocks):
         state = update_block(state, rows[i * block:(i + 1) * block], idx[i] < m,
-                             mode=mode, probe=probe)
+                             mode=mode, probe=probe, allreduce=allreduce)
     return state
 
 

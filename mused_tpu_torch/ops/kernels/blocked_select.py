@@ -20,6 +20,19 @@ Metrics and the operand types the kernels take:
   chord3   f32 unit-xyz panels, (n, >= 3) (location)
   l1       f32 time panels, (n, >= 2)
 
+The row side is given whole: ``rows`` (block, K) and, for jaccard / chord,
+``row_stats`` (block,) need not be slices of the column panel.  ``start`` is
+the rows' global index and is read only by the self-column test, so it may
+be negative or past n: a column-sharded sweep (``parallel/colsharded``)
+hands a shard the row block of another shard with the shard-local offset.
+Without ``row_stats`` the rows must be the slice [start, start+block) of
+the panel, and their statistics are sliced from ``row_sums``.
+
+K3 (:func:`binned_candidates_pair`) takes any two metrics: two coordinate
+metrics share the coordinate kernel's sweep, two tensor-core metrics run
+K2's tile program per half in one launch, and a mixed pair runs a simple
+kernel (:func:`pair_route`).
+
 ``binned_candidates`` / ``binned_candidates_pair`` launch the kernels for
 CUDA tensors and raise on anything they do not take; for tensors on the CPU
 they run :func:`binned_candidates_plain`, the same function in plain
@@ -34,14 +47,14 @@ from mused_tpu_torch.ops.kernels import build
 NEG = -1e30
 METRICS = ("dot", "jaccard", "chord", "chord3", "l1")
 MMA_METRICS = ("dot", "jaccard", "chord")       # tensor-core tiles
-PAIR_METRICS = ("chord3", "l1")                 # coordinate metrics K3 pairs
+COORD_METRICS = ("chord3", "l1")                # coordinate kernel
 STAT_METRICS = ("jaccard", "chord")             # take hoisted row statistics
 _DTYPE = {"dot": torch.bfloat16, "chord": torch.bfloat16, "jaccard": torch.int8,
           "chord3": torch.float32, "l1": torch.float32}
 _MIN_K = {"chord3": 3, "l1": 2}
 
 launches = 0        # K2 launches so far (plain-version calls not counted)
-pair_launches = 0   # K3 launches so far
+pair_launches = 0   # K3 launches so far, every route
 
 
 def reset_launches() -> None:
@@ -49,18 +62,45 @@ def reset_launches() -> None:
     launches = pair_launches = 0
 
 
+def pair_route(metricA: str, metricB: str) -> str:
+    """K3's kernel for a pair: "coordinate" (chord3 / l1 both), "mma" (two
+    tensor-core metrics) or "simple" (one of each)."""
+    for m in (metricA, metricB):
+        if m not in METRICS:
+            raise ValueError(f"unknown metric {m!r}: expected one of {METRICS}")
+    if metricA in COORD_METRICS and metricB in COORD_METRICS:
+        return "coordinate"
+    if metricA in MMA_METRICS and metricB in MMA_METRICS:
+        return "mma"
+    return "simple"
+
+
 # ---------------------------------------------------------------------------
 # plain versions
 # ---------------------------------------------------------------------------
 
-def _row_stats(metric, row_sums, start: int, block: int):
+def _row_side_stats(metric, row_sums, row_stats, start: int, block: int):
+    """(block,) row statistics: ``row_stats`` when given, else the slice of
+    ``row_sums``, which exists only when the rows are the panel's slice
+    [start, start+block) (a Python slice past either end would quietly
+    return other rows or fewer)."""
+    if row_stats is not None:
+        return row_stats
+    if start < 0 or start + block > row_sums.shape[0]:
+        raise ValueError(
+            f"rows [{start}, {start + block}) are not a slice of the {row_sums.shape[0]}-row "
+            f"panel: {metric} needs their statistics as row_stats")
+    return row_sums[start:start + block]
+
+
+def _row_stats(metric, row_sums, start: int, block: int, row_stats=None):
     """(s_r (block, 1), s_c (1, n)) f32 hoisted statistics, or (None, None)."""
     if metric not in STAT_METRICS:
         return None, None
     if row_sums is None:
         raise ValueError(f"metric {metric!r} needs row_sums (hoisted column statistics)")
-    return (row_sums[start:start + block].float().reshape(block, 1),
-            row_sums.float().reshape(1, -1))
+    s_r = _row_side_stats(metric, row_sums, row_stats, start, block)
+    return s_r.float().reshape(block, 1), row_sums.float().reshape(1, -1)
 
 
 def sim_strip(cols: torch.Tensor, rows: torch.Tensor, metric: str, s_r=None,
@@ -102,9 +142,9 @@ def binned_candidates_reference(sim: torch.Tensor, col_valid: torch.Tensor, star
 
 
 def binned_candidates_plain(cols, rows, col_valid, start: int, *, metric: str,
-                            nbins: int, block: int, row_sums=None):
+                            nbins: int, block: int, row_sums=None, row_stats=None):
     """Plain PyTorch version of K2: similarity strip + reference binning."""
-    s_r, s_c = _row_stats(metric, row_sums, start, block)
+    s_r, s_c = _row_stats(metric, row_sums, start, block, row_stats)
     return binned_candidates_reference(sim_strip(cols, rows, metric, s_r, s_c),
                                        col_valid, start, nbins)
 
@@ -113,7 +153,7 @@ def binned_candidates_plain(cols, rows, col_valid, start: int, *, metric: str,
 # kernel wrappers
 # ---------------------------------------------------------------------------
 
-def _check(cols, rows, col_valid, metric, nbins, block, row_sums) -> None:
+def _check(cols, rows, col_valid, metric, nbins, block, row_sums, row_stats=None) -> None:
     if metric not in METRICS:
         raise ValueError(f"unknown metric {metric!r}: expected one of {METRICS}")
     want = _DTYPE[metric]
@@ -137,6 +177,11 @@ def _check(cols, rows, col_valid, metric, nbins, block, row_sums) -> None:
         if row_sums is None or row_sums.shape != (n,) or row_sums.dtype != torch.float32:
             raise TypeError(f"{metric} needs ({n},) float32 row_sums")
         tensors.append(row_sums)
+        if row_stats is not None:
+            if row_stats.shape != (block,) or row_stats.dtype != torch.float32:
+                raise TypeError(f"row_stats must be a ({block},) float32 tensor, got "
+                                f"{row_stats.dtype} {tuple(row_stats.shape)}")
+            tensors.append(row_stats)
     if any(t.device != cols.device for t in tensors):
         raise ValueError("cols, rows, col_valid and row statistics must share a device")
 
@@ -152,35 +197,43 @@ def _check_cuda(tensors, metric: str) -> None:
                              f"features: pad_features_128), got {kbytes} bytes")
 
 
-def _stats_for_kernel(metric, row_sums, start, block, device):
+def _stats_for_kernel(metric, row_sums, row_stats, start, block):
+    """(s_r, s_c) contiguous for jaccard / chord; (None, None) for the other
+    metrics, whose kernels read neither (null pointers: no tensor, no fill)."""
     if metric not in STAT_METRICS:
-        dummy = torch.zeros(1, dtype=torch.float32, device=device)
-        return dummy, dummy
-    return row_sums[start:start + block].contiguous(), row_sums.contiguous()
+        return None, None
+    s_r = _row_side_stats(metric, row_sums, row_stats, start, block)
+    return s_r.contiguous(), row_sums.contiguous()
+
+
+def _ptr(t: torch.Tensor | None):
+    return None if t is None else t.data_ptr()
 
 
 def binned_candidates(cols: torch.Tensor, rows: torch.Tensor, col_valid: torch.Tensor,
                       start: int, *, metric: str, nbins: int, block: int,
-                      row_sums: torch.Tensor | None = None):
-    """Stride-binned kNN candidates for rows [start, start+block) (K2).
+                      row_sums: torch.Tensor | None = None,
+                      row_stats: torch.Tensor | None = None):
+    """Stride-binned kNN candidates of ``rows`` against the column panel (K2).
 
-    cols: (n, K) column panel; rows: (block, K) the row slice; col_valid:
-    (n,) bool; ``rows`` is the slice [start, start+block) of ``cols``.
-    ``row_sums`` are the (n,) hoisted statistics of jaccard / chord (token
-    sums, squared norms); the row side is their slice.  (The JAX package's
-    ``row_stats``, for column-sharded callers, comes with the multi-device
-    layouts.)  Returns (vals (block, nbins) f32, grp (block,
-    nbins) int8); global column = grp * nbins + slot.  CUDA tensors run the
-    kernel, CPU tensors the plain version."""
+    cols: (n, K) column panel; rows: (block, K); col_valid: (n,) bool;
+    ``start``: the rows' global index, for the self-column test only (any
+    int).  ``row_sums`` are the (n,) hoisted column statistics of jaccard /
+    chord (token sums, squared norms); ``row_stats`` the rows' own (block,),
+    else sliced from ``row_sums`` (then the rows must be the panel's slice
+    [start, start+block)).  Returns (vals (block, nbins) f32, grp (block,
+    nbins) int8); column = grp * nbins + slot.  CUDA tensors run the kernel,
+    CPU tensors the plain version."""
     start = int(start)
-    _check(cols, rows, col_valid, metric, nbins, block, row_sums)
+    _check(cols, rows, col_valid, metric, nbins, block, row_sums, row_stats)
     if cols.device.type == "cpu":
         return binned_candidates_plain(cols, rows, col_valid, start, metric=metric,
-                                       nbins=nbins, block=block, row_sums=row_sums)
+                                       nbins=nbins, block=block, row_sums=row_sums,
+                                       row_stats=row_stats)
     if cols.device.type != "cuda":
         raise ValueError(f"binned_candidates runs on cuda or cpu tensors, not {cols.device}")
-    s_r, s_c = _stats_for_kernel(metric, row_sums, start, block, cols.device)
-    _check_cuda([cols, rows, col_valid, s_r, s_c], metric)
+    s_r, s_c = _stats_for_kernel(metric, row_sums, row_stats, start, block)
+    _check_cuda([t for t in (cols, rows, col_valid, s_r, s_c) if t is not None], metric)
     n, k = cols.shape
     vals = torch.empty((block, nbins), dtype=torch.float32, device=cols.device)
     grp = torch.empty((block, nbins), dtype=torch.int8, device=cols.device)
@@ -188,8 +241,8 @@ def binned_candidates(cols: torch.Tensor, rows: torch.Tensor, col_valid: torch.T
     with torch.cuda.device(cols.device):
         stream = torch.cuda.current_stream(cols.device).cuda_stream
         code = lib.mused_binned_candidates(
-            cols.data_ptr(), rows.data_ptr(), col_valid.data_ptr(), s_r.data_ptr(),
-            s_c.data_ptr(), vals.data_ptr(), grp.data_ptr(), n, block, k, nbins, start,
+            cols.data_ptr(), rows.data_ptr(), col_valid.data_ptr(), _ptr(s_r),
+            _ptr(s_c), vals.data_ptr(), grp.data_ptr(), n, block, k, nbins, start,
             METRICS.index(metric), stream)
     build.check(code, f"binned_candidates[{metric}] n={n} block={block} K={k} "
                       f"nbins={nbins}")
@@ -212,40 +265,48 @@ def kernel_splits(n: int, block: int, nbins: int, metric: str) -> int:
 
 
 def binned_candidates_pair(colsA, colsB, rowsA, rowsB, colvA, colvB, start: int, *,
-                           metricA: str, metricB: str, nbins: int, block: int):
-    """Candidates of TWO coordinate metrics over the same rows in one launch
-    (K3; the production pair is location chord3 + time l1).  Returns
-    (valsA, grpA, valsB, grpB), each pair identical to a
-    :func:`binned_candidates` call on its own operands."""
+                           metricA: str, metricB: str, nbins: int, block: int,
+                           row_sumsA=None, row_statsA=None, row_sumsB=None,
+                           row_statsB=None):
+    """Candidates of TWO metrics over the same rows in one launch (K3): each
+    half takes :func:`binned_candidates`' operands (``row_sums{A,B}``,
+    ``row_stats{A,B}``) and its output is identical to that call's.  The
+    single-device sweep pairs location chord3 + time l1; the column-sharded
+    sweep pairs consecutive modalities (tags jaccard + text dot on standard
+    streams).  Returns (valsA, grpA, valsB, grpB)."""
     start = int(start)
-    for m in (metricA, metricB):
-        if m not in PAIR_METRICS:
-            raise ValueError(f"the pair kernel takes metrics {PAIR_METRICS}, got {m!r}")
-    _check(colsA, rowsA, colvA, metricA, nbins, block, None)
-    _check(colsB, rowsB, colvB, metricB, nbins, block, None)
+    pair_route(metricA, metricB)          # raises on an unknown metric
+    _check(colsA, rowsA, colvA, metricA, nbins, block, row_sumsA, row_statsA)
+    _check(colsB, rowsB, colvB, metricB, nbins, block, row_sumsB, row_statsB)
     if colsA.shape[0] != colsB.shape[0] or colsA.device != colsB.device:
         raise ValueError("the pair's panels need the same rows and device, got "
                          f"{tuple(colsA.shape)} on {colsA.device} and "
                          f"{tuple(colsB.shape)} on {colsB.device}")
     if colsA.device.type == "cpu":
         return (*binned_candidates_plain(colsA, rowsA, colvA, start, metric=metricA,
-                                         nbins=nbins, block=block),
+                                         nbins=nbins, block=block, row_sums=row_sumsA,
+                                         row_stats=row_statsA),
                 *binned_candidates_plain(colsB, rowsB, colvB, start, metric=metricB,
-                                         nbins=nbins, block=block))
+                                         nbins=nbins, block=block, row_sums=row_sumsB,
+                                         row_stats=row_statsB))
     if colsA.device.type != "cuda":
         raise ValueError(f"binned_candidates_pair runs on cuda or cpu tensors, "
                          f"not {colsA.device}")
-    _check_cuda([colsA, rowsA, colvA, colsB, rowsB, colvB], metricA)
-    n = colsA.shape[0]
     dev = colsA.device
+    srA, scA = _stats_for_kernel(metricA, row_sumsA, row_statsA, start, block)
+    srB, scB = _stats_for_kernel(metricB, row_sumsB, row_statsB, start, block)
+    _check_cuda([t for t in (colsA, rowsA, colvA, srA, scA) if t is not None], metricA)
+    _check_cuda([t for t in (colsB, rowsB, colvB, srB, scB) if t is not None], metricB)
+    n = colsA.shape[0]
     outs = [torch.empty((block, nbins), dtype=dt, device=dev)
             for dt in (torch.float32, torch.int8, torch.float32, torch.int8)]
     lib = build.load()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         code = lib.mused_binned_candidates_pair(
-            colsA.data_ptr(), rowsA.data_ptr(), colvA.data_ptr(), colsA.shape[1],
-            METRICS.index(metricA), colsB.data_ptr(), rowsB.data_ptr(), colvB.data_ptr(),
+            colsA.data_ptr(), rowsA.data_ptr(), colvA.data_ptr(), _ptr(srA), _ptr(scA),
+            colsA.shape[1], METRICS.index(metricA), colsB.data_ptr(), rowsB.data_ptr(),
+            colvB.data_ptr(), _ptr(srB), _ptr(scB),
             colsB.shape[1], METRICS.index(metricB), *(o.data_ptr() for o in outs),
             n, block, nbins, start, stream)
     build.check(code, f"binned_candidates_pair[{metricA},{metricB}] n={n} "
@@ -253,6 +314,15 @@ def binned_candidates_pair(colsA, colsB, rowsA, rowsB, colvA, colvB, start: int,
     global pair_launches
     pair_launches += 1
     return tuple(outs)
+
+
+def pair_splits(n: int, block: int, nbins: int) -> int:
+    """Group-range splits the tensor-core K3 takes at this shape on the
+    current CUDA device."""
+    splits = build.load().mused_binned_candidates_pair_splits(n, block, nbins)
+    if splits <= 0:
+        raise ValueError(f"no K3 launch at n={n} block={block} nbins={nbins}")
+    return splits
 
 
 # ---------------------------------------------------------------------------

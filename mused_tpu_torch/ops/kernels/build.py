@@ -111,9 +111,10 @@ def _configure(lib) -> None:
     lib.mused_binned_candidates.restype = i
     lib.mused_binned_candidates_splits.argtypes = [i] * 4
     lib.mused_binned_candidates_splits.restype = i
-    lib.mused_binned_candidates_pair.argtypes = ([p, p, p, i, i] * 2 + [p] * 4
-                                                 + [i] * 4 + [p])
+    lib.mused_binned_candidates_pair.argtypes = ([p] * 5 + [i, i]) * 2 + [p] * 4 + [i] * 4 + [p]
     lib.mused_binned_candidates_pair.restype = i
+    lib.mused_binned_candidates_pair_splits.argtypes = [i] * 3
+    lib.mused_binned_candidates_pair_splits.restype = i
     lib.mused_cand_matvec_splits.argtypes = [i] * 4
     lib.mused_cand_matvec_splits.restype = i
     lib.mused_cand_matvec_t.argtypes = [p, p, p] + [i] * 6 + [p, i, p, p, p]

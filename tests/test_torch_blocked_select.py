@@ -114,6 +114,84 @@ def test_k3_matches_the_jax_pair_kernel():
         np.testing.assert_array_equal(tonp(g), tonp(single))
 
 
+# shard-local starts: before the panel, overlapping its first columns, and
+# overlapping / past its last ones (a column shard's view of another
+# shard's row block)
+SHARD_STARTS = [-BLOCK, -1, N - BLOCK + 1, N + 5]
+
+
+@pytest.mark.parametrize("start", SHARD_STARTS)
+@pytest.mark.parametrize("metric", ["jaccard", "chord", "chord3"])
+def test_k2_row_stats_and_shard_local_start_match_the_jax_kernel(metric, start):
+    """Rows that are not a slice of the panel, with their own statistics
+    (``row_stats``) and a ``start`` outside [0, n - block]: the JAX kernel's
+    colsharded contract (``_stat_operands``)."""
+    rng = np.random.default_rng(6)
+    x, jdt, tdt, sums = _panel(metric, rng)
+    rows, *_, row_sums = _panel(metric, np.random.default_rng(7))
+    rows = rows[:BLOCK]
+    stats = None if row_sums is None else row_sums[:BLOCK]
+    valid = _valid(rng)
+    nbins = N // 4
+    jx = jnp.asarray(x).astype(jdt)
+    got = tbs.binned_candidates(t(x).to(tdt), t(rows).to(tdt), t(valid), start, metric=metric,
+                                nbins=nbins, block=BLOCK,
+                                row_sums=None if sums is None else t(sums),
+                                row_stats=None if stats is None else t(stats))
+    if metric == "chord3":      # the JAX reference emulation (see the module docstring)
+        jr = jnp.asarray(rows)
+        strip = -((jr[:, 0][:, None] - jx[:, 0][None, :]) ** 2
+                  + (jr[:, 1][:, None] - jx[:, 1][None, :]) ** 2
+                  + (jr[:, 2][:, None] - jx[:, 2][None, :]) ** 2)
+        want = jbs.binned_candidates_reference(strip, jnp.asarray(valid), start, nbins)
+    else:
+        want = jbs.binned_candidates_pallas(
+            jx, jnp.asarray(rows).astype(jdt), jnp.asarray(valid), jnp.int32(start),
+            metric=metric, nbins=nbins, block=BLOCK, row_sums=jnp.asarray(sums),
+            row_stats=jnp.asarray(stats), tn=128, interpret=True)
+    np.testing.assert_array_equal(tonp(got[0]), np.asarray(want[0]))
+    np.testing.assert_array_equal(tonp(got[1]), np.asarray(want[1]))
+
+
+@pytest.mark.parametrize("start", [START, -BLOCK, N - BLOCK + 1])
+@pytest.mark.parametrize("pair", [("jaccard", "dot"), ("dot", "dot"), ("chord", "dot"),
+                                  ("dot", "l1")], ids="+".join)
+def test_k3_every_pair_matches_the_jax_pair_kernel(pair, start):
+    """K3 on the tensor-core pairs (tags jaccard + text dot is the
+    column-sharded sweep's) and a mixed pair, with each half's row_stats and
+    a shard-local start, against the JAX pair kernel in interpret mode."""
+    ma, mb = pair
+    rng = np.random.default_rng(8)
+    (xa, jda, tda, sa), (xb, jdb, tdb, sb) = _panel(ma, rng), _panel(mb, rng)
+    rows_rng = np.random.default_rng(9)
+    (ra, *_, rsa), (rb, *_, rsb) = _panel(ma, rows_rng), _panel(mb, rows_rng)
+    ra, rb = ra[:BLOCK], rb[:BLOCK]
+    sta = None if rsa is None else rsa[:BLOCK]
+    stb = None if rsb is None else rsb[:BLOCK]
+    va, vb = _valid(rng), _valid(rng)
+    nbins = N // 4
+
+    def opt(a):
+        return None if a is None else jnp.asarray(a)
+
+    def topt(a):
+        return None if a is None else t(a)
+
+    want = jbs.binned_candidates_pair_pallas(
+        jnp.asarray(xa).astype(jda), jnp.asarray(xb).astype(jdb),
+        jnp.asarray(ra).astype(jda), jnp.asarray(rb).astype(jdb), jnp.asarray(va),
+        jnp.asarray(vb), jnp.int32(start), metricA=ma, metricB=mb, nbins=nbins,
+        block=BLOCK, row_sumsA=opt(sa), row_statsA=opt(sta), row_sumsB=opt(sb),
+        row_statsB=opt(stb), tn=128, interpret=True)
+    got = tbs.binned_candidates_pair(
+        t(xa).to(tda), t(xb).to(tdb), t(ra).to(tda), t(rb).to(tdb), t(va), t(vb), start,
+        metricA=ma, metricB=mb, nbins=nbins, block=BLOCK, row_sumsA=topt(sa),
+        row_statsA=topt(sta), row_sumsB=topt(sb), row_statsB=topt(stb))
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(tonp(g), np.asarray(w))
+    assert tbs.pair_route(ma, mb) == ("simple" if "l1" in pair else "mma")
+
+
 def test_ties_go_to_the_lowest_group():
     """Every group holds the same column values: each bin keeps group 0,
     except where group 0's column is the row itself (masked), then group 1."""
@@ -224,6 +302,17 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
     with pytest.raises(TypeError):      # stat metrics need row sums
         tbs.binned_candidates(x, x[:64], v, 0, metric="chord", nbins=64, block=64)
     f = torch.zeros((256, 3))
-    with pytest.raises(ValueError):     # K3 pairs coordinate metrics only
+    with pytest.raises(TypeError):      # K3 takes every pair, each half in its own type
         tbs.binned_candidates_pair(f, f, f[:64], f[:64], v, v, 0, metricA="chord3",
                                    metricB="dot", nbins=64, block=64)
+    with pytest.raises(ValueError):     # the pair's panels share their rows
+        tbs.binned_candidates_pair(f, f[:128], f[:64], f[:64], v, v[:128], 0,
+                                   metricA="chord3", metricB="l1", nbins=64, block=64)
+    with pytest.raises(ValueError):     # rows outside the panel need their row_stats
+        tbs.binned_candidates(x.to(torch.int8), x[:64].to(torch.int8), v, -64,
+                              metric="jaccard", nbins=64, block=64,
+                              row_sums=torch.zeros(256))
+    with pytest.raises(TypeError):      # row_stats are the rows' own (block,)
+        tbs.binned_candidates(x.to(torch.int8), x[:64].to(torch.int8), v, 0,
+                              metric="jaccard", nbins=64, block=64,
+                              row_sums=torch.zeros(256), row_stats=torch.zeros(256))

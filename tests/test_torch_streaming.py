@@ -277,17 +277,22 @@ def test_engine_refuses_what_the_slice_does_not_run():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             ts.StreamingEngine(cfg, "cuda")
-    for bad in [dict(force_blocked_window=True, huge_window_layout="columns"),
-                dict(data_shards=2), dict(matching="centroid"), dict(windows_per_batch=4)]:
+    for bad in [dict(data_shards=2), dict(matching="centroid"), dict(windows_per_batch=4)]:
         with pytest.raises(NotImplementedError):
             ts.StreamingEngine(cfg.replace(**bad), "cpu")
+    # the column-sharded layouts run since slice 4a; on one device they are
+    # the JAX engine's ValueError (tests/test_torch_colsharded_engine.py)
+    with pytest.raises(ValueError, match="data_shards > 1"):
+        ts.StreamingEngine(cfg.replace(force_blocked_window=True,
+                                       huge_window_layout="columns"), "cpu")
     # the reference's own refusal (mused_tpu/engine/streaming.py:563-568)
     with pytest.raises(ValueError, match="DBSCAN_incr"):
         ts.StreamingEngine(cfg.replace(force_blocked_window=True, approach="DBSCAN_incr"),
                            "cpu")
-    for kw in [dict(merge_topology="ring"), dict(huge_window_layout="grid"),
-               dict(huge_window_col_shards=2)]:
-        with pytest.raises(NotImplementedError, match="slice 4"):
+    for kw, exc in [(dict(merge_topology="ring"), NotImplementedError),
+                    (dict(data_shards=2), NotImplementedError),
+                    (dict(huge_window_layout="grid"), ValueError)]:
+        with pytest.raises(exc, match="slice 4b|data_shards > 1"):
             tapi.process_streaming_data(None, [np.zeros((64, 2))] * 5, ts.STANDARD_TYPES,
                                         device="cpu", **KW, approach="sSVDMC",
                                         complete_true_labels=np.zeros(64), **kw)
@@ -483,6 +488,7 @@ def test_neither_jax_nor_pandas_is_imported():
             "import mused_tpu_torch.engine.batch; import mused_tpu_torch.ops.blocked_spectral; "
             "import mused_tpu_torch.ops.blocked_dbscan; "
             "import mused_tpu_torch.ops.blocked_hdbscan; "
+            "import mused_tpu_torch.parallel.mesh; import mused_tpu_torch.parallel.colsharded; "
             "from mused_tpu_torch.native import IncDBHandle, incdb_available; "
             "print([m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'pandas', 'mused_tpu')])"
