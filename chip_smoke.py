@@ -103,7 +103,35 @@ Phases (any failure exits non-zero; no phase is skipped):
          bit-equal to the single-device binned route on 3 blocks; the FD
          fold with exactly 96 K3, 0 K2, 96 K4 and 48 K5 and the
          single-device fold's sq_frobenius; the blocked SVD (576 K3) and
-         spectral embedding (768 K3); seconds beside (f)'s and (i3)'s.
+         spectral embedding (768 K3); seconds beside (f)'s and (i3)'s;
+  (k) slices 2f + 2g, the driver surface and the remaining options:
+      k1 ``main.cli`` in this process at the reference defaults (the
+         synthetic dataset, the sorting sweep, SWFDMC and sSVDMC: 4 points
+         of 75 windows): seconds, windows/s, NMI and F1 per point, exactly 4
+         K1 launches and 2 native hasher calls per window, the sweep's log
+         file with one line per approach; then the 12-point demo sweep;
+      k2 the SED2012 loader on a written 2,600-photo fixture (tied upload
+         minutes, missing geotags, entities, CDATA, ``0000-00-00`` dates):
+         the native scanner's table equal to the Python path's, prepared
+         like the reference and run as one SWFDMC window (4 K1);
+      k3 ``SeqBasedSWFD(N=10,000, d=300, sketch_dim=50)`` on the reference's
+         sketch benchmark spec (m 10, zeta 10; n cut to 100,000 rows) in
+         1,000-row fits and 2,000 single-row fits: rows/s, and at every
+         10,000-row boundary ``get()``'s err bounding the live window's
+         exact covariance error (float64 on the card);
+      k4 SWFDMC on (c)'s stream with the window fold on the Newton-Schulz
+         shrink (``fd_shrink="subspace_ns"``): windows/s, NMI, F1 beside
+         (c)'s rr run, the shrinks that kept the fast branch and the eigh
+         fallbacks (3 per window);
+      k5 BASELINE.md config #2 (20,000 crisis rows) through sSVDMC with
+         ``matching="centroid"`` against ``"auto"`` (2 K1 dot per window),
+         and the detector with centroid matching saved and loaded halfway,
+         equal to its uninterrupted run window for window;
+      k6 the reference API on one 2000-row window: every
+         ``create_adjacency_matrix`` graph bit-equal to the engine's graph
+         of that modality with exactly 4 K1 launches, then
+         ``fuse_matrices``, ``perform_svd_reduction`` and
+         ``perform_clustering``.
 
 Every phase prints its seconds.  ``--phases`` runs a subset (for
 development; the result lines are printed only when all phases ran).
@@ -128,11 +156,14 @@ import numpy as np
 import torch
 
 from mused_tpu_torch import api, native
+from mused_tpu_torch import main as port_main
+from mused_tpu_torch.data import sed2012
+from mused_tpu_torch.data import synthetic as port_synthetic
 from mused_tpu_torch.data.ingest import to_device
 from mused_tpu_torch.data.synthetic import crisis_embedding_stream, make_stream
 from mused_tpu_torch.engine import batch, streaming
 from mused_tpu_torch.ops import affinity, blocked_dbscan, blocked_hdbscan, dbscan, fd
-from mused_tpu_torch.ops import kmeans, spectral
+from mused_tpu_torch.ops import kmeans, spectral, swfd
 from mused_tpu_torch.ops import blocked_affinity as ba
 from mused_tpu_torch.ops.kernels import affinity_kernel as ak
 from mused_tpu_torch.ops.kernels import blocked_select as bs
@@ -1466,9 +1497,346 @@ def phase_j3(hmods, cols: ba.Columns, device, single_seconds: dict) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# slices 2f + 2g: the driver surface, row-granular SWFD, the NS fold and
+# centroid matching, phase (k)
+# ---------------------------------------------------------------------------
+
+SWEEP_ARGS = ["--dataset", "synthetic", "--experiments", "sorting",
+              "--approaches", "SWFDMC", "sSVDMC", "--second-pass-label-mode", "none"]
+SED_FIXTURE_RECORDS = 2_600          # k2: 15% event photos, the rest noise
+SKETCH_ROWS, SKETCH_N, SKETCH_D, SKETCH_DIM = 100_000, 10_000, 300, 50   # k3
+SKETCH_BLOCK, SKETCH_SINGLE_ROWS = 1_000, 2_000
+
+
+def phase_k1(smi: str) -> dict:
+    """``main.cli`` in this process at the reference defaults (the sorting
+    sweep: 2 approaches x 2 values, subset 150,000, window 2000), the
+    per-point metrics read through a spy on ``output.log_metrics`` (which
+    still writes the log), then the demo sweep."""
+    captured = []
+    log_metrics = port_main.output.log_metrics
+
+    def spy(**kw):
+        captured.append(kw)
+        return log_metrics(**kw)
+
+    n_windows = len(streaming.window_triggers(N_RECORDS, WINDOW, 1))
+    with tempfile.TemporaryDirectory() as tmp:
+        port_main.output.log_metrics = spy
+        reset_counts()
+        hashed = native.calls
+        t0 = time.perf_counter()
+        try:
+            rc = port_main.cli(SWEEP_ARGS + ["--log-dir", tmp, "--plot-dir", tmp])
+        finally:
+            port_main.output.log_metrics = log_metrics
+        secs = time.perf_counter() - t0
+        launches, hasher_calls = ak.launches, native.calls - hashed
+        logs = sorted(f for f in os.listdir(tmp) if f.startswith("exp=sorting,"))
+        log_lines = [ln.split(":")[0] for ln in open(os.path.join(tmp, logs[0]))
+                     if ": {" in ln] if logs else []
+        t1 = time.perf_counter()
+        demo_rc = port_main.cli(["--dataset", "demo", "--no-tee", "--log-dir", tmp,
+                                 "--plot-dir", tmp])
+        demo_secs = time.perf_counter() - t1
+        demo_launches = ak.launches - launches
+    metrics = captured[0]["metrics"] if captured else {}
+    points = [{"approach": a, "sorting": r["sorting"][i], "windows": n_windows,
+               "seconds": r["processing_time"][i],
+               "windows_per_s": n_windows / r["processing_time"][i],
+               "nmi": r["nmi_score"][i], "f1": r["f1_score"][i]}
+              for a, r in metrics.items() for i in range(len(r["sorting"]))]
+    out = {"card": smi, "args": SWEEP_ARGS, "rc": rc, "seconds": secs, "points": points,
+           "k1_launches": launches, "windows": n_windows * len(points),
+           "native_hasher_calls": hasher_calls, "log_files": logs, "log_lines": log_lines,
+           "demo": {"rc": demo_rc, "seconds": demo_secs, "k1_launches": demo_launches}}
+    print("[k1]", json.dumps(out), flush=True)
+    if rc != 0 or demo_rc != 0 or len(points) != 4:
+        raise AssertionError(f"k1: the CLI failed: {out}")
+    if launches != 4 * out["windows"] or hasher_calls != 2 * out["windows"]:
+        raise AssertionError(f"k1: expected {4 * out['windows']} K1 launches and "
+                             f"{2 * out['windows']} hasher calls: {out}")
+    if len(logs) != 1 or log_lines != ["SWFDMC", "sSVDMC"]:
+        raise AssertionError(f"k1: the sweep's log file is missing or wrong: {out}")
+    if not all(0.0 <= p[k] <= 1.0 for p in points for k in ("nmi", "f1")):
+        raise AssertionError(f"k1: metrics out of range: {points}")
+    return out
+
+
+def sed2012_fixture(dataset_dir: str, n: int, seed: int = SEED) -> None:
+    """A SED2012-shaped corpus of ``n`` photos: the three ground-truth files
+    and a metadata XML with tied upload seconds, missing geotags, entities,
+    CDATA, markup in text and ``0000-00-00`` dates."""
+    rng = np.random.default_rng(seed)
+    events = rng.integers(1, 7, n) * (rng.random(n) < 0.15)      # 6 events, 15% of photos
+    homes = rng.uniform([-40, -120], [40, 120], size=(7, 2))
+    parts = ['<?xml version="1.0" encoding="UTF-8"?>\n<photos>\n']
+    for i in range(n):
+        e = int(events[i])
+        up = 1_335_000_000 + (e * 86_400 if e else int(rng.integers(0, 8 * 86_400)))
+        up += int(rng.integers(0, 600)) // 60 * 60                  # whole minutes: ties
+        taken = ("0000-00-00 00:00:00" if rng.random() < 0.05 else
+                 time.strftime("%Y-%m-%d %H:%M:%S", time.gmtime(up - 300)) + ".0")
+        lat, lon = homes[e] + rng.normal(size=2) * (0.02 if e else 30.0)
+        loc = ("" if rng.random() < 0.1 else
+               f'<location latitude="{lat:.6f}" longitude="{lon:.6f}"/>')
+        word = f"event{e}" if e else f"noise{int(rng.integers(0, 50))}"
+        title = (f"<![CDATA[{word} <b>live</b> & more]]>" if i % 7 == 0
+                 else f"{word} &amp; friends &#233;t&#xe9; {i % 13}")
+        tags = "".join(f"<tag>{word}{k}</tag>" for k in range(int(rng.integers(0, 4))))
+        parts.append(
+            f'<photo id="{10_000_000 + i}" dateTaken="{taken}" '
+            f'dateUploaded="{time.strftime("%Y-%m-%d %H:%M:%S", time.gmtime(up))}.0" '
+            f'username="u{int(rng.integers(0, 40)) if not e else e * 100 + i % 5}">'
+            f'{loc}<title>{title}</title><description>photo {i} of {word}</description>'
+            f'<tags>{tags}</tags></photo>\n')
+    parts.append("</photos>\n")
+    with open(os.path.join(dataset_dir, "sed2012_metadata.xml"), "w") as f:
+        f.write("".join(parts))
+    ids = {e: [str(10_000_000 + i) for i in np.flatnonzero(events == e)] for e in range(1, 7)}
+    for fname, evs in (("technical_events.txt", (1, 2)), ("soccer_events.txt", (3, 4)),
+                       ("indignados_events.txt", (5, 6))):
+        with open(os.path.join(dataset_dir, fname), "w") as f:
+            f.write("".join(",".join(ids[e]) + "\n" for e in evs))
+
+
+def tables_equal(a: dict, b: dict) -> bool:
+    return list(a) == list(b) and all(
+        (a[k] == b[k]) if isinstance(a[k], list) else
+        (a[k].dtype == b[k].dtype and np.array_equal(a[k], b[k],
+                                                      equal_nan=a[k].dtype.kind == "f"))
+        for k in a)
+
+
+def phase_k2(smi: str, device) -> dict:
+    """The SED2012 loader on a written fixture: the native scanner's table
+    equals the Python path's; prepared like the reference (subset 2000,
+    noise 0.95, binary, sorted) it runs one SWFDMC window on the card."""
+    with tempfile.TemporaryDirectory() as tmp:
+        sed2012_fixture(tmp, SED_FIXTURE_RECORDS)
+        scans = native.sed_calls
+        t0 = time.perf_counter()
+        table = sed2012.load_sed2012_dataset(tmp)
+        native_secs = time.perf_counter() - t0
+        os.environ["MUSED_TPU_NO_NATIVE_PARSER"] = "1"
+        try:
+            t0 = time.perf_counter()
+            py_table = sed2012.load_sed2012_dataset(tmp)
+            python_secs = time.perf_counter() - t0
+        finally:
+            del os.environ["MUSED_TPU_NO_NATIVE_PARSER"]
+    mods, mtypes, labels = sed2012.prepare_modalities(table, subset_size=WINDOW,
+                                                      binary=True, sort_by_uploaded=True,
+                                                      noise_rate=NOISE_RATE, seed=SEED)
+    up = np.asarray(mods[1][:, 1])
+    reset_counts()
+    res = api.process_streaming_data(
+        results=api.get_initial_results()[0], data_modalities=mods, modality_types=mtypes,
+        window_size=WINDOW, reduced_dim=REDUCED_DIM, k_basis=K_BASIS, n_clusters_total=2,
+        seed=SEED, approach="SWFDMC", complete_true_labels=labels, step_window_ratio=1,
+        noise_rate=NOISE_RATE, label_mode="binary", sorting=True, eps=1.5, min_samples=2)
+    out = {"card": smi, "records": SED_FIXTURE_RECORDS, "native_scans": native.sed_calls - scans,
+           "native_seconds": native_secs, "python_seconds": python_secs,
+           "tables_equal": tables_equal(table, py_table),
+           "event_photos": int(table["is_event"].sum()),
+           "missing_geotags": int(np.isnan(table["latitude"]).sum()),
+           "epoch_dates": int((table["datetaken"] == 0).sum()),
+           "tied_upload_rows": int(len(up) - len(np.unique(up))),
+           "window_rows": len(labels), "k1_launches": ak.launches,
+           "nmi": res["nmi_score"][0], "f1": res["f1_score"][0]}
+    print("[k2]", json.dumps(out), flush=True)
+    if out["native_scans"] != 1 or not out["tables_equal"]:
+        raise AssertionError(f"k2: the native scanner's table differs: {out}")
+    if len(labels) != WINDOW or out["k1_launches"] != 4 or out["tied_upload_rows"] == 0 \
+            or np.any(np.diff(up) < 0) or not 0.0 <= out["nmi"] <= 1.0:
+        raise AssertionError(f"k2: {out}")
+    return out
+
+
+def phase_k3(smi: str) -> dict:
+    """``SeqBasedSWFD`` on the reference's sketch benchmark spec (m = 10,
+    d = 300, zeta = 10; n cut from 500,000 to 100,000), N = 10,000: 1,000-row
+    fits and a stretch of 2,000 single-row fits; at every 10,000-row
+    boundary ``get()``'s err must bound the live window's exact covariance
+    error (float64 on the card)."""
+    stream = port_synthetic.load_synthetic_dataset(SKETCH_ROWS, d=SKETCH_D, seed=SEED)[0]
+    dev = torch.from_numpy(stream).cuda()              # float64 rows for the exact error
+    r = float(np.max(np.sum(stream[:SKETCH_N] ** 2, axis=1)))
+    sk = swfd.SeqBasedSWFD(N=SKETCH_N, R=r, d=SKETCH_D, sketch_dim=SKETCH_DIM)
+    rows32 = stream.astype(np.float32)
+    checks, fed, fit_secs, single_secs = [], 0, 0.0, 0.0
+    single_at = SKETCH_ROWS // 2
+    while fed < SKETCH_ROWS:
+        t0 = time.perf_counter()
+        if fed == single_at:
+            for i in range(fed, fed + SKETCH_SINGLE_ROWS):      # reference main.py:65-67
+                sk.fit(rows32[i].reshape(1, -1))
+            fed += SKETCH_SINGLE_ROWS
+            torch.cuda.synchronize()
+            single_secs += time.perf_counter() - t0
+        else:
+            sk.fit(rows32[fed:fed + SKETCH_BLOCK])
+            fed += SKETCH_BLOCK
+            torch.cuda.synchronize()
+            fit_secs += time.perf_counter() - t0
+        if fed % SKETCH_N == 0:
+            b, err, sq_fro, live = sk.get()
+            w = dev[fed - SKETCH_N:fed]
+            diff = w.T @ w - b.double().T @ b.double()
+            true = float(torch.linalg.eigvalsh(diff).abs().max())
+            checks.append({"rows": fed, "err": float(err), "true_error": true,
+                           "sq_frobenius": float(sq_fro), "live_rows": live})
+    out = {"card": smi, "rows": SKETCH_ROWS, "reduced": "n 500,000 -> 100,000 (time limit)",
+           "N": SKETCH_N, "d": SKETCH_D, "sketch_dim": SKETCH_DIM, "ell": sk.ell,
+           "block_rows": sk.block_rows, "chunk": sk.chunk,
+           "rows_per_s_blocks": (SKETCH_ROWS - SKETCH_SINGLE_ROWS) / fit_secs,
+           "rows_per_s_single_rows": SKETCH_SINGLE_ROWS / single_secs,
+           "seals": sk.state.seal_cursor, "checks": checks}
+    print("[k3]", json.dumps(out), flush=True)
+    bad = [c for c in checks if not (c["true_error"] <= c["err"] and c["live_rows"] == SKETCH_N)]
+    if len(checks) != SKETCH_ROWS // SKETCH_N or bad:
+        raise AssertionError(f"k3: err does not bound the live window's error: {bad}")
+    return out
+
+
+def phase_k4(mods, mtypes, labels, smi: str, rr_run: dict | None) -> dict:
+    """SWFDMC on (c)'s stream with the window fold on the Newton-Schulz
+    shrink (``fd_shrink="subspace_ns"``), beside (c)'s rr run."""
+    fast, slow = fd.fast_shrinks, fd.fallback_shrinks
+    cfg = PipelineConfig(seed=SEED, subset_size=N_RECORDS, noise_rate=NOISE_RATE,
+                         label_mode="binary", sorting=True, window_size=WINDOW,
+                         reduced_dim=REDUCED_DIM, k_basis=K_BASIS, approach="SWFDMC",
+                         n_clusters_override=2, fd_shrink="subspace_ns")
+    reset_counts()
+    t0 = time.perf_counter()
+    res = api.process_streaming_data(
+        results=api.get_initial_results()[0], data_modalities=mods, modality_types=mtypes,
+        window_size=WINDOW, reduced_dim=REDUCED_DIM, k_basis=K_BASIS, n_clusters_total=2,
+        seed=SEED, approach="SWFDMC", complete_true_labels=labels, step_window_ratio=1,
+        noise_rate=NOISE_RATE, label_mode="binary", sorting=True, eps=1.5, min_samples=2,
+        cfg=cfg)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    n_windows = len(streaming.window_triggers(N_RECORDS, WINDOW, 1))
+    out = {"card": smi, "windows": n_windows, "seconds": secs,
+           "windows_per_s": n_windows / secs, "nmi": res["nmi_score"][0],
+           "f1": res["f1_score"][0], "k1_launches": ak.launches,
+           "fast_shrinks": fd.fast_shrinks - fast, "fallback_shrinks": fd.fallback_shrinks - slow,
+           "rr_phase_c": rr_run and {k: rr_run[k] for k in ("windows_per_s", "nmi", "f1")}}
+    print("[k4]", json.dumps(out), flush=True)
+    shrinks = out["fast_shrinks"] + out["fallback_shrinks"]
+    if shrinks != 3 * n_windows or out["k1_launches"] != 4 * n_windows \
+            or not 0.0 <= out["nmi"] <= 1.0:
+        raise AssertionError(f"k4: expected {3 * n_windows} shrinks (three 800-row blocks "
+                             f"per window) and {4 * n_windows} K1 launches: {out}")
+    return out
+
+
+def phase_k5(smi: str) -> dict:
+    """BASELINE.md config #2 (20,000 crisis rows, two 512-wide embeddings,
+    unsorted) through sSVDMC with centroid matching against the positional
+    matching; then the detector with centroid matching, saved and loaded
+    halfway, against its uninterrupted run."""
+    mods, mtypes, labels = crisis_embedding_stream(n_rows=SLICE2_RECORDS, n_events=8,
+                                                   noise_rate=0.3, seed=SEED)
+    n_windows = SLICE2_RECORDS // WINDOW
+    out = {"card": smi, "records": SLICE2_RECORDS, "windows": n_windows}
+    for matching in ("centroid", "auto"):
+        reset_counts()
+        t0 = time.perf_counter()
+        res = api.process_streaming_data(
+            results=api.get_initial_results()[0], data_modalities=mods, modality_types=mtypes,
+            window_size=WINDOW, reduced_dim=REDUCED_DIM, k_basis=K_BASIS, n_clusters_total=9,
+            seed=SEED, approach="sSVDMC", complete_true_labels=labels, step_window_ratio=1,
+            noise_rate=0.3, label_mode="all", sorting=False, eps=1.5, min_samples=2,
+            matching=matching)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        out[matching] = {"nmi": res["nmi_score"][0], "f1": res["f1_score"][0],
+                         "windows_per_s": n_windows / secs, "k1_launches": ak.launches}
+        if ak.launches != 2 * n_windows:
+            raise AssertionError(f"k5 {matching}: {ak.launches} K1 launches for "
+                                 f"{n_windows} windows (expected 2 dot per window)")
+
+    def make():
+        return StreamDetector(mtypes, WINDOW, approach="sSVDMC", reduced_dim=REDUCED_DIM,
+                              k_basis=K_BASIS, k_estimate="eigengap", matching="centroid")
+
+    warm_up(make, mods)
+    run = detector_run(make(), mods, SLICE2_RECORDS, SERVE_CHUNK)
+    full = run.pop("results")
+    half = SLICE2_RECORDS // 2
+    first = make()
+    resumed = serve(first, mods, 0, half, SERVE_CHUNK)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "detector.npz")
+        resumed.extend(first.save(path))
+        second = StreamDetector.load(path)
+    registry = len(second.engine.centroid_matcher.ids)
+    resumed.extend(serve(second, mods, half, SLICE2_RECORDS, SERVE_CHUNK))
+    resumed.extend(second.flush())
+    clus = np.concatenate([r.clusters for r in full])
+    out["detector"] = {**{k: run[k] for k in ("windows", "windows_per_s", "push_p50_ms",
+                                               "push_p99_ms", "k1_launches")},
+                       "nmi": nmi(labels[:len(clus)], clus),
+                       "registry_at_save": registry,
+                       "identical_windows": sum(np.array_equal(a.clusters, b.clusters)
+                                                for a, b in zip(full, resumed)),
+                       "resumed_windows": len(resumed)}
+    print("[k5]", json.dumps(out), flush=True)
+    d = out["detector"]
+    if d["k1_launches"] != 2 * d["windows"] or d["windows"] != n_windows:
+        raise AssertionError(f"k5: detector launches {d}")
+    if d["identical_windows"] != n_windows or d["resumed_windows"] != n_windows:
+        raise AssertionError(f"k5: the resumed detector differs: {d}")
+    return out
+
+
+def phase_k6(mods, device, smi: str) -> dict:
+    """The reference API on one 2000-row window: each ``create_adjacency_matrix``
+    graph bit-equal to the engine's graph of that modality (the standard
+    path's for location, username, tags and text; the numeric-modality path's
+    for time, which the JAX package's API also takes raw), 4 K1 launches;
+    then fuse_matrices, perform_svd_reduction and perform_clustering."""
+    window = [m[:WINDOW] for m in mods]
+    engine = streaming.StreamingEngine(PipelineConfig(window_size=WINDOW, k_basis=K_BASIS,
+                                                      reduced_dim=REDUCED_DIM), device)
+    host = engine.featurize(window, streaming.STANDARD_TYPES)
+    fc = engine.cfg.features
+    loc, tim, uid, tags, text, text_cnt, tags_valid = to_device(host, device)
+    graphs = streaming.standard_kernel_graphs(
+        loc, tim, uid, tags, text, text_cnt, tags_valid, k_basis=K_BASIS,
+        tags_dim=fc.tags_hash_dim, text_dim=fc.text_hash_dim, sparse=True)
+    graphs[1] = streaming.kernel_graph(torch.from_numpy(window[1].astype(np.float32)).to(
+        device), "time", K_BASIS)
+    reset_counts()
+    t0 = time.perf_counter()
+    got = [api.create_adjacency_matrix(m, t, k_basis=K_BASIS)
+           for m, t in zip(window, streaming.STANDARD_TYPES)]
+    secs = time.perf_counter() - t0
+    launches = ak.launches
+    fused = api.fuse_matrices(got)
+    reduced = api.perform_svd_reduction(fused, REDUCED_DIM, SEED)
+    labels = api.perform_clustering(reduced, 2, SEED)
+    out = {"card": smi, "rows": WINDOW, "seconds": secs, "k1_launches": launches,
+           "edges": {t: int(g.sum()) for t, g in zip(streaming.STANDARD_TYPES, got)},
+           "mismatched_entries": {t: int((g != w.cpu().numpy()).sum()) for t, g, w in
+                                  zip(streaming.STANDARD_TYPES, got, graphs)},
+           "fused_edges": int(fused.sum()), "reduced_shape": list(reduced.shape),
+           "clusters": int(len(np.unique(labels)))}
+    print("[k6]", json.dumps(out), flush=True)
+    if launches != 4 or any(out["mismatched_entries"].values()):
+        raise AssertionError(f"k6: {out}")
+    if reduced.shape != (WINDOW, REDUCED_DIM) or not np.isfinite(reduced).all() \
+            or out["clusters"] != 2:
+        raise AssertionError(f"k6: the reference API's reduction / clustering: {out}")
+    return out
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--phases", default="abcdefghij",
+    parser.add_argument("--phases", default="abcdefghijk",
                         help="phases to run (a always runs); the result lines print "
                              "only when all ran")
     parser.add_argument("--profile", action="store_true",
@@ -1512,7 +1880,7 @@ def main() -> int:
     seconds["a"] = time.perf_counter() - t0
 
     rows_b, runs, main_launches = [], [], 0
-    if phases & set("bcdhi"):
+    if phases & set("bcdhik"):
         t0 = time.perf_counter()
         mods, mtypes, labels = make_stream(N_RECORDS, noise_rate=NOISE_RATE, binary=True,
                                            sort_by_uploaded=True, seed=SEED)
@@ -1621,6 +1989,25 @@ def main() -> int:
                 huge_launches[k] += v
         seconds["j3"] = time.perf_counter() - t1
         seconds["j"] = time.perf_counter() - t0
+    k_launches = 0               # K1 launches on phase (k)'s main paths
+    if "k" in phases:
+        t0 = time.perf_counter()
+        torch.cuda.empty_cache()
+        k1 = phase_k1(smi)
+        k_launches += k1["k1_launches"] + k1["demo"]["k1_launches"]
+        seconds["k1"] = time.perf_counter() - t0
+        for name, run in (("k2", lambda: phase_k2(smi, device)),
+                          ("k3", lambda: phase_k3(smi)),
+                          ("k4", lambda: phase_k4(mods, mtypes, labels, smi,
+                                                  runs[0] if runs else None)),
+                          ("k5", lambda: phase_k5(smi)),
+                          ("k6", lambda: phase_k6(mods, device, smi))):
+            t1 = time.perf_counter()
+            out = run()
+            k_launches += sum(v.get("k1_launches", 0) for v in [out, *out.values()]
+                              if isinstance(v, dict))
+            seconds[name] = time.perf_counter() - t1
+        seconds["k"] = time.perf_counter() - t0
     if args.profile:
         t0 = time.perf_counter()
         if not phases & set("efghij"):
@@ -1631,7 +2018,7 @@ def main() -> int:
             profile_huge_window(hmods, hmtypes, hlabels, approach)
         seconds["profile"] = time.perf_counter() - t0
     print("[seconds]", json.dumps(seconds), flush=True)
-    if phases != set("abcdefghij") or args.profile:
+    if phases != set("abcdefghijk") or args.profile:
         return 0
 
     main_rows = [r for r in rows_b if r["case"] in ("location", "time", "tags", "text")]
@@ -1656,7 +2043,8 @@ def main() -> int:
         "name": "knn_adjacency", "route": "cuda",
         "source": "mused_tpu_torch/csrc/knn_adjacency.cu",
         "replaces": "mused_tpu/ops/pallas/affinity_kernel.py:185",
-        "launches": main_launches,
+        "launches": main_launches + k_launches,
+        "launches_by_phase": {"c": main_launches, "k": k_launches},
         "max_abs_err": max(r["max_abs_err"] for r in main_rows),
         **timed(main_rows, "one window's four main-path calls (location, time, tags, text)"),
         "per_metric": {r["case"]: {"route": r["route"], "ms": r["ms"],

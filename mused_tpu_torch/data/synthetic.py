@@ -17,17 +17,43 @@ values as the JAX package's generator (they derive from per-event
 subsample consume the seed's generator in another order, so rows differ
 from the JAX package's for the same seed.
 
-``crisis_embedding_stream`` (BASELINE.md config #2's two embedding
-modalities) is the JAX package's generator copied, row for row.
+``synthetic_stream`` / ``load_synthetic_dataset`` (the reference's sketch
+benchmark input) and ``crisis_embedding_stream`` (BASELINE.md config #2's
+two embedding modalities) are the JAX package's generators copied, row for
+row.
 """
 from __future__ import annotations
 
 import numpy as np
 
+from mused_tpu_torch.data import sed2012
+
 _WORDS = ("festival concert goal match stadium protest plaza camp strike rally "
           "music crowd street fireworks banner speech square kickoff referee "
           "anthem drums tent march police flags").split()
-MODALITY_TYPES = ["location", "time", "username", "tags", "text"]
+MODALITY_TYPES = sed2012.MODALITY_TYPES
+
+
+def synthetic_stream(n: int = 500_000, m: int = 10, d: int = 300, zeta: int = 10,
+                     seed: int = 0) -> np.ndarray:
+    """(n, d) float32 stream with m dominant directions, the spec of the
+    reference's sketch benchmark fixture ``synthetic_n=500000,m=10,d=300,
+    zeta=10.mat`` (reference data_loader.py:190-195): signal S D U plus
+    noise / zeta.  The JAX package's draws, so the same rows for a seed."""
+    rng = np.random.default_rng(seed)
+    basis, _ = np.linalg.qr(rng.normal(size=(d, m)))
+    scales = np.linspace(1.0, 0.1, m)
+    coefs = rng.normal(size=(n, m)) * scales[None, :]
+    noise = rng.normal(size=(n, d)) / zeta
+    return (coefs @ basis.T + noise).astype(np.float32)
+
+
+def load_synthetic_dataset(subset_size: int | None = None, d: int = 300, seed: int = 0):
+    """The reference's load_synthetic_dataset contract (data_loader.py:190-195):
+    a one-element list holding an (n, d) float64 array, generated (n =
+    ``subset_size`` or 500,000)."""
+    n = subset_size if subset_size else 500_000
+    return [synthetic_stream(n=n, d=d, seed=seed).astype(np.float64)]
 
 
 def _join_words(words: np.ndarray) -> list[str]:
@@ -35,14 +61,6 @@ def _join_words(words: np.ndarray) -> list[str]:
     for j in range(1, words.shape[1]):
         out = out + " " + words[:, j]
     return out.tolist()
-
-
-def _object_column(cells: list) -> np.ndarray:
-    """(n, 1) object array holding one Python object (e.g. a list) per row."""
-    col = np.empty((len(cells), 1), object)
-    for i, c in enumerate(cells):
-        col[i, 0] = c
-    return col
 
 
 def synthetic_events(n_rows: int, n_events: int, noise_rate: float, seed: int) -> dict:
@@ -110,35 +128,12 @@ def synthetic_events(n_rows: int, n_events: int, noise_rate: float, seed: int) -
 def prepare_modalities(table: dict, subset_size: int, *, sort_by_uploaded: bool = True,
                        event_types: bool = False, binary: bool = False,
                        noise_rate: float = 0.95, seed: int = 0):
-    """Label selection + seeded noise/event subsampling + modality split, with
-    ``mused_tpu.data.sed2012.prepare_modalities``'s sampling arithmetic."""
-    label_key = "is_event" if binary else ("event_type" if event_types else "event_id")
-    labels = table[label_key]
-    n = len(labels)
-    subset_size = min(subset_size, n)
-    rng = np.random.default_rng(seed=seed)
-    rows = np.arange(n)
-    if 0 <= noise_rate < 1.0:
-        noise_idx = np.where(labels == 0)[0]
-        event_idx = np.where(labels > 0)[0]
-        num_events = min(int((1 - noise_rate) * subset_size), len(event_idx))
-        sampled_noise = rng.choice(noise_idx, subset_size - num_events, replace=False)
-        sampled_events = rng.choice(event_idx, num_events, replace=False)
-        rows = np.sort(np.concatenate([sampled_noise, sampled_events]))
-    if sort_by_uploaded:
-        rows = rows[np.argsort(table["dateupload"][rows], kind="stable")]
-
-    def pair(a, b):
-        return np.stack([table[a][rows], table[b][rows]], axis=1)
-
-    modalities = [
-        pair("latitude", "longitude"),
-        pair("datetaken", "dateupload"),
-        table["username"][rows][:, None],
-        _object_column([table["tags"][r] for r in rows]),
-        pair("title", "description"),
-    ]
-    return modalities, list(MODALITY_TYPES), labels[rows]
+    """Label selection + seeded subsampling + modality split of a column
+    table: ``data/sed2012.prepare_modalities``, which orders tied upload
+    times as the JAX package does."""
+    return sed2012.prepare_modalities(table, subset_size, sort_by_uploaded=sort_by_uploaded,
+                                      event_types=event_types, binary=binary,
+                                      noise_rate=noise_rate, seed=seed)
 
 
 def make_stream(n_records: int, *, n_events: int = 24, noise_rate: float = 0.95,

@@ -1,9 +1,9 @@
-"""ctypes loaders for the port's native host code: the hashing part and the
-incremental-DBSCAN core of ``mused_tpu/native/__init__.py``, copied, with
-their own build.
+"""ctypes loaders for the port's native host code: the hashing part, the
+incremental-DBSCAN core and the SED2012 scanner of
+``mused_tpu/native/__init__.py``, copied, with their own build.
 
-The C++ sources are this package's ``hasher.cpp`` and ``incdbscan.cpp``
-(copies of ``mused_tpu/native``'s).  At first use each is compiled with the
+The C++ sources are this package's ``hasher.cpp``, ``incdbscan.cpp`` and
+``sed2012_parser.cpp`` (copies of ``mused_tpu/native``'s).  At first use each is compiled with the
 host C++ compiler (``c++``; ``nvcc``, which drives the same compiler, where
 there is none) into ``mused_tpu_torch/_build/``, named by a hash of the
 source and flags, so an edited source is rebuilt.
@@ -15,6 +15,10 @@ source and flags, so an edited source is rebuilt.
   * The incdbscan core (:class:`IncDBHandle`) keeps the monotone union-find
     of ``ops/dbscan.IncrementalDBSCAN``; without it ``create`` returns None
     and the clusterer re-clusters its buffer on the device.
+  * The SED2012 scanner (:func:`parse_sed2012`) reads the metadata XML in one
+    pass and cleans its text in C++; without it (or with
+    ``MUSED_TPU_NO_NATIVE_PARSER=1``) ``data/sed2012`` takes the Python
+    iterparse path, which gives the same table.
 
 ``available()`` / ``incdb_available()`` say which one runs, ``load_error`` /
 ``incdb_load_error`` why the native one does not, and ``calls`` /
@@ -38,8 +42,9 @@ import numpy as np
 _DIR = os.path.dirname(os.path.abspath(__file__))
 SOURCE = os.path.join(_DIR, "hasher.cpp")
 INCDB_SOURCE = os.path.join(_DIR, "incdbscan.cpp")
+SED_SOURCE = os.path.join(_DIR, "sed2012_parser.cpp")
 BUILD_DIR = os.path.join(os.path.dirname(_DIR), "_build")
-CXX_FLAGS = ["-O3", "-std=c++17", "-shared", "-fPIC"]
+CXX_FLAGS = ["-O3", "-std=c++17", "-shared", "-fPIC", "-pthread"]
 
 _lib = None
 _load_failed = False
@@ -49,6 +54,10 @@ _incdb_lib = None
 _incdb_load_failed = False
 incdb_load_error = ""   # why the native incdbscan core is not loaded
 incdb_calls = 0         # native incdbscan inserts so far
+_sed_lib = None
+_sed_load_failed = False
+sed_load_error = ""     # why the native SED2012 scanner is not loaded
+sed_calls = 0           # native SED2012 scans so far
 # two prefetch threads may race the first build: one lock around build + CDLL
 _load_lock = threading.Lock()
 
@@ -58,7 +67,7 @@ def _compile_cmd(out: str, source: str) -> list[str]:
     if cxx:
         return [cxx, *CXX_FLAGS, "-o", out, source]
     from mused_tpu_torch.ops.kernels import build
-    return [build._nvcc(), "-O3", "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
+    return [build._nvcc(), "-O3", "-std=c++17", "-shared", "-Xcompiler", "-fPIC,-pthread",
             "-o", out, source]
 
 
@@ -107,6 +116,16 @@ def _configure_incdb(lib):
     lib.mused_incdb_labels.restype = None
 
 
+def _configure_sed(lib):
+    lib.mused_parse_sed2012.restype = ctypes.c_int64
+    lib.mused_parse_sed2012.argtypes = [
+        ctypes.c_char_p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
+        ctypes.c_int64,
+        ctypes.POINTER(ctypes.POINTER(ctypes.c_char)),
+        ctypes.POINTER(ctypes.c_int64)]
+    lib.mused_free_blob.argtypes = [ctypes.POINTER(ctypes.c_char)]
+
+
 def _load_lib(source: str, configure):
     """Build (if needed), load and configure one library: (lib or None, why
     not)."""
@@ -143,6 +162,84 @@ def _load_incdb():
                 _incdb_lib, incdb_load_error = _load_lib(INCDB_SOURCE, _configure_incdb)
                 _incdb_load_failed = _incdb_lib is None
     return _incdb_lib
+
+
+def _load_sed():
+    global _sed_lib, _sed_load_failed, sed_load_error
+    if _sed_lib is None and not _sed_load_failed:
+        with _load_lock:
+            if _sed_lib is None and not _sed_load_failed:
+                _sed_lib, sed_load_error = _load_lib(SED_SOURCE, _configure_sed)
+                _sed_load_failed = _sed_lib is None
+    return _sed_lib
+
+
+def sed_available() -> bool:
+    return _load_sed() is not None
+
+
+def parse_sed2012(path: str, skip_records: int = 0, max_records: int | None = None,
+                  clean: bool = False, threads: int | None = None):
+    """Native SED2012 metadata scan (sed2012_parser.cpp) -> column dict
+    (id / taken / uploaded / username / title / description string lists,
+    lat / lon float64, tag_counts + flat tags), or None when the library is
+    unavailable or the output's framing disagrees.  ``clean=True`` runs
+    title, description and tags through the C++ ``clean_text``; float / NaN
+    conversion and labels stay in ``data/sed2012``.  ``threads`` splits the
+    scan over "<photo"-aligned chunks (byte-identical output); None = the
+    MUSED_TPU_PARSER_THREADS variable, else 0 = auto."""
+    global sed_calls
+    lib = _load_sed()
+    if lib is None:
+        return None
+    if threads is None:
+        try:
+            threads = int(os.environ.get("MUSED_TPU_PARSER_THREADS", "0"))
+        except ValueError:
+            threads = 0
+    blob_p = ctypes.POINTER(ctypes.c_char)()
+    blob_len = ctypes.c_int64(0)
+    n = lib.mused_parse_sed2012(
+        path.encode(), skip_records, -1 if max_records is None else max_records,
+        int(clean), threads, ctypes.byref(blob_p), ctypes.byref(blob_len))
+    if n < 0:
+        return None
+    sed_calls += 1
+    try:
+        raw = ctypes.string_at(blob_p, blob_len.value)
+    finally:
+        lib.mused_free_blob(blob_p)
+
+    # column-oriented decode: numpy for the numbers, one decode + one split
+    # per string column
+    import struct
+    off = 0
+    (nrec,) = struct.unpack_from("<Q", raw, off)
+    off += 8
+    lat = np.frombuffer(raw, "<f8", nrec, off).copy()
+    off += 8 * nrec
+    lon = np.frombuffer(raw, "<f8", nrec, off).copy()
+    off += 8 * nrec
+    str_cols = []
+    for _ in range(6):
+        (blen,) = struct.unpack_from("<Q", raw, off)
+        off += 8
+        blob = raw[off:off + blen]
+        off += blen
+        str_cols.append(blob.decode("utf-8", "replace").split("\x00") if nrec else [])
+    tag_counts = np.frombuffer(raw, "<u4", nrec, off).copy()
+    off += 4 * nrec
+    (tlen,) = struct.unpack_from("<Q", raw, off)
+    off += 8
+    total_tags = int(tag_counts.sum()) if nrec else 0
+    tag_items = (raw[off:off + tlen].decode("utf-8", "replace").split("\x00")
+                 if total_tags else [])
+    if any(len(col) != nrec for col in str_cols) or len(tag_items) != total_tags:
+        return None     # framing mismatch: the caller takes the Python parser
+    ids, taken, uploaded, username, title, desc = str_cols
+    return {"n": int(nrec), "id": ids, "taken": taken, "uploaded": uploaded,
+            "username": username, "title": title, "description": desc,
+            "lat": lat, "lon": lon, "tag_counts": tag_counts, "tags": tag_items}
 
 
 def incdb_available() -> bool:

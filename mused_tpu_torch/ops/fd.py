@@ -8,6 +8,9 @@ are zero-padded and an all-zero block skips its shrink.
 
 Shrinks:
   ``shrink``        exact, from the eigendecomposition of the small Gram S S^T
+  ``shrink_fast``   Newton-Schulz subspace iteration (matmuls only) with a
+                    health gate that routes degenerate stacks to ``shrink``;
+                    the ``"subspace"`` / ``"subspace_ns"`` modes of a stream
   ``shrink_rr``     Rayleigh-Ritz: randomized subspace iteration with QR
                     orthonormalization and a small eigh; the engine's fold
   ``shrink_rr_pair`` shrink_rr on the implicit stack [sketch; rows]
@@ -27,8 +30,9 @@ device, the counterpart of the JAX package's fixed ``jax.random.key(7)``
 both).  Products the JAX package marks ``Precision.HIGHEST`` are plain fp32
 matmuls here: the engine turns TF32 off, so they run in true fp32.
 
-``shrink_fast`` (Newton-Schulz subspace shrink) and the ``"subspace_ns"``
-mode belong to slice 2f of the port and raise ``NotImplementedError``.
+``shrink_fast``'s health verdict is read on the host once per shrink (the
+JAX package's ``lax.cond``), so the fallback's eigh runs only when taken;
+``fast_shrinks`` / ``fallback_shrinks`` count the branches taken.
 """
 from __future__ import annotations
 
@@ -39,6 +43,8 @@ import torch
 from mused_tpu_torch.ops.kernels import cand_matvec as cm
 
 PROBE_SEED = 7
+fast_shrinks = 0        # shrink_fast calls that kept the Newton-Schulz basis
+fallback_shrinks = 0    # shrink_fast calls routed to the exact eigh shrink
 
 
 def _local(x: torch.Tensor) -> torch.Tensor:
@@ -79,6 +85,17 @@ def default_probe(m2: int, r: int, device) -> torch.Tensor:
     return torch.randn((m2, r), generator=gen, device=device, dtype=torch.float32)
 
 
+def _eigh(gram: torch.Tensor):
+    """``torch.linalg.eigh``, retried in float64 where the float32 solver
+    does not converge (CPU LAPACK on some rank-deficient Grams, e.g. a
+    sliding-window query's stack of mostly empty ring slots)."""
+    try:
+        return torch.linalg.eigh(gram)
+    except torch.linalg.LinAlgError:
+        lam, u = torch.linalg.eigh(gram.double())
+        return lam.to(gram.dtype), u.to(gram.dtype)
+
+
 def shrink(stacked: torch.Tensor, ell: int, *, eps: float = 1e-30, allreduce=_local):
     """Exact FD shrink of an (m, d) stack to ``ell`` rows -> (B', delta).
 
@@ -87,7 +104,7 @@ def shrink(stacked: torch.Tensor, ell: int, *, eps: float = 1e-30, allreduce=_lo
     if m <= ell:
         return stacked, torch.zeros((), dtype=stacked.dtype, device=stacked.device)
     gram = allreduce(stacked @ stacked.T)
-    lam, u = torch.linalg.eigh(gram)              # ascending
+    lam, u = _eigh(gram)                          # ascending
     lam = torch.clamp(lam.flip(0), min=0.0)       # descending, clamped
     u = u.flip(1)
     delta = lam[ell]                              # (ell+1)-th squared singular value
@@ -96,10 +113,68 @@ def shrink(stacked: torch.Tensor, ell: int, *, eps: float = 1e-30, allreduce=_lo
     return shrunk[:ell].to(stacked.dtype), delta.to(stacked.dtype)
 
 
-def shrink_fast(stacked: torch.Tensor, ell: int, **_):
-    raise NotImplementedError(
-        "shrink_fast (Newton-Schulz subspace shrink) is ported in slice 2f; "
-        "use mode 'eigh' or 'rr'")
+def _ns_inv_sqrt(z: torch.Tensor, iters: int = 14, eps: float = 1e-12) -> torch.Tensor:
+    """Z^{-1/2} for PSD Z by the coupled Newton-Schulz iteration (matmuls
+    only)."""
+    eye = torch.eye(z.shape[0], dtype=z.dtype, device=z.device)
+    c = torch.trace(z)
+    y, w = z / c + eps * eye, eye
+    for _ in range(iters):
+        t = 0.5 * (3.0 * eye - w @ y)
+        y, w = y @ t, t @ w
+    return w / torch.sqrt(c)
+
+
+def _subspace_basis(stacked: torch.Tensor, ell: int, *, oversample: int, sub_iters: int,
+                    probe: torch.Tensor | None = None):
+    """(healthy, v): the Newton-Schulz-iterated, Gershgorin-rescaled projection
+    basis (m2, ell + oversample) and its health verdict, a () bool tensor
+    (orthonormality error < 0.4).  ``probe`` is the (m2, ell + oversample)
+    standard-normal start, scaled by 1/sqrt(m2) here."""
+    m2 = stacked.shape[0]
+    s = stacked.float()
+    gram = s @ s.T
+    eye = torch.eye(m2, dtype=gram.dtype, device=gram.device)
+    g = gram + (1e-5 * torch.trace(gram) / m2) * eye
+    # oversampling cannot exceed the row space, or NS never orthonormalizes
+    oversample = min(oversample, m2 - ell)
+    if probe is None:
+        probe = default_probe(m2, ell + oversample, s.device)
+    v = probe / torch.sqrt(torch.tensor(float(m2), device=s.device))
+    for _ in range(sub_iters):
+        y = g @ v
+        v = y @ _ns_inv_sqrt(y.T @ y)
+    vv = v.T @ v
+    orth_err = torch.max(torch.abs(vv - torch.eye(vv.shape[0], dtype=vv.dtype,
+                                                  device=vv.device)))
+    gersh = torch.max(torch.sum(torch.abs(vv), dim=1))    # lambda_max(V^T V) bound
+    v = v / torch.sqrt(torch.clamp(gersh, min=1.0))       # V V^T <= I: no overestimate
+    lam = torch.sum(v * (g @ v), dim=0)
+    return orth_err < 0.4, v[:, torch.argsort(-lam, stable=True)]
+
+
+def shrink_fast(stacked: torch.Tensor, ell: int, *, oversample: int = 16,
+                sub_iters: int = 4, probe: torch.Tensor | None = None):
+    """Matmul-only rank-ell truncation of an (m2, d) stack -> (B', delta):
+    Newton-Schulz subspace iteration, with the exact :func:`shrink` for
+    stacks whose basis fails the health gate (tie-degenerate or
+    rank-deficient spectra).  delta is the exact trace residual
+    ||S||_F^2 - ||B'||_F^2, an upper bound on the step's spectral error, so
+    summed deltas bound ||A^T A - B^T B||_2 as the classic FD deltas do.
+    ``probe``: the (m2, min(ell + oversample, m2)) standard-normal start."""
+    global fast_shrinks, fallback_shrinks
+    if stacked.shape[0] <= ell:
+        return stacked, torch.zeros((), dtype=stacked.dtype, device=stacked.device)
+    healthy, v = _subspace_basis(stacked, ell, oversample=oversample, sub_iters=sub_iters,
+                                 probe=probe)
+    if not bool(healthy):                                 # one host read per shrink
+        fallback_shrinks += 1
+        return shrink(stacked, ell)
+    fast_shrinks += 1
+    s = stacked.float()
+    b = v[:, :ell].T @ s
+    delta = torch.clamp(torch.sum(s * s) - torch.sum(b * b), min=0.0)
+    return b.to(stacked.dtype), delta.to(stacked.dtype)
 
 
 def _check_power_iters(power_iters: int) -> None:
@@ -221,8 +296,9 @@ MODES = ("eigh", "subspace", "subspace_ns", "rr")
 
 def resolve_fold_mode(mode: str) -> str:
     """Shrink mode for fold-scale consumers (the engine's whole-window
-    summary sketch): "subspace" routes to the Rayleigh-Ritz shrink there,
-    "eigh" / "rr" / "subspace_ns" pass through."""
+    summary sketch, the huge-window folds): "subspace" routes to the
+    Rayleigh-Ritz shrink there; "subspace_ns" forces the Newton-Schulz
+    shrink; "eigh" / "rr" pass through."""
     if mode not in MODES:
         raise ValueError(f"unknown fd shrink mode {mode!r}: expected one of {sorted(MODES)}")
     return "rr" if mode == "subspace" else mode
@@ -232,15 +308,13 @@ def update_block(state: FDState, rows: torch.Tensor, valid: torch.Tensor | None 
                  mode: str = "eigh", probe: torch.Tensor | None = None,
                  allreduce=_local) -> FDState:
     """Absorb a block of rows (c, d); ``valid`` (c,) bool zeroes padding rows.
+    ``mode``: "eigh" (:func:`shrink`), "subspace" / "subspace_ns"
+    (:func:`shrink_fast`) or "rr" (:func:`shrink_rr_pair`).
 
     An all-zero block is an exact no-op and skips the shrink (one host
     sync on the block's nonzero test)."""
     if mode not in MODES:
         raise ValueError(f"unknown fd shrink mode {mode!r}: expected one of {sorted(MODES)}")
-    if mode not in ("eigh", "rr"):
-        raise NotImplementedError(
-            f"fd mode {mode!r} (Newton-Schulz subspace shrink) is ported in "
-            "slice 2f; use 'eigh' or 'rr' (resolve_fold_mode maps 'subspace')")
     if mode != "rr":
         rows = rows.to(state.sketch.dtype)
     if valid is not None:
@@ -253,6 +327,9 @@ def update_block(state: FDState, rows: torch.Tensor, valid: torch.Tensor | None 
         if mode == "rr":
             sketch, delta = shrink_rr_pair(state.sketch, rows, state.ell, probe=probe,
                                            allreduce=allreduce)
+        elif mode != "eigh":
+            sketch, delta = shrink_fast(torch.cat([state.sketch, rows], dim=0),
+                                        state.ell, probe=probe)
         else:
             sketch, delta = shrink(torch.cat([state.sketch, rows], dim=0), state.ell,
                                    allreduce=allreduce)
@@ -274,9 +351,18 @@ def update_stream(state: FDState, rows: torch.Tensor, *, block_rows: int | None 
 
     Default block: ell for eigh (its cost grows with the stack); for rr the
     biggest block available, up to 4096, so a window's Gram-free products
-    run once."""
+    run once; for the Newton-Schulz modes up to 16 ell (at most 1024), whose
+    fixed-size products then run fewer truncations."""
     m, d = rows.shape
-    block = block_rows or (state.ell if mode == "eigh" else max(state.ell, min(m, 4096)))
+    ell = state.ell
+    if block_rows:
+        block = block_rows
+    elif mode == "eigh":
+        block = ell
+    elif mode == "rr":
+        block = max(ell, min(m, 4096))
+    else:
+        block = max(ell, min(m, 16 * ell, 1024))
     n_blocks = -(-m // block)
     pad = n_blocks * block - m
     if pad:

@@ -60,7 +60,7 @@ def stream_state_from_jax(tree_of_numpy, device) -> StreamState:
                           block_sqfro=_t(s.block_sqfro, device).float(),
                           block_loss=_t(s.block_loss, device).float(),
                           active=active, count=int(s.count),
-                          seal_cursor=int(s.seal_cursor))
+                          seal_cursor=int(s.seal_cursor), active_rows=int(a.count))
     mb = kmeans.MiniBatchState(centroids=_t(m.centroids, device).float(),
                                counts=_t(m.counts, device).float(),
                                initialized=bool(m.initialized))
@@ -71,10 +71,8 @@ def engine_state_from_jax(state_np, host_snapshot: dict, device) -> tuple:
     """A JAX ``StreamingEngine``'s ``state`` (numpy leaves) and
     ``host_snapshot()`` -> ``(StreamState, host dict)`` for the port's
     ``StreamingEngine.restore``.  The host dict's values are numpy and Python
-    (the incremental clusterer's snapshot has the same layout in both
-    packages); a centroid-matcher registry waits for slice 2f."""
-    if host_snapshot.get("centroid_matcher") is not None:
-        raise NotImplementedError("centroid matching is ported in slice 2f")
+    (the incremental clusterer's and the centroid matcher's snapshots have
+    the same layout in both packages)."""
     host = dict(host_snapshot)
     if host.get("swfd_R") is not None:
         host["swfd_R"] = float(host["swfd_R"])

@@ -84,18 +84,26 @@ def test_fd_bound_and_never_overestimate(mode, rng):
 
 
 def test_zero_block_is_a_noop_and_modes_outside_the_slice_raise():
+    """An all-zero block is a no-op in every mode; the Newton-Schulz modes run
+    since slice 2f ("subspace" folds route to rr, "subspace_ns" stays NS);
+    what remains refused is an unknown mode and power_iters = 0."""
     st = tfd.init(4, 8, "cpu")
-    out = tfd.update_block(st, torch.zeros((5, 8)), mode="rr")
-    assert torch.equal(out.sketch, st.sketch) and float(out.shrink_loss) == 0.0
-    assert int(out.count) == 5
+    for mode in tfd.MODES:
+        out = tfd.update_block(st, torch.zeros((5, 8)), mode=mode)
+        assert torch.equal(out.sketch, st.sketch) and float(out.shrink_loss) == 0.0
+        assert int(out.count) == 5
     with pytest.raises(ValueError):
         tfd.shrink_rr(torch.ones((12, 4)), 4, power_iters=0)
+    with pytest.raises(ValueError, match="unknown fd shrink mode"):
+        tfd.update_block(st, torch.ones((5, 8)), mode="nope")
+    rows = torch.from_numpy(np.random.default_rng(0).normal(size=(5, 8)).astype(np.float32))
     for mode in ("subspace", "subspace_ns"):
-        with pytest.raises(NotImplementedError):
-            tfd.update_block(st, torch.ones((5, 8)), mode=mode)
+        out = tfd.update_block(st, rows, mode=mode)
+        assert torch.isfinite(out.sketch).all() and int(out.count) == 5
     assert tfd.resolve_fold_mode("subspace") == "rr"
-    with pytest.raises(NotImplementedError):
-        tfd.shrink_fast(torch.ones((12, 4)), 4)
+    assert tfd.resolve_fold_mode("subspace_ns") == "subspace_ns"
+    b, delta = tfd.shrink_fast(torch.ones((12, 4)), 4)
+    assert b.shape == (4, 4) and float(delta) >= 0.0
 
 
 def test_swfd_absorb_and_query_match_jax(rng):

@@ -174,3 +174,89 @@ def test_config_behaviour_equal():
         assert (got.n_clusters_total, got.is_batch) == (want.n_clusters_total,
                                                         want.is_batch)
         assert got.replace(window_size=8).window_size == 8
+
+
+# ---------------------------------------------------------------------------
+# ops/matching.CentroidMatcher (slice 2f): host numpy + scipy, bit-equal
+# ---------------------------------------------------------------------------
+
+def _matcher_windows(seed: int, windows: int = 8, n: int = 60, d: int = 5):
+    """(feats, labels) per window: clusters whose centres drift and whose
+    window-local ids shuffle, events born and dying, a background (-1)
+    bucket, rows with non-finite features, one all-background window."""
+    rng = np.random.default_rng(seed)
+    centres = rng.normal(size=(12, d)) * 4.0
+    out = []
+    for w in range(windows):
+        live = rng.choice(12, size=rng.integers(2, 6), replace=False)
+        which = rng.integers(0, len(live), n)
+        feats = centres[live[which]] + 0.3 * rng.normal(size=(n, d)) + 0.05 * w
+        local = rng.permutation(len(live))[which].astype(np.int64)
+        local[rng.random(n) < 0.1] = -1
+        feats[rng.random(n) < 0.05, rng.integers(0, d)] = np.nan
+        if w == 5:
+            local[:] = -1
+        out.append((feats.astype(np.float32), local))
+    return out
+
+
+def _snap_equal(a: dict, b: dict) -> None:
+    assert a.keys() == b.keys()
+    for k in a:
+        if isinstance(a[k], np.ndarray) or isinstance(b[k], np.ndarray):
+            np.testing.assert_array_equal(a[k], b[k])
+        else:
+            assert a[k] == b[k], k
+
+
+@pytest.mark.parametrize("max_dist,max_registry,seed",
+                         [(None, 4096, 0), (2.0, 4096, 1), (None, 6, 2), (1.0, 4, 3)])
+def test_centroid_matcher_bit_equal(max_dist, max_registry, seed):
+    """Stable ids window by window, the registry (centroids, ids, last use,
+    next id) after each, eviction at a small ``max_registry`` included."""
+    want = jmatch.CentroidMatcher(max_dist, max_registry=max_registry)
+    got = tmatch.CentroidMatcher(max_dist, max_registry=max_registry)
+    for feats, labels in _matcher_windows(seed):
+        a, b = want.match(feats, labels), got.match(feats, labels)
+        assert a.dtype == b.dtype
+        np.testing.assert_array_equal(b, a)
+        _snap_equal(got.snapshot(), want.snapshot())
+    assert len(got.ids) <= max_registry
+
+
+def test_centroid_matcher_background_and_non_finite_rows():
+    """-1 rows keep -1 and register nothing; a cluster whose rows are all
+    non-finite keeps a zero centroid, like the original."""
+    feats = np.ones((6, 3), np.float32)
+    feats[3:] = np.nan
+    labels = np.array([0, 0, -1, 1, 1, 1])
+    for m in (jmatch.CentroidMatcher(), tmatch.CentroidMatcher()):
+        assert m.match(feats, np.full(6, -1)).tolist() == [-1] * 6 and m.centroids is None
+        assert m.match(feats, labels).tolist() == labels.tolist()
+        np.testing.assert_array_equal(m.centroids[1], np.zeros(3))
+        np.testing.assert_array_equal(m.match(feats, labels[::-1].copy()), [0, 0, 0, -1, 1, 1])
+
+
+@pytest.mark.parametrize("direction", ["jax_to_port", "port_to_jax"])
+def test_centroid_matcher_snapshot_round_trip(direction):
+    """A registry snapshotted after 4 windows and rebuilt in the other
+    package continues exactly as the uninterrupted original; the snapshot is
+    a copy, not a view of the live registry."""
+    windows = _matcher_windows(7)
+    src_mod, dst_mod = (jmatch, tmatch) if direction == "jax_to_port" else (tmatch, jmatch)
+    whole, first = jmatch.CentroidMatcher(1.5, max_registry=6), src_mod.CentroidMatcher(
+        1.5, max_registry=6)
+    for feats, labels in windows[:4]:
+        whole.match(feats, labels)
+        first.match(feats, labels)
+    snap = first.snapshot()
+
+    def copy(d):       # from_snapshot keeps last_used by reference, in both packages
+        return {k: (np.array(v) if isinstance(v, np.ndarray) else v) for k, v in d.items()}
+
+    before = copy(snap)
+    resumed = dst_mod.CentroidMatcher.from_snapshot(copy(snap))
+    for feats, labels in windows[4:]:
+        np.testing.assert_array_equal(resumed.match(feats, labels), whole.match(feats, labels))
+        first.match(feats, labels)
+    _snap_equal(snap, before)

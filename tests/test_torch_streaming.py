@@ -277,9 +277,22 @@ def test_engine_refuses_what_the_slice_does_not_run():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             ts.StreamingEngine(cfg, "cuda")
-    for bad in [dict(data_shards=2), dict(matching="centroid"), dict(windows_per_batch=4)]:
+    for bad in [dict(data_shards=2), dict(windows_per_batch=4)]:
         with pytest.raises(NotImplementedError):
             ts.StreamingEngine(cfg.replace(**bad), "cpu")
+    # centroid matching runs since slice 2f, on numeric streams and dense
+    # windows; elsewhere the JAX engine's ValueErrors, with their messages
+    assert ts.StreamingEngine(cfg.replace(matching="centroid"), "cpu").centroid_matcher
+    for package, device in ((js, ()), (ts, ("cpu",))):
+        with pytest.raises(ValueError, match="matching='centroid' runs on the dense-window"):
+            package.StreamingEngine(cfg.replace(matching="centroid",
+                                                force_blocked_window=True), *device)
+    for api, device in ((japi, {}), (tapi, {"device": "cpu"})):
+        with pytest.raises(ValueError, match="supports numeric-modality streams"):
+            api.process_streaming_data(None, [np.zeros((64, 2))] * 5, ts.STANDARD_TYPES,
+                                       **KW, **device, approach="sSVDMC",
+                                       complete_true_labels=np.zeros(64),
+                                       matching="centroid")
     # the column-sharded layouts run since slice 4a; on one device they are
     # the JAX engine's ValueError (tests/test_torch_colsharded_engine.py)
     with pytest.raises(ValueError, match="data_shards > 1"):
@@ -474,8 +487,12 @@ def test_span_timer_records_spans():
 
 
 def test_neither_jax_nor_pandas_is_imported():
-    """Nor the JAX package itself: the port keeps its own host tier."""
-    code = ("import sys; sys.path.insert(0, %r); import mused_tpu_torch.api; "
+    """Nor the JAX package itself: the port keeps its own host tier.  The
+    driver surface (``main``, ``data/sed2012``, ``utils/output``,
+    ``utils/tee``) imports with matplotlib absent, as on the card's machine
+    (its plots are skipped)."""
+    code = ("import sys; sys.modules['matplotlib'] = None; "    # as on the card's machine
+            "sys.path.insert(0, %r); import mused_tpu_torch.api; "
             "import chip_smoke; import mused_tpu_torch.utils.convert; "
             "import mused_tpu_torch.data.synthetic; "
             "import mused_tpu_torch.ops.blocked_affinity; "
@@ -490,8 +507,11 @@ def test_neither_jax_nor_pandas_is_imported():
             "import mused_tpu_torch.ops.blocked_hdbscan; "
             "import mused_tpu_torch.parallel.mesh; import mused_tpu_torch.parallel.colsharded; "
             "from mused_tpu_torch.native import IncDBHandle, incdb_available; "
-            "print([m for m in sys.modules if m.split('.')[0] in "
-            "('jax', 'pandas', 'mused_tpu')])"
+            "import mused_tpu_torch.main; import mused_tpu_torch.data.sed2012; "
+            "import mused_tpu_torch.utils.output as o; import mused_tpu_torch.utils.tee; "
+            "assert not o.HAVE_MPL; "
+            "print([m for m, mod in sys.modules.items() if mod is not None and "
+            "m.split('.')[0] in ('jax', 'pandas', 'mused_tpu', 'matplotlib')])"
             % REPO)
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                          cwd=REPO, timeout=300)

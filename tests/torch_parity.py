@@ -125,6 +125,28 @@ def synthetic_window_stream(n_rows=420, n_events=4, noise_rate=0.5, subset=256,
                               binary=True, noise_rate=noise_rate, seed=seed)
 
 
+def table_from_dataframe(df) -> dict:
+    """A JAX-package DataFrame (``data/sed2012`` or ``data/synthetic``) as the
+    port's column table: one numpy array per column, tags a list of lists."""
+    return {c: [list(x) for x in df[c]] if c == "tags" else df[c].to_numpy()
+            for c in df.columns}
+
+
+def assert_table_equals_frame(table: dict, df) -> None:
+    """Column by column, bit for bit: floats (NaN in the same places) and
+    ints with the frame's dtype, strings and tag lists equal."""
+    assert list(table) == list(df.columns)
+    for c in df.columns:
+        want, got = df[c].to_numpy(), table[c]
+        if c == "tags":
+            assert got == [list(x) for x in want], c
+        elif want.dtype.kind in "fiu":
+            assert got.dtype == want.dtype, (c, got.dtype, want.dtype)
+            np.testing.assert_array_equal(got, want, err_msg=c)
+        else:
+            assert list(got) == list(want), c
+
+
 def crisis_serving_reference(rows=20_000, window=2000, chunk=500):
     """The JAX detector's NMI on ``chip_smoke.py`` phase h2's stream and
     configuration (sSpectral, eigengap count up to 150 events, positional
