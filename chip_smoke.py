@@ -131,12 +131,32 @@ Phases (any failure exits non-zero; no phase is skipped):
          ``create_adjacency_matrix`` graph bit-equal to the engine's graph
          of that modality with exactly 4 K1 launches, then
          ``fuse_matrices``, ``perform_svd_reduction`` and
-         ``perform_clustering``.
+         ``perform_clustering``;
+  (l) slice 4b, the row-sharded layouts, at world size 1 (an NCCL group of
+      one, mesh (1, 1), assigned to a ``StreamingEngine`` built with the
+      phase's config and passed to ``process_streaming_data(...,
+      engine=engine)``):
+      l1 the sharded dense window step over (c)'s stream (75 windows) for
+         SWFDMC with the allgather merge, SWFDMC with the ring merge (0 hops
+         at size 1) and sSVDMC: windows/s, NMI, F1 beside (c)'s, no K1 (the
+         step fuses through the plain strip, as the JAX package's does); the
+         first window's fused shard on the card against the same function
+         on the CPU, each modality alone: time, username and tags bit-equal,
+         location and text on >= 99.9% of edges with every row's degree
+         equal; its ms beside the single-device K1 fusion's;
+      l2 the huge-window ``rows`` layout on the first window of (f)'s
+         stream: SWFDMC with exactly 96 K2, 48 K3, 96 K4 and 48 K5 and the
+         single-device fold's sq_frobenius, sSVDMC with 576 K2 + 288 K3,
+         sSpectral with 768 K2 + 384 K3; seconds beside (f)'s and (i3)'s;
+      l3 ``main.cli --parallel-sweep`` on the demo sweep (one point per
+         card) against the sequential demo, every point within 1e-6.
 
 Every phase prints its seconds.  ``--phases`` runs a subset (for
 development; the result lines are printed only when all phases ran).
 ``--profile`` also traces one huge window per approach with torch.profiler
-(kernel time by name, device busy share) and prints no result lines.
+(kernel time by name, device busy share, host time by operator), and with
+(l) 10 windows of the row-sharded dense step per approach (SWFDMC, sSVDMC,
+beside the engine's spans), and prints no result lines.
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
@@ -737,21 +757,32 @@ def profile_huge_window(mods, mtypes, labels, approach: str) -> dict:
         torch.cuda.synchronize()
 
     one_window(0)
+    return traced(lambda: one_window(1), {"approach": approach})
+
+
+def traced(run, what: dict, tag: str = "profile") -> dict:
+    """Trace ``run()`` with torch.profiler: wall ms, device busy ms and
+    share, device time by kernel and host time by operator (self time)."""
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
-        one_window(1)
+        run()
         wall = time.perf_counter() - t0
     by_name: dict[str, float] = {}
+    host: dict[str, float] = {}
     for ev in prof.key_averages():
         if ev.device_type == torch.autograd.DeviceType.CUDA and ev.self_device_time_total > 0:
             by_name[ev.key[:90]] = by_name.get(ev.key[:90], 0.0) + ev.self_device_time_total / 1e3
+        elif ev.device_type == torch.autograd.DeviceType.CPU and ev.self_cpu_time_total > 0:
+            host[ev.key[:60]] = host.get(ev.key[:60], 0.0) + ev.self_cpu_time_total / 1e3
     busy = sum(by_name.values())
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:14]
-    out = {"approach": approach, "wall_ms": wall * 1e3, "device_busy_ms": busy,
+    out = {**what, "wall_ms": wall * 1e3, "device_busy_ms": busy,
            "busy_share": busy / (wall * 1e3),
-           "kernels_ms": [{"name": k, "ms": v, "share_of_busy": v / busy} for k, v in top]}
-    print("[profile]", json.dumps(out), flush=True)
+           "kernels_ms": [{"name": k, "ms": v, "share_of_busy": v / busy}
+                          for k, v in sorted(by_name.items(), key=lambda kv: -kv[1])[:14]],
+           "host_ops_ms": [{"name": k, "ms": v}
+                           for k, v in sorted(host.items(), key=lambda kv: -kv[1])[:12]]}
+    print(f"[{tag}]", json.dumps(out), flush=True)
     return out
 
 
@@ -1834,9 +1865,253 @@ def phase_k6(mods, device, smi: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# slice 4b: the row-sharded layouts at world size 1, phase (l)
+# ---------------------------------------------------------------------------
+
+L1_RUNS = (("SWFDMC", "allgather"), ("SWFDMC", "ring"), ("sSVDMC", "allgather"))
+L2_APPROACHES = ("SWFDMC", "sSVDMC", "sSpectral")
+MODALITIES = ("location", "time", "username", "tags", "text")
+L1_BIT_EQUAL = ("time", "username", "tags")
+
+
+class LocalAxis:
+    """A world of one on the CPU: every collective is the identity, so the
+    row-sharded functions run there as they run on the card's group of one."""
+
+    size, index = 1, 0
+
+    def psum(self, x):
+        return x
+
+    def all_gather(self, x):
+        return x[None]
+
+
+def only_modality(host, keep: str):
+    """A standard window's features with every modality but ``keep``
+    invalid (NaN location, zero times, uid -1, no tag or text tokens)."""
+    f = {k: np.array(v) for k, v in host._asdict().items()}
+    if keep != "location":
+        f["location"][:] = np.nan
+    if keep != "time":
+        f["times"][:] = 0.0
+    if keep != "username":
+        f["user_ids"][:] = -1
+    if keep != "tags":
+        f["tags_valid"][:] = False
+        if "tags_ids" in f:
+            f["tags_ids"][:] = -1
+        else:
+            f["tags"][:] = 0
+    if keep != "text":
+        if "text_ids" in f:
+            f["text_ids"][:] = -1
+            f["text_cnt"][:] = 0
+        else:
+            f["text"][:] = 0
+    return type(host)(**f)
+
+
+def row_engine(cfg: PipelineConfig, mesh, device) -> streaming.StreamingEngine:
+    """A StreamingEngine of ``cfg`` on the row-sharded code: the mesh of the
+    NCCL group of one assigned to it (data_shards=1 builds none)."""
+    engine = streaming.StreamingEngine(cfg, device)
+    engine.mesh = mesh
+    return engine
+
+
+def phase_l1(mods, mtypes, labels, device, mesh, runs_c: list, smi: str) -> dict:
+    """The row-sharded dense window step (``parallel/sharded.sharded_engine_step``)
+    through ``process_streaming_data`` over (c)'s stream, no K1; the first
+    window's fused shard on the card against the same function on the CPU,
+    modality by modality, and its ms beside the single-device K1 fusion's."""
+    from mused_tpu_torch.parallel import sharded
+    out = {"card": smi, "world_size": 1, "runs": [], "single_device": [
+        {k: r[k] for k in ("approach", "windows_per_s", "nmi", "f1")} for r in runs_c]}
+    for approach, topology in L1_RUNS:
+        cfg = PipelineConfig(seed=SEED, subset_size=N_RECORDS, noise_rate=NOISE_RATE,
+                             label_mode="binary", sorting=True, window_size=WINDOW,
+                             reduced_dim=REDUCED_DIM, k_basis=K_BASIS, approach=approach,
+                             n_clusters_override=2, merge_topology=topology)
+        engine = row_engine(cfg, mesh, device)
+        n_windows = len(streaming.window_triggers(N_RECORDS, WINDOW, 1))
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        res = api.process_streaming_data(
+            results=api.get_initial_results()[0], data_modalities=mods,
+            modality_types=mtypes, window_size=WINDOW, reduced_dim=REDUCED_DIM,
+            k_basis=K_BASIS, n_clusters_total=2, seed=SEED, approach=approach,
+            complete_true_labels=labels, step_window_ratio=1, noise_rate=NOISE_RATE,
+            label_mode="binary", sorting=True, eps=1.5, min_samples=2, cfg=cfg,
+            engine=engine)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        out["runs"].append({"approach": approach, "topology": topology, "windows": n_windows,
+                            "seconds": secs, "windows_per_s": n_windows / secs,
+                            "nmi": res["nmi_score"][0], "f1": res["f1_score"][0],
+                            "k1_launches": ak.launches, "launches": huge_counts(),
+                            "spans": engine.timer.summary()})
+    engine = streaming.StreamingEngine(PipelineConfig(window_size=WINDOW, k_basis=K_BASIS,
+                                                      reduced_dim=REDUCED_DIM), device)
+    host = engine.featurize([m[:WINDOW] for m in mods], streaming.STANDARD_TYPES)
+    types = streaming.types_for(host, streaming.STANDARD_TYPES)
+    dims = dict(tags_dim=engine.cfg.features.tags_hash_dim,
+                text_dim=engine.cfg.features.text_hash_dim)
+    parity = {}
+    for modality in MODALITIES:
+        masked = only_modality(host, modality)
+        got = sharded.fused_shard(to_device(masked, device), types, k_basis=K_BASIS,
+                                  mesh=mesh, **dims).cpu()
+        want = sharded.features_to_fused_shard(to_device(masked, torch.device("cpu")), types,
+                                               K_BASIS,
+                                               axis=LocalAxis(), **dims)
+        parity[modality] = {"edges": int(want.sum()), "mismatched": int((got != want).sum()),
+                            "agreement": edge_agreement(got, want),
+                            "degrees_equal": bool(torch.equal(got.sum(1), want.sum(1)))}
+    feats = to_device(host, device)
+    out["fused_shard_parity"] = parity
+    out["ms_per_window"] = {
+        "row_shard_strip": cuda_ms(lambda: sharded.fused_shard(feats, types, k_basis=K_BASIS,
+                                                               mesh=mesh, **dims), reps=5),
+        "single_device_k1": cuda_ms(lambda: engine.fuse_from_features(host, feats,
+                                                                      streaming.STANDARD_TYPES),
+                                    reps=5)}
+    print("[l1]", json.dumps(out), flush=True)
+    for r in out["runs"]:
+        if r["k1_launches"] or any(r["launches"].values()):
+            raise AssertionError(f"l1: the row-sharded dense step launched a kernel: {r}")
+        if not all(np.isfinite(r[k]) and 0.0 <= r[k] <= 1.0 for k in ("nmi", "f1")):
+            raise AssertionError(f"l1: metrics out of range: {r}")
+    for modality, p in parity.items():
+        ok = (p["mismatched"] == 0 if modality in L1_BIT_EQUAL
+              else p["agreement"] >= EDGE_AGREEMENT and p["degrees_equal"])
+        if not ok or not p["edges"]:
+            raise AssertionError(f"l1: {modality} shard on the card against the CPU: {p}")
+    return out
+
+
+def profile_row_windows(mods, mtypes, labels, device, mesh, approach: str,
+                        windows: int = 10) -> dict:
+    """The row-sharded dense step's ``approach`` windows traced
+    (``--profile``): ``windows`` windows of (c)'s stream after a warm-up run
+    of 4, with the engine's own spans beside the trace."""
+    spans = {}
+
+    def run(n_windows: int):
+        n = n_windows * WINDOW
+        cfg = PipelineConfig(window_size=WINDOW, reduced_dim=REDUCED_DIM, k_basis=K_BASIS,
+                             approach=approach, n_clusters_override=2, label_mode="binary")
+        engine = row_engine(cfg, mesh, device)
+        api.process_streaming_data(
+            results=api.get_initial_results()[0], data_modalities=[m[:n] for m in mods],
+            modality_types=mtypes, window_size=WINDOW, reduced_dim=REDUCED_DIM,
+            k_basis=K_BASIS, n_clusters_total=2, seed=SEED, approach=approach,
+            complete_true_labels=labels[:n], step_window_ratio=1, noise_rate=NOISE_RATE,
+            label_mode="binary", sorting=True, eps=1.5, min_samples=2, cfg=cfg,
+            engine=engine)
+        torch.cuda.synchronize()
+        spans.update(engine.timer.summary())
+
+    run(4)
+    out = traced(lambda: run(windows), {"path": f"row-sharded dense {approach}",
+                                        "windows": windows}, tag="profile-rows")
+    return {**out, "spans": spans}
+
+
+def phase_l2(hmods, hmtypes, hlabels, cols: ba.Columns, device, mesh, single_seconds: dict,
+             smi: str) -> dict:
+    """The huge-window ``rows`` layout through ``process_streaming_data`` on the
+    first window of (f)'s stream: exact K2-K5 counts per approach, seconds
+    beside (f)'s and (i3)'s single-device windows; the row-sharded fold's
+    sq_frobenius against the single-device fold's."""
+    from mused_tpu_torch.parallel import sharded
+    out = {"card": smi, "world_size": 1, "window": HUGE_WINDOW, "runs": {},
+           "single_device_seconds_per_window": single_seconds}
+    blocks = BLOCKS_PER_WINDOW
+    want = {"SWFDMC": {"K2": 2 * blocks, "K3": blocks, "K4": 2 * blocks, "K5": blocks},
+            "sSVDMC": {"K2": 2 * SSVD_SWEEPS * blocks, "K3": SSVD_SWEEPS * blocks,
+                       "K4": 0, "K5": 0},
+            "sSpectral": {"K2": 2 * SPECTRAL_SWEEPS * blocks, "K3": SPECTRAL_SWEEPS * blocks,
+                          "K4": 0, "K5": 0}}
+    for approach in L2_APPROACHES:
+        cfg = huge_cfg(approach, HUGE_WINDOW)
+        engine = row_engine(cfg, mesh, device)
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        res = api.process_streaming_data(
+            results=api.get_initial_results()[0],
+            data_modalities=[m[:HUGE_WINDOW] for m in hmods], modality_types=hmtypes,
+            window_size=HUGE_WINDOW, reduced_dim=REDUCED_DIM, k_basis=K_BASIS,
+            n_clusters_total=2, seed=SEED, approach=approach,
+            complete_true_labels=hlabels[:HUGE_WINDOW], step_window_ratio=1,
+            noise_rate=NOISE_RATE, label_mode="binary", sorting=True, eps=1.5, min_samples=2,
+            cfg=cfg, engine=engine)
+        torch.cuda.synchronize()
+        out["runs"][approach] = {"seconds": time.perf_counter() - t0,
+                                 "launches": huge_counts(), "k1_launches": ak.launches,
+                                 "nmi": res["nmi_score"][0], "f1": res["f1_score"][0],
+                                 "spans": engine.timer.summary()}
+    ell = min(REDUCED_DIM, HUGE_WINDOW)
+    kw = dict(ell=ell, block=HUGE_BLOCK, k_basis=K_BASIS, select="binned", nbins=HUGE_NBINS)
+    _, sq1, _ = ba.blocked_fd_sketch(cols, **kw)
+    _, sq, _ = sharded.sharded_blocked_fd_sketch(cols, mesh=mesh, **kw)
+    out["sq_frobenius"], out["sq_frobenius_single_device"] = float(sq), float(sq1)
+    print("[l2]", json.dumps(out), flush=True)
+    for approach, r in out["runs"].items():
+        if r["launches"] != want[approach] or r["k1_launches"]:
+            raise AssertionError(f"l2 {approach}: launches {r['launches']} (K1 "
+                                 f"{r['k1_launches']}), expected {want[approach]}")
+        if not all(np.isfinite(r[k]) and 0.0 <= r[k] <= 1.0 for k in ("nmi", "f1")):
+            raise AssertionError(f"l2 {approach}: metrics out of range: {r}")
+    if out["sq_frobenius"] != out["sq_frobenius_single_device"]:
+        raise AssertionError(f"l2: sq_frobenius differs from the single-device fold: {out}")
+    return out
+
+
+def phase_l3(smi: str) -> dict:
+    """``main.cli --parallel-sweep`` on the demo sweep (one point per card)
+    against the sequential demo: every point's metrics within 1e-6."""
+    logged = {}
+    log_metrics = port_main.output.log_metrics
+    secs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, extra in (("sequential", []), ("parallel", ["--parallel-sweep"])):
+            def spy(**kw):
+                logged.setdefault(name, []).append(kw["metrics"])
+                return log_metrics(**kw)
+            port_main.output.log_metrics = spy
+            t0 = time.perf_counter()
+            try:
+                with contextlib.redirect_stdout(io.StringIO()):
+                    rc = port_main.cli(["--dataset", "demo", "--no-tee", "--log-dir", tmp,
+                                        "--plot-dir", tmp, *extra])
+            finally:
+                port_main.output.log_metrics = log_metrics
+            secs[name] = time.perf_counter() - t0
+            if rc != 0:
+                raise AssertionError(f"l3: the {name} demo exited {rc}")
+    diffs = []
+    for seq, par in zip(logged["sequential"], logged["parallel"]):
+        for approach, want in seq.items():
+            for key, vals in want.items():
+                if key == "processing_time" or not isinstance(vals[0], float):
+                    continue
+                diffs += [abs(a - b) for a, b in zip(par[approach][key], vals)]
+    points = sum(len(m[a]["nmi_score"]) for m in logged["parallel"] for a in m)
+    out = {"card": smi, "devices": [str(d) for d in port_main.sweep.sweep_devices("cuda")],
+           "points": points, "seconds": secs, "max_abs_diff": max(diffs)}
+    print("[l3]", json.dumps(out), flush=True)
+    if len(logged["parallel"]) != len(logged["sequential"]) or out["max_abs_diff"] > 1e-6:
+        raise AssertionError(f"l3: the parallel sweep differs from the sequential one: {out}")
+    return out
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--phases", default="abcdefghijk",
+    parser.add_argument("--phases", default="abcdefghijkl",
                         help="phases to run (a always runs); the result lines print "
                              "only when all ran")
     parser.add_argument("--profile", action="store_true",
@@ -1880,7 +2155,7 @@ def main() -> int:
     seconds["a"] = time.perf_counter() - t0
 
     rows_b, runs, main_launches = [], [], 0
-    if phases & set("bcdhik"):
+    if phases & set("bcdhikl"):
         t0 = time.perf_counter()
         mods, mtypes, labels = make_stream(N_RECORDS, noise_rate=NOISE_RATE, binary=True,
                                            sort_by_uploaded=True, seed=SEED)
@@ -1908,7 +2183,7 @@ def main() -> int:
 
     kernels_e, huge_runs, huge_launches = {}, [], {"K2": 0, "K3": 0, "K4": 0, "K5": 0}
     single_seconds = {}           # single-device seconds per huge window (f, i3)
-    if phases & set("efghij"):
+    if phases & set("efghijl"):
         t0 = time.perf_counter()
         hmods, hmtypes, hlabels = make_stream(HUGE_RECORDS, noise_rate=NOISE_RATE,
                                               binary=True, sort_by_uploaded=True,
@@ -1948,7 +2223,7 @@ def main() -> int:
     kernels_i = {}
     if "i" in phases:
         t0 = time.perf_counter()
-        del cols                    # the huge window's panels: the batch needs the room
+        cols = None                 # the huge window's panels: the batch needs the room
         torch.cuda.empty_cache()
         phase_i1(mods, mtypes, labels)
         seconds["i1"] = time.perf_counter() - t0
@@ -1968,7 +2243,7 @@ def main() -> int:
     kernels_j = {}
     if "j" in phases:
         t0 = time.perf_counter()
-        if "i" in phases:           # phase (i) dropped the huge window's panels
+        if cols is None:            # phase (i) dropped the huge window's panels
             cols = huge_columns(hmods, device)
         ops = huge_operands(cols, device)
         by_kind = dict(zip(cols.kinds, zip(cols.tensors, cols.valids)))
@@ -2008,17 +2283,42 @@ def main() -> int:
                               if isinstance(v, dict))
             seconds[name] = time.perf_counter() - t1
         seconds["k"] = time.perf_counter() - t0
+    if "l" in phases:
+        t0 = time.perf_counter()
+        torch.cuda.empty_cache()
+        with nccl_world_of_one() as mesh:
+            phase_l1(mods, mtypes, labels, device, mesh, runs, smi)
+            seconds["l1"] = time.perf_counter() - t0
+            t1 = time.perf_counter()
+            if cols is None:            # phase (i) dropped the huge window's panels
+                cols = huge_columns(hmods, device)
+            l2 = phase_l2(hmods, hmtypes, hlabels, cols, device, mesh, single_seconds, smi)
+            for run in l2["runs"].values():
+                for k, v in run["launches"].items():
+                    huge_launches[k] += v
+            seconds["l2"] = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        phase_l3(smi)
+        seconds["l3"] = time.perf_counter() - t1
+        seconds["l"] = time.perf_counter() - t0
     if args.profile:
         t0 = time.perf_counter()
-        if not phases & set("efghij"):
+        if not phases & set("efghijl"):
             hmods, hmtypes, hlabels = make_stream(HUGE_RECORDS, noise_rate=NOISE_RATE,
                                                   binary=True, sort_by_uploaded=True,
                                                   seed=SEED)
         for approach in ("SWFDMC", "sSVDMC"):
             profile_huge_window(hmods, hmtypes, hlabels, approach)
+        if "l" in phases:
+            with nccl_world_of_one() as mesh:
+                for approach in ("SWFDMC", "sSVDMC"):
+                    with contextlib.redirect_stdout(io.StringIO()):
+                        row_profile = profile_row_windows(mods, mtypes, labels, device, mesh,
+                                                          approach)
+                    print("[profile]", json.dumps(row_profile), flush=True)
         seconds["profile"] = time.perf_counter() - t0
     print("[seconds]", json.dumps(seconds), flush=True)
-    if phases != set("abcdefghijk") or args.profile:
+    if phases != set("abcdefghijkl") or args.profile:
         return 0
 
     main_rows = [r for r in rows_b if r["case"] in ("location", "time", "tags", "text")]

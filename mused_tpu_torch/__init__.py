@@ -8,8 +8,8 @@ own copies of the host tier it needs (``utils/config``, ``data/features``,
 built at first use), ``ops/matching``, ``utils/metrics``, ``utils/output``,
 ``utils/tee``), each naming its original.
 
-Layer map (slices 1-3 and 4a: everything the JAX package does on one
-device, and its column-sharded huge-window layouts):
+Layer map (slices 1-4: everything the JAX package does, but the scanned
+multi-window dispatch, not ported by decision):
   main.py      the CLI sweep driver (``python -m mused_tpu_torch.main``)
   api.py       reference-compatible facade: every name of ``mused_tpu/api.py``
                (the engines, the loaders, SeqBasedSWFD, the reference's
@@ -31,8 +31,10 @@ device, and its column-sharded huge-window layouts):
   ops/kernels/ hand-written Hopper kernels (CUDA C++ in csrc/: K1 kNN
                adjacency, K2 / K3 binned candidates, K4 / K5 candidate
                products), their plain versions and their build
-  parallel/    named-axis mesh over torch.distributed, the column-sharded
-               huge-window layouts
+  parallel/    named-axis mesh over torch.distributed, the row-sharded
+               layouts (dense window step, huge-window row blocks, FD sketch
+               merges, row-sharded k-means), the column-sharded huge-window
+               layouts, the parallel sweep
   data/        host featurization, the SED2012 loader (no pandas), numpy
                synthetic streams (SED-like, sketch benchmark, crisis
                embeddings), threaded host->device prefetch

@@ -12,10 +12,15 @@ rate overwrites the requested one and carries across sweep values
 constants (main.py:200); the second pass with label mode ``types``
 (main.py:340-358).  ``--dataset demo`` runs the reference's demo config on
 ``--device`` (the JAX package forces its CPU backend there).
+``--parallel-sweep`` evaluates a sweep's points concurrently, one per card
+(``parallel/sweep``).  ``--data-shards p`` runs every point SPMD over p
+ranks, one per card, started by the caller:
 
-Not ported: ``--parallel-sweep`` (``parallel/sweep``, slice 4b) raises
-``NotImplementedError``; ``--data-shards`` > 1 on the ``rows`` layout and
-``--windows-per-batch`` > 1 raise in the engine, as its entry points do.
+    torchrun --nproc-per-node p -m mused_tpu_torch.main --data-shards p
+
+(each rank binds ``cuda:LOCAL_RANK``); rank 0 alone writes the logs, plots
+and tee files.  Not ported: ``--windows-per-batch`` > 1 raises in the
+engine, as its entry points do.
 """
 from __future__ import annotations
 
@@ -27,6 +32,7 @@ import numpy as np
 from mused_tpu_torch.data import sed2012, synthetic
 from mused_tpu_torch.engine.batch import process_batch_data
 from mused_tpu_torch.engine.streaming import process_streaming_data
+from mused_tpu_torch.parallel import sweep
 from mused_tpu_torch.utils import metrics as metrics_mod, output, tee
 from mused_tpu_torch.utils.config import APPROACHES, PipelineConfig
 
@@ -114,31 +120,69 @@ def run_experiment(df, experiment_type, variable_values, approaches, fixed_param
                    parallel: bool = False, *, device="cuda"):
     """One sweep: variable x approaches (reference main.py:169-256), on
     ``device``; ``df`` is a column table (``data/sed2012``).  Returns
-    ``count + 1``."""
-    if parallel:
-        raise NotImplementedError(
-            "the parallel sweep (parallel/sweep) is ported in slice 4b; run the "
-            "sweep sequentially")
+    ``count + 1``.
+
+    ``parallel=True`` evaluates the (approach, value) grid concurrently, one
+    point per device of :func:`sweep.sweep_devices` (every card for a bare
+    ``"cuda"``), in two phases so the merged results equal the sequential
+    sweep's: phase 1 walks the sweep order data-only, chaining the
+    reference's measured-noise-rate quirk (main.py:196) through one
+    ``prepare_modalities`` per point; phase 2 runs the points in parallel,
+    each with its phase-1 parameter snapshot."""
     print(f"Running {experiment_type} experiment.")
     print(f"Fixed params: {fixed_params}")
     start_ns = time.time_ns()
     params = fixed_params.copy()
     metrics: dict = {}
-    for approach in approaches:
-        results, independent_variables = metrics_mod.get_initial_results()
-        approach_start = time.time_ns()
-        for var_value in variable_values:
-            params[experiment_type] = var_value
-            print(f"Running experiment with {experiment_type} = {var_value} "
-                  f"for {approach} approach")
-            print(f"Params: {params}")
-            # quirk kept: the measured noise rate overwrites the request and
-            # persists across sweep values (reference main.py:196)
-            params["noise_rate"] = _eval_sweep_point(df, params, approach, results,
-                                                     engine_opts, device)
-        approach_sec = (time.time_ns() - approach_start) / 1e9
-        print(f"Processed with {approach} approach for {approach_sec} seconds")
-        metrics[approach] = results
+    if parallel:
+        # phase 1: the quirk's chain in the sequential order, engine-free; in
+        # a noise_rate sweep the next value overwrites each measurement before
+        # anything reads it, so only the last point's is measured
+        points = []
+        n_points = len(approaches) * len(variable_values)
+        for approach in approaches:
+            for var_value in variable_values:
+                params[experiment_type] = var_value
+                points.append((approach, var_value, params.copy()))
+                if experiment_type != "noise_rate" or len(points) == n_points:
+                    params["noise_rate"] = _measured_noise_rate(df, params)
+
+        def eval_point(point, dev):
+            approach, _, p = point
+            results_p, _ = metrics_mod.get_initial_results()
+            return results_p, _eval_sweep_point(df, p, approach, results_p, engine_opts,
+                                                dev)
+
+        # phase 2: independent engine runs, one per device
+        outs = sweep.parallel_sweep(eval_point, points, sweep.sweep_devices(device))
+        independent_variables = metrics_mod.get_initial_results()[1]
+        for ai, approach in enumerate(approaches):
+            merged, _ = metrics_mod.get_initial_results()
+            for vi in range(len(variable_values)):
+                part, _ = outs[ai * len(variable_values) + vi]
+                for key, vals in part.items():
+                    merged[key].extend(vals)
+            metrics[approach] = merged
+        # params carries the last point's measured rate from phase 1, as the
+        # sequential quirk leaves it for the details string (phase 2 measured
+        # the same)
+        assert abs(params["noise_rate"] - outs[-1][1]) < 1e-12
+    else:
+        for approach in approaches:
+            results, independent_variables = metrics_mod.get_initial_results()
+            approach_start = time.time_ns()
+            for var_value in variable_values:
+                params[experiment_type] = var_value
+                print(f"Running experiment with {experiment_type} = {var_value} "
+                      f"for {approach} approach")
+                print(f"Params: {params}")
+                # quirk kept: the measured noise rate overwrites the request and
+                # persists across sweep values (reference main.py:196)
+                params["noise_rate"] = _eval_sweep_point(df, params, approach, results,
+                                                         engine_opts, device)
+            approach_sec = (time.time_ns() - approach_start) / 1e9
+            print(f"Processed with {approach} approach for {approach_sec} seconds")
+            metrics[approach] = results
 
     details = (f'mode={params["label_mode"]},sorted={params["sorting"]},'
                f'noise={params["noise_rate"]},window={params["window_size"]},'
@@ -186,11 +230,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--plot-dir", default="plots/")
     p.add_argument("--no-tee", action="store_true")
     p.add_argument("--data-shards", type=int, default=1,
-                   help="shard huge windows' features over this many ranks (the "
-                        "columns / grid layouts, under torchrun); > 1 on the rows "
-                        "layout is not ported yet")
+                   help="run each sweep point SPMD over this many ranks, one per card "
+                        "(start them with torchrun --nproc-per-node N)")
     p.add_argument("--merge-topology", choices=["allgather", "ring"], default="allgather",
-                   help="multi-device FD sketch merge (ring: not ported yet)")
+                   help="multi-device FD sketch merge")
     p.add_argument("--huge-window-layout", choices=["rows", "columns", "grid"],
                    default="rows",
                    help="multi-device huge-window sweep layout: rows = replicated "
@@ -222,8 +265,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="label the far mode of the distance-to-centroid distribution "
                         "-1 (no event) instead of forcing it into a cluster")
     p.add_argument("--parallel-sweep", action="store_true",
-                   help="evaluate the sweep's (approach, value) grid concurrently "
-                        "(not ported yet: parallel/sweep)")
+                   help="evaluate the sweep's (approach, value) grid concurrently, "
+                        "one point per card (parallel/sweep)")
     p.add_argument("--verbose", action="store_true",
                    help="small-window debug oracles (the reference's subset<1000 "
                         "prints, main.py:35-103)")
@@ -248,8 +291,35 @@ def load_dataframe(args):
     return synthetic.synthetic_events(n_rows=n, n_events=6, noise_rate=0.5, seed=args.seed)
 
 
+def _join_ranks(args) -> bool:
+    """Under torchrun with ``--data-shards`` > 1 and no process group yet:
+    join the ranks' group (NCCL on the card, gloo on the CPU), each rank on
+    its own card ``cuda:LOCAL_RANK``.  Returns whether it joined."""
+    import os
+
+    import torch
+    import torch.distributed as dist
+    if args.data_shards <= 1 or dist.is_initialized() or "RANK" not in os.environ:
+        return False
+    if args.device == "cuda":
+        args.device = f"cuda:{int(os.environ.get('LOCAL_RANK', 0))}"
+        torch.cuda.set_device(torch.device(args.device))
+    dist.init_process_group("nccl" if args.device.startswith("cuda") else "gloo")
+    return True
+
+
 def cli(argv=None) -> int:
     args = build_parser().parse_args(argv)
+    if _join_ranks(args):
+        import torch.distributed as dist
+        try:
+            return _run(args)
+        finally:
+            dist.destroy_process_group()
+    return _run(args)
+
+
+def _run(args) -> int:
     start_ns = time.time_ns()
     np.random.seed(args.seed)
     if args.dataset == "demo":

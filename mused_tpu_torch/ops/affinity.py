@@ -97,6 +97,14 @@ def haversine_block(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return 2.0 * 6371.0 * torch.arcsin(torch.sqrt(torch.clamp(h, 0.0, 1.0)))
 
 
+def haversine_sim(rows: torch.Tensor, cols: torch.Tensor, row_valid: torch.Tensor,
+                  col_valid: torch.Tensor) -> torch.Tensor:
+    """(m, n) negated haversine distances of [lat, lon] rows against
+    columns, invalid ones at (0, 0): the location kNN's similarity strip."""
+    return -haversine_block(torch.where(row_valid[:, None], rows, 0.0),
+                            torch.where(col_valid[:, None], cols, 0.0))
+
+
 def location_adjacency(latlon: torch.Tensor, k_basis: int) -> torch.Tensor:
     """kNN under haversine distance; NaN coordinates are invalid."""
     valid = torch.all(torch.isfinite(latlon), dim=1)
@@ -108,6 +116,15 @@ def time_valid(times: torch.Tensor) -> torch.Tensor:
     """Zero or non-finite timestamps are invalid (NaN also marks padding)."""
     return (torch.all(torch.isfinite(times), dim=1)
             & (times[:, 0] != 0.0) & (times[:, 1] != 0.0))
+
+
+def time_sim(rows: torch.Tensor, cols: torch.Tensor, row_valid: torch.Tensor,
+             col_valid: torch.Tensor) -> torch.Tensor:
+    """(m, n) negated |dt_taken| + |dt_upload| of rows against columns,
+    invalid ones at 0: the time kNN's similarity strip."""
+    r = torch.where(row_valid[:, None], rows, 0.0)
+    c = torch.where(col_valid[:, None], cols, 0.0)
+    return -(torch.abs(r[:, :1] - c[:, 0][None, :]) + torch.abs(r[:, 1:2] - c[:, 1][None, :]))
 
 
 def time_adjacency(times: torch.Tensor, k_basis: int) -> torch.Tensor:
@@ -176,13 +193,22 @@ def text_adjacency(text_counts: torch.Tensor, k_basis: int,
     return knn_adjacency(tfidf_cosine_matrix(text_counts), valid, k_basis)
 
 
+def euclidean_sim(rows: torch.Tensor, cols: torch.Tensor, row_valid: torch.Tensor,
+                  col_valid: torch.Tensor) -> torch.Tensor:
+    """(m, n) negated squared Euclidean distances (clamped at 0) of rows
+    against columns, invalid ones at the origin: the default modality's
+    kNN similarity strip."""
+    r = torch.where(row_valid[:, None], rows, 0.0)
+    c = torch.where(col_valid[:, None], cols, 0.0)
+    d2 = (torch.sum(r * r, dim=1)[:, None] + torch.sum(c * c, dim=1)[None, :]
+          - 2.0 * (r @ c.T))
+    return -torch.clamp(d2, min=0.0)
+
+
 def euclidean_adjacency(data: torch.Tensor, k_basis: int) -> torch.Tensor:
     """Default modality: Euclidean kNN with k_basis-1 neighbours."""
     valid = torch.all(torch.isfinite(data), dim=1)
-    safe = torch.where(valid[:, None], data, 0.0)
-    sq = torch.sum(safe * safe, dim=1)
-    d2 = sq[:, None] + sq[None, :] - 2.0 * (safe @ safe.T)
-    return knn_adjacency(-torch.clamp(d2, min=0.0), valid, max(1, k_basis) - 1)
+    return knn_adjacency(euclidean_sim(data, data, valid, valid), valid, max(1, k_basis) - 1)
 
 
 def embedding_adjacency(emb: torch.Tensor, k_basis: int) -> torch.Tensor:

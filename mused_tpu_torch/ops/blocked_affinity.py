@@ -27,10 +27,17 @@ Column kinds are the ones the column builders emit: ``location_xyz``,
 ``time``, ``username``, ``tags`` (int8 counts + hoisted f32 row sums),
 ``text_bf16``, ``embedding_bf16`` (and the legacy ``embedding_split``, the
 same dot), ``default_safe`` (bf16 + hoisted squared norms); ``hoist_columns``
-turns a raw ``location`` or untupled ``tags`` into them.  The other legacy
-hand-assembled kinds (``text_split``, ``text``, ``text_norm``,
-``embedding_unit``, ``embedding``, raw ``default``) raise
-``NotImplementedError``: they are ported in a later PR.
+turns a raw ``location`` or untupled ``tags`` into them.  The legacy
+hand-assembled kinds run on the strip route only, as in the JAX package
+(:func:`_legacy_strip`): ``text_split`` (bf16 [hi | lo] halves, the
+three-term product), ``text`` (raw counts, idf-scaled when the columns
+carry an idf, then L2-normalized), ``text_norm`` (pre-normalized rows),
+``embedding_unit`` (pre-normalized f32 rows), ``embedding`` (raw rows,
+normalized here) and raw ``default`` (Euclidean, masked here), which any
+other kind name also takes, as in the JAX package.  The JAX
+package computes ``text`` at ``Precision.HIGH`` (three bf16 passes on the
+TPU, exact f32 on its CPU); the port computes it in true fp32, which is at
+least as precise.
 """
 from __future__ import annotations
 
@@ -58,13 +65,6 @@ class Columns(NamedTuple):
     def n(self) -> int:
         t = self.tensors[0]
         return (t[0] if isinstance(t, tuple) else t).shape[0]
-
-
-def _legacy(kind: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"column kind {kind!r} (a legacy hand-assembled layout) is ported in a "
-        "later PR; the column builders emit location_xyz, time, username, tags, "
-        "text_bf16, embedding_bf16 and default_safe")
 
 
 def _unit_xyz(latlon: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
@@ -167,13 +167,17 @@ _METRIC = {"location": "chord3", "location_xyz": "chord3", "time": "l1", "tags":
            "default_safe": "chord"}
 
 
+LEGACY_KINDS = ("text_split", "text", "text_norm", "embedding_unit", "embedding", "default")
+
+
 def _metric_k(kind: str, k_basis: int) -> tuple[str, int]:
     """(metric, k) of a modality kind: the one place the mapping lives, shared
     by the strip, binned and candidate-form blocks so all select the same
     edges.  Time takes 3 * k_basis neighbours; default counts self among
     its k_basis, as the reference does."""
     if kind not in _METRIC:
-        raise _legacy(kind)
+        raise ValueError(f"column kind {kind!r} has no kernel metric: expected one of "
+                         f"{sorted(_METRIC)} or a legacy strip kind {LEGACY_KINDS}")
     metric = _METRIC[kind]
     return metric, {"l1": 3 * k_basis, "chord": max(1, k_basis) - 1}.get(metric, k_basis)
 
@@ -183,6 +187,29 @@ def _binned_ok(kind: str, t) -> bool:
     tensor-core metrics on panels whose width is a multiple of 128."""
     tt = t[0] if isinstance(t, tuple) else t
     return kind in _METRIC and (_METRIC[kind] in bs.COORD_METRICS or tt.shape[1] % 128 == 0)
+
+
+def _legacy_strip(kind: str, t: torch.Tensor, valid: torch.Tensor, rows: slice,
+                  idf: torch.Tensor | None, k_basis: int) -> tuple[torch.Tensor, int]:
+    """(block, n) f32 similarity strip and k of a legacy hand-assembled kind
+    (``mused_tpu/ops/blocked_affinity.py:479-555``); an unknown kind is raw
+    ``default``.  bf16 operands are upcast before the product (their
+    products are exact in f32)."""
+    x = t.float()
+    if kind == "text_split":            # hi@hi + hi@lo + lo@hi of the bf16 halves
+        h = x.shape[1] // 2
+        hc, lc = x[:, :h], x[:, h:]
+        hr, lr = hc[rows], lc[rows]
+        return hr @ hc.T + hr @ lc.T + lr @ hc.T, k_basis
+    if kind in ("text", "embedding"):   # normalized here (text idf-scaled first)
+        if kind == "text" and idf is not None:
+            x = x * idf[None, :]
+        x = x / torch.clamp(torch.linalg.norm(x, dim=1, keepdim=True), min=1e-12)
+        return x[rows] @ x.T, k_basis
+    if kind in ("text_norm", "embedding_unit"):     # pre-normalized rows
+        return x[rows] @ x.T, k_basis
+    # "default", and any other kind: Euclidean, self counted among k_basis
+    return affinity.euclidean_sim(x[rows], x, valid[rows], valid), max(1, k_basis) - 1
 
 
 def _modality_candidates(t, tr, valid, vr, k, metric, *, start: int, block: int,
@@ -261,6 +288,11 @@ def fused_rowblock(cols: Columns, start: int, block: int, k_basis: int,
         if kind in pair:
             cands.append(_pair_keep(kind, pair, vr, k_basis, n))
             continue
+        if kind not in _METRIC:         # a legacy kind: the strip only
+            sim, k = _legacy_strip(kind, t, valid, rows, cols.idf, k_basis)
+            mats.append(affinity.knn_adjacency_block(sim, vr, valid, k, start, approx,
+                                                     out_dtype=torch.bool))
+            continue
         metric, k = _metric_k(kind, k_basis)
         t, stats = t if isinstance(t, tuple) else (t, None)
         if binned and _binned_ok(kind, t):
@@ -283,9 +315,11 @@ def fused_rowblock(cols: Columns, start: int, block: int, k_basis: int,
 
 
 def scan_blocks(cols: Columns, block: int, k_basis: int, approx: bool = False,
-                select: str = "strip", nbins: int = 0, out_dtype=torch.float32):
-    """Yield ``(start, fused_rowblock(...))`` over every row block in order,
-    the counterpart of the JAX package's ``_scan_blocks``, with
+                select: str = "strip", nbins: int = 0, out_dtype=torch.float32,
+                starts=None):
+    """Yield ``(start, fused_rowblock(...))`` over every row block in order
+    (or over the block starts ``starts``: a row-sharded sweep's share), the
+    counterpart of the JAX package's ``_scan_blocks``, with
     ``hoist_columns`` applied once per sweep.  The sweeps that accumulate
     over blocks (degrees, ``A^T v``) would count a clamped last block's rows
     twice, so ``block`` must divide n: it raises otherwise."""
@@ -294,7 +328,7 @@ def scan_blocks(cols: Columns, block: int, k_basis: int, approx: bool = False,
     if n % block:
         raise ValueError(f"block={block} must divide n={n} (pad rows upstream): a "
                          "clamped last block would count rows twice")
-    for start in range(0, n, block):
+    for start in (range(0, n, block) if starts is None else starts):
         yield start, fused_rowblock(cols, start, block, k_basis, approx, select, nbins,
                                     out_dtype)
 
@@ -328,9 +362,10 @@ def candidate_rowblock(cols: Columns, start: int, block: int, k_basis: int,
         if kind in pair:
             slabs.append(cm.pack_slab(*_pair_keep(kind, pair, valid[rows], k_basis, n)))
             continue
-        metric, k = _metric_k(kind, k_basis)
         if not _binned_ok(kind, t):
-            raise ValueError(f"kind {kind!r} has no candidate route (panel width)")
+            raise ValueError(f"kind {kind!r} has no candidate route (a legacy strip kind, "
+                             "or the panel width)")
+        metric, k = _metric_k(kind, k_basis)
         t, stats = t if isinstance(t, tuple) else (t, None)
         res = _modality_candidates(t, t[rows], valid, valid[rows], k, metric, start=start,
                                    block=block, n=n, nbins=nbins, use_kernel=use_kernel,
@@ -352,10 +387,11 @@ def candidate_rowblock(cols: Columns, start: int, block: int, k_basis: int,
 def blocked_fd_sketch(cols: Columns, *, ell: int, block: int, k_basis: int,
                       mode: str = "subspace", approx_knn: bool = False,
                       select: str = "strip", nbins: int = 0,
-                      cand_fold: bool | None = None):
+                      cand_fold: bool | None = None, starts=None):
     """FD sketch (ell, n) of the implicit fused adjacency's rows in one
     rematerialized sweep -> (sketch, sq_frobenius, shrink_loss), the
-    huge-window SWFDMC summary.
+    huge-window SWFDMC summary; ``starts`` folds only the row blocks that
+    start there (a row-sharded sweep's share), else every block.
 
     ``cand_fold`` absorbs candidate-form blocks (``fd.shrink_rr_cands``: the
     fold's products run off the int8 slabs through K4 / K5); it needs the rr
@@ -380,7 +416,7 @@ def blocked_fd_sketch(cols: Columns, *, ell: int, block: int, k_basis: int,
         raise ValueError("cand_fold=True needs the rr shrink, select='binned', block | "
                          "n, and every modality binned-eligible (cand_fold_supported)")
     state = fd.init(ell, n, device)
-    for start in range(0, n, block):
+    for start in (range(0, n, block) if starts is None else starts):
         if cand_fold:
             cand = candidate_rowblock(cols, start, block, k_basis, nbins)
             b, delta, edges = fd.shrink_rr_cands(state.sketch, cand, ell)
@@ -417,29 +453,39 @@ def randomized_svd_from_products(mul_a, mul_at, generator: torch.Generator | Non
     return out
 
 
+def no_reduce(x: torch.Tensor) -> torch.Tensor:
+    """The ``allreduce`` of a sweep that covers every block: nothing to sum."""
+    return x
+
+
 def blocked_svd_reduce(cols: Columns, generator: torch.Generator | None, *, rank: int,
                        block: int, k_basis: int, n_iter: int = 2, oversample: int = 8,
                        approx_knn: bool = False, select: str = "strip", nbins: int = 0,
-                       omega: torch.Tensor | None = None) -> torch.Tensor:
+                       omega: torch.Tensor | None = None, starts=None,
+                       allreduce=no_reduce) -> torch.Tensor:
     """TruncatedSVD.fit_transform of the implicit fused adjacency with
-    (2 + 2 * n_iter) rematerialized sweeps over row blocks -> (n, rank)."""
+    (2 + 2 * n_iter) rematerialized sweeps over row blocks -> (n, rank).
+    ``starts`` sweeps only the row blocks that start there and ``allreduce``
+    sums each product over the sweeps that share the blocks (a row-sharded
+    sweep, ``parallel/sharded``); the defaults sweep every block."""
     cols = hoist_columns(cols)
     n = cols.n
 
     def blocks():          # raises where block does not divide n
-        return scan_blocks(cols, block, k_basis, approx_knn, select, nbins, torch.bfloat16)
+        return scan_blocks(cols, block, k_basis, approx_knn, select, nbins, torch.bfloat16,
+                           starts=starts)
 
-    def mul_a(v):          # A @ v, one block of rows at a time
-        acc = torch.empty((n, v.shape[1]), dtype=torch.float32, device=v.device)
+    def mul_a(v):          # A @ v, one block of rows at a time (others' rows stay 0)
+        acc = torch.zeros((n, v.shape[1]), dtype=torch.float32, device=v.device)
         for start, fused in blocks():
             acc[start:start + block] = fused.float() @ v
-        return acc
+        return allreduce(acc)
 
     def mul_at(v):         # A^T @ v, summed over blocks in order
         acc = torch.zeros((n, v.shape[1]), dtype=torch.float32, device=v.device)
         for start, fused in blocks():
             acc += fused.float().T @ v[start:start + block]
-        return acc
+        return allreduce(acc)
 
     return randomized_svd_from_products(mul_a, mul_at, generator, n=n, rank=rank,
                                         oversample=oversample, n_iter=n_iter,

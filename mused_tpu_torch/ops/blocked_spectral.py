@@ -33,29 +33,33 @@ from mused_tpu_torch.ops.spectral import eigengap_k_from_spectrum  # noqa: F401
 
 
 def _degrees(cols: ba.Columns, *, block: int, k_basis: int, approx_knn: bool = False,
-             select: str = "strip", nbins: int = 0) -> torch.Tensor:
-    """(n,) degrees of (A + A^T)/2: one sweep of row and column sums."""
+             select: str = "strip", nbins: int = 0, starts=None,
+             allreduce=ba.no_reduce) -> torch.Tensor:
+    """(n,) degrees of (A + A^T)/2: one sweep of row and column sums
+    (``starts`` / ``allreduce`` as in ``blocked_affinity.blocked_svd_reduce``)."""
     n = cols.n
     device = cols.valids[0].device
     row_sums = torch.zeros(n, dtype=torch.float32, device=device)
     col_sums = torch.zeros(n, dtype=torch.float32, device=device)
-    for start, fused in ba.scan_blocks(cols, block, k_basis, approx_knn, select, nbins):
+    for start, fused in ba.scan_blocks(cols, block, k_basis, approx_knn, select, nbins,
+                                       starts=starts):
         row_sums[start:start + block] = torch.sum(fused, dim=1)
         col_sums += torch.sum(fused, dim=0)
-    return 0.5 * (row_sums + col_sums)
+    return 0.5 * allreduce(row_sums + col_sums)
 
 
 def _sym_matmul(cols: ba.Columns, v: torch.Tensor, *, block: int, k_basis: int,
-                approx_knn: bool = False, select: str = "strip",
-                nbins: int = 0) -> torch.Tensor:
+                approx_knn: bool = False, select: str = "strip", nbins: int = 0,
+                starts=None, allreduce=ba.no_reduce) -> torch.Tensor:
     """((A + A^T)/2) @ v for (n, m) v in one sweep: each block is rebuilt
     once and used for both ``fused @ v`` and ``fused.T @ v_block``."""
     av = torch.zeros_like(v)
     atv = torch.zeros_like(v)
-    for start, fused in ba.scan_blocks(cols, block, k_basis, approx_knn, select, nbins):
+    for start, fused in ba.scan_blocks(cols, block, k_basis, approx_knn, select, nbins,
+                                       starts=starts):
         av[start:start + block] = fused @ v
         atv += fused.T @ v[start:start + block]
-    return 0.5 * (av + atv)
+    return 0.5 * allreduce(av + atv)
 
 
 def ritz_from_products(sym_matmul, inv_sqrt: torch.Tensor,
@@ -82,21 +86,24 @@ def ritz_from_products(sym_matmul, inv_sqrt: torch.Tensor,
 def spectral_embedding_blocked(cols: ba.Columns, generator: torch.Generator | None, *,
                                k_max: int, block: int, k_basis: int, n_iter: int = 6,
                                oversample: int = 8, approx_knn: bool = False,
-                               select: str = "strip", nbins: int = 0):
+                               select: str = "strip", nbins: int = 0,
+                               probe: torch.Tensor | None = None, starts=None,
+                               allreduce=ba.no_reduce):
     """(ritz, eigenvalues) of the implicit fused adjacency's normalized-cuts
     operator, so a caller can take the cluster count from the spectrum
     before the labels (``k_estimate="eigengap"``).  ``select`` / ``nbins``
-    route the sweeps' kNN as in ``blocked_svd_reduce``.  Rows must tile
-    into blocks exactly (pad upstream)."""
+    route the sweeps' kNN and ``starts`` / ``allreduce`` share them out as
+    in ``blocked_svd_reduce``; ``probe`` injects the Gaussian start.  Rows
+    must tile into blocks exactly (pad upstream)."""
     n = cols.n
     if n % block:
         raise ValueError(f"block={block} must divide n={n} (pad rows upstream)")
     kw = dict(block=block, k_basis=k_basis, approx_knn=approx_knn, select=select,
-              nbins=nbins)
+              nbins=nbins, starts=starts, allreduce=allreduce)
     deg = _degrees(cols, **kw)
     inv_sqrt = torch.where(deg > 0, torch.rsqrt(torch.clamp(deg, min=1e-12)), 0.0)
     return ritz_from_products(lambda v: _sym_matmul(cols, v, **kw), inv_sqrt, generator,
-                              n=n, m=min(k_max + oversample, n), n_iter=n_iter)
+                              n=n, m=min(k_max + oversample, n), n_iter=n_iter, probe=probe)
 
 
 def spectral_clustering_blocked(cols: ba.Columns, n_clusters,

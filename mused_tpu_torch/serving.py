@@ -331,11 +331,14 @@ class StreamDetector:
     def save(self, path: str) -> list[WindowResult]:
         """Checkpoint the detector (device state, matcher state, the raw
         record tail).  Pending windows are flushed first so the saved state
-        is window-consistent; their results are returned.  Same trust model
-        as ``utils/checkpoint``: load only checkpoints you wrote."""
+        is window-consistent; their results are returned.  When the engine
+        runs SPMD over a mesh, rank 0 alone writes and every rank returns
+        after the write.  Same trust model as ``utils/checkpoint``: load only
+        checkpoints you wrote."""
         flushed = self.flush()
+        from mused_tpu_torch.parallel import mesh as mesh_mod
         from mused_tpu_torch.utils import checkpoint as ckpt
-        ckpt.save_checkpoint(path, self.engine.state, {
+        mesh_mod.write_once(lambda: ckpt.save_checkpoint(path, self.engine.state, {
             "serving": True,
             "count": self._count,
             "window_index": self._window_index,
@@ -348,7 +351,7 @@ class StreamDetector:
             # the full config, nested FeatureConfig included: a partial field
             # list would rebuild other featurization / clustering knobs
             "cfg_kwargs": dataclasses.asdict(self.cfg),
-            **self.engine.host_snapshot()})
+            **self.engine.host_snapshot()}), spmd=self.engine.mesh is not None)
         return flushed
 
     @classmethod

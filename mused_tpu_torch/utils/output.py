@@ -9,6 +9,10 @@ logs under ``logs/exp=<variable>,<details>.txt``, tables under ``tables/``.
 The reference's dead ``log_averages`` (crashes at output_generation.py:46 —
 ``list.remove`` returns None) is reimplemented working, and
 ``visualize_clusters`` uses the port's randomized SVD instead of sklearn.
+
+Under a torch.distributed process group of more than one rank (an SPMD
+sweep under torchrun, where every rank holds the same metrics) only rank 0
+writes: the other ranks' calls write nothing and return None.
 """
 from __future__ import annotations
 
@@ -25,10 +29,17 @@ except ImportError:      # plots degrade gracefully; logs/tables still work
     HAVE_MPL = False
 
 
+def _writer() -> bool:
+    from mused_tpu_torch.parallel.mesh import is_writer
+    return is_writer()
+
+
 def visualize_results(metrics: dict, independent_variable: str,
                       independent_variables, string_to_add: str = "",
                       save_path: str = "plots/"):
     """Per-metric line plots comparing approaches (ref output_generation.py:6-32)."""
+    if not _writer():
+        return None
     if not HAVE_MPL:
         print("matplotlib unavailable; skipping plots")
         return []
@@ -64,6 +75,8 @@ def visualize_results(metrics: dict, independent_variable: str,
 def log_metrics(metrics: dict, independent_variable: str,
                 string_to_add: str = "", save_path: str = "logs/") -> str:
     """Dump per-approach results dicts (ref output_generation.py:77-87)."""
+    if not _writer():
+        return None
     os.makedirs(save_path, exist_ok=True)
     filename = f"exp={independent_variable},{string_to_add}"
     path = os.path.join(save_path, f"{filename}.txt")
@@ -81,6 +94,8 @@ def log_averages(metrics: dict, independent_variable: str = "window_indices",
     The reference version is dead code that would crash
     (output_generation.py:46); this one works.
     """
+    if not _writer():
+        return None
     os.makedirs(save_path, exist_ok=True)
     path = os.path.join(save_path, f"metric_averages{string_to_add}.txt")
     approaches = list(metrics.keys())
@@ -106,7 +121,7 @@ def visualize_clusters(reduced_matrix, clusters, plot_name: str = "cluster_vis",
     """2D scatter of the reduced matrix colored by cluster
     (ref output_generation.py:60-75), projected with the port's randomized
     SVD on ``device``."""
-    if not HAVE_MPL:
+    if not HAVE_MPL or not _writer():
         return None
     import torch
     from mused_tpu_torch.ops import reduction
@@ -129,6 +144,8 @@ def visualize_clusters(reduced_matrix, clusters, plot_name: str = "cluster_vis",
 def generate_table(metrics: dict, metric: str, independent_variable: str,
                    string_to_add: str = "", save_path: str = "tables/") -> str:
     """LaTeX comparison table (ref output_generation.py:89-122)."""
+    if not _writer():
+        return None
     os.makedirs(save_path, exist_ok=True)
     path = os.path.join(save_path,
                         f"{metric}_by_{independent_variable},{string_to_add}.txt")

@@ -8,7 +8,9 @@ design: a fan-out stream plus a ``LogSession`` handle that owns install,
 restore, and close, instead of module-global redirection only.  One
 reference inconsistency resolved: it tees into ``log/`` while its metric
 dumps go to ``logs/`` (SURVEY.md §5.5) — default here is ``logs/``,
-configurable.
+configurable.  Under a torch.distributed process group of more than one
+rank, only rank 0 writes a log file: the other ranks get an inert session
+that leaves their streams alone.
 """
 from __future__ import annotations
 
@@ -94,7 +96,11 @@ def setup_logging(log_dir: str = "logs") -> LogSession:
 
     Returns a LogSession; call ``.restore()`` when the sweep ends (or rely on
     the atexit close).  Covers reference tee.py:28-52 usage at main.py:326.
+    A rank other than 0 of a process group gets a session without a file.
     """
+    from mused_tpu_torch.parallel.mesh import is_writer
+    if not is_writer():
+        return LogSession(None, None)
     os.makedirs(log_dir, exist_ok=True)
     stamp = datetime.now().strftime("%Y-%m-%d_%H-%M-%S")
     # 'x' + suffix retry: two sessions inside one wall-clock second must

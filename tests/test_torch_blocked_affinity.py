@@ -143,7 +143,7 @@ def test_candidate_rowblock_matches_jax_and_the_dense_block(jcols, tcols):
         np.testing.assert_array_equal(rows, tonp(dense) > 0)
 
 
-def test_cand_fold_gating_matches_jax(tcols):
+def test_cand_fold_gating_matches_jax(tcols, jcols):
     assert tba.cand_fold_supported(tcols.kinds, tcols.tensors, NBINS, N) \
         == jba.cand_fold_supported(tcols.kinds, tcols.tensors, NBINS, N)
     for nbins in (0, 100, 2):            # no bins, not dividing, > 127 groups
@@ -153,8 +153,12 @@ def test_cand_fold_gating_matches_jax(tcols):
     with pytest.raises(ValueError):
         tba.blocked_fd_sketch(odd, ell=8, block=BLOCK, k_basis=K, select="binned",
                               nbins=NBINS, cand_fold=True)
-    with pytest.raises(NotImplementedError, match="later PR"):
-        tba.fused_rowblock(odd, 0, BLOCK, K, select="binned", nbins=NBINS)
+    # a legacy kind has no candidate route: it takes the strip, as in JAX
+    jodd = jcols._replace(kinds=jcols.kinds[:4] + ("text",))
+    np.testing.assert_array_equal(
+        tonp(tba.fused_rowblock(odd, 0, BLOCK, K, select="binned", nbins=NBINS)),
+        np.asarray(jba.fused_rowblock(jodd, jnp.int32(0), BLOCK, K, select="binned",
+                                      nbins=NBINS)))
 
 
 def test_blocked_fd_sketch_cand_equals_dense_edges(tcols):

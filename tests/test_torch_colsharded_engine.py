@@ -154,16 +154,17 @@ def test_engine_columns_layout_validation(case):
 
 
 def test_rows_layout_over_shards_is_slice_4b():
-    with pytest.raises(NotImplementedError, match="slice 4b"):
-        ts.StreamingEngine(PipelineConfig(window_size=64, data_shards=4), "cpu")
-    with pytest.raises(NotImplementedError, match="slice 4b"):
-        ts.StreamingEngine(PipelineConfig(window_size=64, data_shards=4,
-                                          force_blocked_window=True), "cpu")
-    with pytest.raises(NotImplementedError, match="slice 4b"):
+    """Slice 4b runs the rows layout over shards (tests/test_torch_sharded_engine.py);
+    like the column layouts, it needs a process group of data_shards ranks."""
+    for kw in (dict(window_size=64, data_shards=4),
+               dict(window_size=64, data_shards=4, force_blocked_window=True)):
+        with pytest.raises(ValueError, match="process group of 4 ranks"):
+            ts.StreamingEngine(PipelineConfig(**kw), "cpu")
+    with pytest.raises(ValueError, match="process group of 4 ranks"):
         tapi.process_streaming_data(None, [np.zeros((64, 2))] * 5, ts.STANDARD_TYPES,
                                     64, 8, 3, 2, 0, "SWFDMC", np.zeros(64), 1, 0.5,
-                                    "binary", True, 1.5, 2, merge_topology="ring",
-                                    device="cpu")
+                                    "binary", True, 1.5, 2, data_shards=4,
+                                    merge_topology="ring", device="cpu")
 
 
 def test_column_layout_needs_a_process_group_of_data_shards_ranks():

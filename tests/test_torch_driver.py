@@ -16,6 +16,7 @@ import contextlib
 import inspect
 import io
 import os
+import re
 import subprocess
 import sys
 
@@ -208,18 +209,33 @@ def test_cli_demo_runs_in_its_own_process(tmp_path):
     assert "Finished running 1 experiments" in out.stdout
 
 
-@pytest.mark.parametrize("flags,match", [
-    (["--parallel-sweep"], "parallel/sweep"),
-    (["--data-shards", "2"], "slice 4b"),
-    (["--windows-per-batch", "4"], "scanned multi-window dispatch"),
-    (["--merge-topology", "ring"], "slice 4b"),
+@pytest.mark.parametrize("flags,exc,match", [
+    (["--windows-per-batch", "4"], NotImplementedError, "scanned multi-window dispatch"),
+    # the rows layout runs since slice 4b, over the ranks torchrun starts
+    (["--data-shards", "2"], ValueError, "process group of 2 ranks"),
 ])
-def test_cli_flags_of_unported_parts_raise(flags, match, tmp_path, monkeypatch):
+def test_cli_flags_of_unported_parts_raise(flags, exc, match, tmp_path, monkeypatch):
     monkeypatch.chdir(tmp_path)
-    with contextlib.redirect_stdout(io.StringIO()), pytest.raises(NotImplementedError,
-                                                                  match=match):
+    with contextlib.redirect_stdout(io.StringIO()), pytest.raises(exc, match=match):
         tmain.cli(["--dataset", "demo", "--device", "cpu", "--no-tee", "--approaches",
                    "sSVDMC", *flags])
+
+
+@pytest.mark.parametrize("flags", [["--parallel-sweep"], ["--merge-topology", "ring"]])
+def test_cli_flags_of_slice_4b_run_the_demo_as_the_plain_cli(flags, tmp_path, monkeypatch):
+    """``--parallel-sweep`` (one point per device, here the CPU) and the ring
+    merge on one device log what the plain demo logs."""
+    logs = {}
+    for name, extra in (("plain", []), ("flags", flags)):
+        (tmp_path / name).mkdir()
+        monkeypatch.chdir(tmp_path / name)
+        with contextlib.redirect_stdout(io.StringIO()):
+            assert tmain.cli(["--dataset", "demo", "--device", "cpu", "--no-tee",
+                              "--approaches", "SWFDMC", "sSVDMC", *extra]) == 0
+        (log,) = os.listdir("logs")
+        body = open(os.path.join("logs", log)).read()
+        logs[name] = re.sub(r"'processing_time': \[[^]]*\]", "", body)
+    assert logs["flags"] == logs["plain"]
 
 
 def test_cli_demo_tees_into_its_log_dir(tmp_path, monkeypatch):

@@ -277,9 +277,11 @@ def test_engine_refuses_what_the_slice_does_not_run():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             ts.StreamingEngine(cfg, "cuda")
-    for bad in [dict(data_shards=2), dict(windows_per_batch=4)]:
-        with pytest.raises(NotImplementedError):
-            ts.StreamingEngine(cfg.replace(**bad), "cpu")
+    with pytest.raises(NotImplementedError):
+        ts.StreamingEngine(cfg.replace(windows_per_batch=4), "cpu")
+    # the row-sharded layout runs since slice 4b, over a process group
+    with pytest.raises(ValueError, match="process group of 2 ranks"):
+        ts.StreamingEngine(cfg.replace(data_shards=2), "cpu")
     # centroid matching runs since slice 2f, on numeric streams and dense
     # windows; elsewhere the JAX engine's ValueErrors, with their messages
     assert ts.StreamingEngine(cfg.replace(matching="centroid"), "cpu").centroid_matcher
@@ -302,10 +304,10 @@ def test_engine_refuses_what_the_slice_does_not_run():
     with pytest.raises(ValueError, match="DBSCAN_incr"):
         ts.StreamingEngine(cfg.replace(force_blocked_window=True, approach="DBSCAN_incr"),
                            "cpu")
-    for kw, exc in [(dict(merge_topology="ring"), NotImplementedError),
-                    (dict(data_shards=2), NotImplementedError),
+    for kw, exc in [(dict(merge_topology="ring", data_shards=2), ValueError),
+                    (dict(data_shards=2), ValueError),
                     (dict(huge_window_layout="grid"), ValueError)]:
-        with pytest.raises(exc, match="slice 4b|data_shards > 1"):
+        with pytest.raises(exc, match="process group of 2 ranks|data_shards > 1"):
             tapi.process_streaming_data(None, [np.zeros((64, 2))] * 5, ts.STANDARD_TYPES,
                                         device="cpu", **KW, approach="sSVDMC",
                                         complete_true_labels=np.zeros(64), **kw)
@@ -506,6 +508,9 @@ def test_neither_jax_nor_pandas_is_imported():
             "import mused_tpu_torch.ops.blocked_dbscan; "
             "import mused_tpu_torch.ops.blocked_hdbscan; "
             "import mused_tpu_torch.parallel.mesh; import mused_tpu_torch.parallel.colsharded; "
+            "import mused_tpu_torch.parallel.sharded; import mused_tpu_torch.parallel.sweep; "
+            "import mused_tpu_torch.parallel.sketch_merge; "
+            "import mused_tpu_torch.parallel.kmeans_sharded; "
             "from mused_tpu_torch.native import IncDBHandle, incdb_available; "
             "import mused_tpu_torch.main; import mused_tpu_torch.data.sed2012; "
             "import mused_tpu_torch.utils.output as o; import mused_tpu_torch.utils.tee; "
