@@ -149,14 +149,35 @@ Phases (any failure exits non-zero; no phase is skipped):
          single-device fold's sq_frobenius, sSVDMC with 576 K2 + 288 K3,
          sSpectral with 768 K2 + 384 K3; seconds beside (f)'s and (i3)'s;
       l3 ``main.cli --parallel-sweep`` on the demo sweep (one point per
-         card) against the sequential demo, every point within 1e-6.
+         card) against the sequential demo, every point within 1e-6;
+  (m) the scanned multi-window dispatch (``windows_per_batch`` = W) and the
+      repaired host waits, after (c)'s warm-up:
+      m1 (c)'s stream through SWFDMC and sSVDMC with the parent's host waits
+         (a span timer synchronizing at every span end, Lloyd's loop reading
+         the host twice per step; together and each alone) and at W = 1, 4
+         and 8: windows/s, NMI, F1,
+         every window's labels equal to W = 1's, exactly 4 K1 launches per
+         window step (a padded tail group's included); the host syncs per
+         window of the parent's sequence, the repaired one and W = 4 over 8
+         windows (``torch.cuda.set_sync_debug_mode("warn")`` plus every
+         ``torch.cuda.synchronize``), by call site and kind (span timer,
+         Lloyd, FD, eigh / svd, label pull); Lloyd's loop per call, the
+         parent's against ``kmeans.CHECK_EVERY`` 4 / 8 / 16, labels equal;
+      m2 h1's detector at W = 4 against W = 1: the same results; windows/s,
+         push p50 / p99 and the largest lag of each;
+      m3 l1's row-sharded dense step (sSVDMC, world size 1) over 20 windows
+         at W = 4 against W = 1: the same labels, no K1.
 
 Every phase prints its seconds.  ``--phases`` runs a subset (for
 development; the result lines are printed only when all phases ran).
-``--profile`` also traces one huge window per approach with torch.profiler
-(kernel time by name, device busy share, host time by operator), and with
-(l) 10 windows of the row-sharded dense step per approach (SWFDMC, sSVDMC,
-beside the engine's spans), and prints no result lines.
+The engine's spans measure host time unless they are compared: under
+``--profile`` (c)'s and the traced row-sharded windows' spans synchronize
+at their ends (``SpanTimer(sync_all=True)``), so each covers its device
+work.  ``--profile`` also traces one huge window per approach with
+torch.profiler (kernel time by name, device busy share, host time by
+operator), and with (l) 10 windows of the row-sharded dense step per
+approach (SWFDMC, sSVDMC, beside the engine's spans), and prints no result
+lines.
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
@@ -164,8 +185,10 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import inspect
 import io
 import json
+import linecache
 import os
 import subprocess
 import sys
@@ -193,6 +216,7 @@ from mused_tpu_torch.parallel import colsharded as cs
 from mused_tpu_torch.serving import StreamDetector
 from mused_tpu_torch.utils.config import PipelineConfig
 from mused_tpu_torch.utils.metrics import nmi
+from mused_tpu_torch.utils.profiling import SpanTimer
 
 WINDOW, K_BASIS, REDUCED_DIM = 2000, 50, 50     # reference default_params
 N_RECORDS, NOISE_RATE, SEED = 150_000, 0.95, 0
@@ -391,7 +415,7 @@ def phase_b(cases, tag: str = "b", reps: int = 10, plain_reps: int = 10) -> list
 
 
 def phase_c(mods, mtypes, labels, device, approach: str, n_records: int,
-            tag: str = "c") -> dict:
+            tag: str = "c", sync_spans: bool = False) -> dict:
     cfg = PipelineConfig(seed=SEED, subset_size=n_records, noise_rate=NOISE_RATE,
                          label_mode="binary", sorting=True, window_size=WINDOW,
                          reduced_dim=REDUCED_DIM, k_basis=K_BASIS, approach=approach,
@@ -399,6 +423,9 @@ def phase_c(mods, mtypes, labels, device, approach: str, n_records: int,
     engine = streaming.StreamingEngine(cfg)          # the entry points' default: the card
     if engine.device.type != "cuda":
         raise AssertionError(f"StreamingEngine defaulted to {engine.device}")
+    # spans that cover the device work (each span end synchronizes) only when
+    # they are compared (--profile): the waits serialize the stream
+    engine.timer = SpanTimer(engine.device, sync_all=sync_spans)
     n_windows = len(streaming.window_triggers(n_records, WINDOW, 1))
     before, hashed, incdb = ak.launches, native.calls, native.incdb_calls
     t0 = time.perf_counter()
@@ -1913,11 +1940,14 @@ def only_modality(host, keep: str):
     return type(host)(**f)
 
 
-def row_engine(cfg: PipelineConfig, mesh, device) -> streaming.StreamingEngine:
+def row_engine(cfg: PipelineConfig, mesh, device,
+               sync_spans: bool = False) -> streaming.StreamingEngine:
     """A StreamingEngine of ``cfg`` on the row-sharded code: the mesh of the
-    NCCL group of one assigned to it (data_shards=1 builds none)."""
+    NCCL group of one assigned to it (data_shards=1 builds none); its spans
+    synchronize at their ends when ``sync_spans`` (to compare them)."""
     engine = streaming.StreamingEngine(cfg, device)
     engine.mesh = mesh
+    engine.timer = SpanTimer(engine.device, sync_all=sync_spans)
     return engine
 
 
@@ -2003,7 +2033,7 @@ def profile_row_windows(mods, mtypes, labels, device, mesh, approach: str,
         n = n_windows * WINDOW
         cfg = PipelineConfig(window_size=WINDOW, reduced_dim=REDUCED_DIM, k_basis=K_BASIS,
                              approach=approach, n_clusters_override=2, label_mode="binary")
-        engine = row_engine(cfg, mesh, device)
+        engine = row_engine(cfg, mesh, device, sync_spans=True)
         api.process_streaming_data(
             results=api.get_initial_results()[0], data_modalities=[m[:n] for m in mods],
             modality_types=mtypes, window_size=WINDOW, reduced_dim=REDUCED_DIM,
@@ -2109,9 +2139,329 @@ def phase_l3(smi: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# the scanned multi-window dispatch and the repaired host waits: phase (m)
+# ---------------------------------------------------------------------------
+
+# m1's runs per approach, (W, the parent's host waits): the parent's and the
+# repaired per-window dispatch first and last (in turns), the groups between;
+# SWFDMC also runs each parent wait alone
+M1_RUNS = (("SWFDMC", ((1, "both"), (1, ""), (4, ""), (8, ""), (1, "lloyd"), (1, "timer"),
+                       (1, ""), (1, "both"))),
+           ("sSVDMC", ((1, "both"), (1, ""), (4, ""), (8, ""), (1, ""), (1, "both"))))
+M_SYNC_WINDOWS = 8               # windows of (c)'s stream in the sync count
+M3_WINDOWS = 20                  # windows of (c)'s stream in m3
+LLOYD_WINDOWS, LLOYD_REPS = 5, 8
+LLOYD_CHECKS = (4, 8, 16)        # kmeans.CHECK_EVERY candidates timed in m1
+
+
+def parent_kmeans(x, k, generator=None, *, k_max: int, max_iters: int = 100,
+                  tol: float = 1e-4, init=None):
+    """``ops/kmeans.kmeans`` as it was before its Lloyd loop stopped reading
+    the host every step (two reads per step: any empty cluster, and the
+    shift test); kept here only to time it and count its syncs."""
+    n = x.shape[0]
+    x = x.float()
+    k = torch.as_tensor(k, device=x.device)
+    alive = torch.arange(k_max, device=x.device) < k
+    c = kmeans.kmeanspp_init(x, k_max, k, generator) if init is None else init.float()
+    arange_k = torch.arange(k_max, device=x.device)
+
+    def assign(cent):
+        return torch.argmin(torch.where(alive[None, :], kmeans._sq_dists(x, cent), torch.inf),
+                            dim=1)
+
+    for _ in range(max_iters):
+        labels = assign(c)
+        onehot = (labels[:, None] == arange_k[None, :]).float()
+        counts = torch.sum(onehot, dim=0)
+        new_c = torch.where((counts > 0)[:, None],
+                            (onehot.T @ x) / torch.clamp(counts, min=1.0)[:, None], c)
+        empty = alive & (counts == 0)
+        if bool(torch.any(empty)):
+            dist_own = torch.gather(kmeans._sq_dists(x, new_c), 1, labels[:, None])[:, 0]
+            k_eff = min(k_max, n)
+            far = torch.sort(dist_own, descending=True, stable=True)[1][:k_eff]
+            slot = torch.clamp(torch.cumsum(empty.long(), 0) - 1, 0, k_eff - 1)
+            new_c = torch.where(empty[:, None], x[far[slot]], new_c)
+        shift = torch.sum((new_c - c) ** 2)
+        c = new_c
+        if not bool(shift > tol):
+            break
+    return assign(c), c
+
+
+@contextlib.contextmanager
+def parent_sequence(engine: streaming.StreamingEngine, waits: str):
+    """The host waits of the code before the repair, ``waits`` naming which:
+    "timer" a span timer that synchronizes at every span end, "lloyd"
+    Lloyd's loop reading the host twice per step, "both", or "" none."""
+    if waits in ("timer", "both"):
+        engine.timer = SpanTimer(engine.device, sync_all=True)
+    repaired = kmeans.kmeans
+    if waits in ("lloyd", "both"):
+        kmeans.kmeans = parent_kmeans
+    try:
+        yield
+    finally:
+        kmeans.kmeans = repaired
+
+
+@contextlib.contextmanager
+def captured_clusters(into: list):
+    """Append each ``process_streaming_data`` run's matched labels (every
+    window's, concatenated) to ``into``."""
+    compute = streaming.metrics_mod.compute_all_metrics
+
+    def spy(*args):
+        into.append(np.array(args[8]))
+        return compute(*args)
+
+    streaming.metrics_mod.compute_all_metrics = spy
+    try:
+        yield
+    finally:
+        streaming.metrics_mod.compute_all_metrics = compute
+
+
+def m_stream_run(mods, mtypes, labels, device, approach: str, n_records: int, group: int,
+                 parent: str = "", mesh=None) -> dict:
+    """(c)'s configuration over the first ``n_records`` records with
+    ``windows_per_batch=group`` (and the parent's host waits that ``parent``
+    names, see :func:`parent_sequence`): windows/s, NMI, F1, K1 launches,
+    window steps (a padded tail group's included) and the matched labels."""
+    cfg = PipelineConfig(seed=SEED, subset_size=n_records, noise_rate=NOISE_RATE,
+                         label_mode="binary", sorting=True, window_size=WINDOW,
+                         reduced_dim=REDUCED_DIM, k_basis=K_BASIS, approach=approach,
+                         n_clusters_override=2, windows_per_batch=group)
+    engine = streaming.StreamingEngine(cfg, device)
+    engine.mesh = mesh
+    n_windows = len(streaming.window_triggers(n_records, WINDOW, 1))
+    clusters = []
+    torch.cuda.synchronize()
+    reset_counts()
+    with captured_clusters(clusters), parent_sequence(engine, parent):
+        t0 = time.perf_counter()
+        res = api.process_streaming_data(
+            results=api.get_initial_results()[0], data_modalities=[m[:n_records] for m in mods],
+            modality_types=mtypes, window_size=WINDOW, reduced_dim=REDUCED_DIM,
+            k_basis=K_BASIS, n_clusters_total=2, seed=SEED, approach=approach,
+            complete_true_labels=labels[:n_records], step_window_ratio=1,
+            noise_rate=NOISE_RATE, label_mode="binary", sorting=True, eps=1.5,
+            min_samples=2, cfg=cfg, engine=engine)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    return {"approach": approach, "group": group, "parent_waits": parent or None,
+            "windows": n_windows, "window_steps": -(-n_windows // group) * group,
+            "seconds": secs, "windows_per_s": n_windows / secs, "nmi": res["nmi_score"][0],
+            "f1": res["f1_score"][0], "k1_launches": ak.launches,
+            "spans": engine.timer.summary(), "clusters": clusters[0]}
+
+
+def sync_category(filename: str, lineno: int, parent_lines: range) -> str:
+    """Which host wait a synchronizing call site is."""
+    line = linecache.getline(filename, lineno)
+    if filename.endswith("profiling.py"):
+        return "span timer"
+    if "linalg." in line:
+        return "eigh / svd"
+    if filename.endswith("kmeans.py") or (filename == __file__ and lineno in parent_lines):
+        return "lloyd"
+    if filename.endswith("/fd.py"):
+        return "fd"
+    if filename.endswith("/swfd.py"):
+        return "swfd ring"
+    if ".cpu()" in line or ".numpy()" in line:
+        return "label pull"
+    return "other"
+
+
+def sync_count(run, n_windows: int) -> dict:
+    """Host synchronizations of ``run()`` per window, by category and call
+    site: the operations ``torch.cuda.set_sync_debug_mode("warn")`` flags,
+    plus every ``torch.cuda.synchronize`` call (which it does not flag)."""
+    import collections
+    import warnings
+    sites = collections.Counter()
+    real_sync = torch.cuda.synchronize
+
+    def counting_sync(*a, **k):
+        caller = sys._getframe(1)
+        sites[(caller.f_code.co_filename, caller.f_lineno)] += 1
+        return real_sync(*a, **k)
+
+    torch.cuda.synchronize = counting_sync
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            run()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize = real_sync
+    for w in caught:
+        if "synchroniz" in str(w.message):
+            sites[(w.filename, w.lineno)] += 1
+    src, first = inspect.getsourcelines(parent_kmeans)
+    parent_lines = range(first, first + len(src))
+    # this script's own waits around the run are the measurement's, not the path's
+    sites = collections.Counter({(f, ln): c for (f, ln), c in sites.items()
+                                 if f != __file__ or ln in parent_lines})
+    by_cat = collections.Counter()
+    for (f, ln), c in sites.items():
+        by_cat[sync_category(f, ln, parent_lines)] += c
+    return {"per_window": {k: v / n_windows for k, v in sorted(by_cat.items())},
+            "total_per_window": sum(by_cat.values()) / n_windows,
+            "sites": [{"site": f"{os.path.relpath(f)}:{ln}",
+                       "category": sync_category(f, ln, parent_lines),
+                       "per_window": c / n_windows}
+                      for (f, ln), c in sites.most_common(12)]}
+
+
+def lloyd_timing(mods, device) -> dict:
+    """Lloyd's loop per call on the first windows' sSVDMC reductions of (c)'s
+    stream, at m1's count (k from the labels, k_max 2) and at the detector's
+    (the eigengap count, k_max 150): the parent loop against ``CHECK_EVERY``
+    4, 8 and 16, each from the same k-means++ centres, labels bit-equal."""
+    from mused_tpu_torch.ops import reduction
+    engine = streaming.StreamingEngine(PipelineConfig(window_size=WINDOW, k_basis=K_BASIS,
+                                                      reduced_dim=REDUCED_DIM), device)
+    xs = []
+    for w in range(LLOYD_WINDOWS):
+        host = engine.featurize([m[w * WINDOW:(w + 1) * WINDOW] for m in mods],
+                                streaming.STANDARD_TYPES)
+        fused = engine.fuse_from_features(host, to_device(host, device),
+                                          streaming.STANDARD_TYPES)
+        xs.append(reduction.svd_reduce(fused, REDUCED_DIM,
+                                       streaming.window_generator(SEED, w, device)))
+    out = {}
+    check = kmeans.CHECK_EVERY
+    for name, k_max in (("labels_k_max_2", 2), ("eigengap_k_max_150", 150)):
+        calls = []
+        for w, x in enumerate(xs):
+            k = 2 if k_max == 2 else int(reduction.eigengap_k(x, k_max=k_max))
+            calls.append((x, k, kmeans.kmeanspp_init(
+                x, k_max, k, streaming.window_generator(SEED, w, device))))
+        variants = ["parent"] + [f"check_every_{m}" for m in LLOYD_CHECKS]
+        secs = dict.fromkeys(variants, 0.0)
+        labels = {}
+        try:
+            # variants in turns, the order rotating each round (host time is noisy)
+            for rnd in range(LLOYD_REPS + 1):
+                for variant in variants[rnd % len(variants):] + variants[:rnd % len(variants)]:
+                    fn = parent_kmeans if variant == "parent" else kmeans.kmeans
+                    if fn is kmeans.kmeans:
+                        kmeans.CHECK_EVERY = int(variant.rsplit("_", 1)[1])
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    got = [fn(x, k, k_max=k_max, init=init)[0] for x, k, init in calls]
+                    torch.cuda.synchronize()
+                    if rnd:                                         # round 0 warms up
+                        secs[variant] += time.perf_counter() - t0
+                    labels[variant] = torch.stack(got).cpu()
+        finally:
+            kmeans.CHECK_EVERY = check
+        ms = {v: t * 1e3 / (LLOYD_REPS * len(calls)) for v, t in secs.items()}
+        equal = all(torch.equal(v, labels["parent"]) for v in labels.values())
+        out[name] = {"k": [k for _, k, _ in calls], "ms_per_call": ms,
+                     "labels_equal_parent": equal}
+        if not equal:
+            raise AssertionError(f"m1: the repaired Lloyd loop's labels differ: {name}")
+    return out
+
+
+def phase_m1(mods, mtypes, labels, device, smi: str) -> dict:
+    """(c)'s stream through SWFDMC and sSVDMC with the parent's host waits
+    and at W = 1, 4 and 8: windows/s, NMI, F1; every window's labels equal
+    across them; 4 K1 launches per window step.  Then the host syncs per
+    window of the parent's sequence, the repaired one and W = 4, and
+    Lloyd's loop per call."""
+    out = {"card": smi, "records": N_RECORDS, "check_every": kmeans.CHECK_EVERY, "runs": []}
+    for approach, order in M1_RUNS:
+        runs = [m_stream_run(mods, mtypes, labels, device, approach, N_RECORDS, g, parent=p)
+                for g, p in order]
+        per_window = runs[1]["clusters"]
+        for r in runs:
+            r["labels_equal_per_window"] = bool(np.array_equal(r.pop("clusters"), per_window))
+        out["runs"].extend(runs)
+    n_sync = M_SYNC_WINDOWS * WINDOW
+    out["syncs"] = {}
+    for approach in ("SWFDMC", "sSVDMC"):
+        for name, group, parent in (("parent", 1, "both"), ("repaired", 1, ""),
+                                    ("repaired_w4", 4, "")):
+            out["syncs"][f"{approach}_{name}"] = sync_count(
+                lambda: m_stream_run(mods, mtypes, labels, device, approach, n_sync, group,
+                                     parent=parent), M_SYNC_WINDOWS)
+    out["lloyd"] = lloyd_timing(mods, device)
+    m_launches = sum(r["k1_launches"] for r in out["runs"])
+    out["k1_launches"] = m_launches
+    print("[m1]", json.dumps(out), flush=True)
+    for r in out["runs"]:
+        if not r["labels_equal_per_window"]:
+            raise AssertionError(f"m1: labels differ from per-window dispatch: {r}")
+        if r["k1_launches"] != 4 * r["window_steps"]:
+            raise AssertionError(f"m1: expected {4 * r['window_steps']} K1 launches: {r}")
+        if not all(np.isfinite(r[k]) and 0.0 <= r[k] <= 1.0 for k in ("nmi", "f1")):
+            raise AssertionError(f"m1: metrics out of range: {r}")
+    return out
+
+
+def phase_m2(mods, smi: str) -> dict:
+    """h1's detector at ``windows_per_batch=4`` against W = 1: the same
+    results; windows/s, push p50 / p99 and the largest lag of each."""
+    rows = [m[:SERVE_RECORDS] for m in mods]
+    out = {"card": smi, "records": SERVE_RECORDS, "chunk": SERVE_CHUNK}
+    results = {}
+    for group in (1, 4):
+        def make():
+            cfg = PipelineConfig(window_size=WINDOW, reduced_dim=REDUCED_DIM, k_basis=K_BASIS,
+                                 approach="SWFDMC", label_mode="all", n_clusters_override=150,
+                                 k_estimate="eigengap", background_bucket=True,
+                                 windows_per_batch=group)
+            return StreamDetector(streaming.STANDARD_TYPES, WINDOW, cfg=cfg)
+
+        warm_up(make, rows)
+        det = make()
+        run = detector_run(det, rows, SERVE_RECORDS, SERVE_CHUNK)
+        results[group] = run.pop("results")
+        out[f"w{group}"] = {k: run[k] for k in ("windows", "seconds", "windows_per_s",
+                                                "push_p50_ms", "push_p99_ms",
+                                                "max_lag_windows", "k1_launches", "spans")}
+        out[f"w{group}"]["batch_w"] = det._batch_w
+    same = (len(results[1]) == len(results[4]) and all(
+        a.window_index == b.window_index and np.array_equal(a.clusters, b.clusters)
+        for a, b in zip(results[1], results[4])))
+    out["results_equal"] = same
+    out["k1_launches"] = out["w1"]["k1_launches"] + out["w4"]["k1_launches"]
+    print("[m2]", json.dumps(out), flush=True)
+    if not same or out["w4"]["batch_w"] != 4:
+        raise AssertionError(f"m2: the grouped detector differs from per-window: {out}")
+    for w in ("w1", "w4"):
+        if out[w]["k1_launches"] != 4 * out[w]["windows"]:
+            raise AssertionError(f"m2: expected 4 K1 launches per window: {out[w]}")
+    return out
+
+
+def phase_m3(mods, mtypes, labels, device, mesh, smi: str) -> dict:
+    """l1's row-sharded dense step (sSVDMC, world size 1) over the first
+    ``M3_WINDOWS`` windows of (c)'s stream with W = 4 against W = 1: the
+    same labels, no K1."""
+    n = M3_WINDOWS * WINDOW
+    runs = [m_stream_run(mods, mtypes, labels, device, "sSVDMC", n, g, mesh=mesh)
+            for g in (1, 4)]
+    same = bool(np.array_equal(runs[0].pop("clusters"), runs[1].pop("clusters")))
+    out = {"card": smi, "world_size": 1, "runs": runs, "labels_equal": same}
+    print("[m3]", json.dumps(out), flush=True)
+    if not same:
+        raise AssertionError(f"m3: the sharded groups differ from per-window dispatch: {out}")
+    if any(r["k1_launches"] for r in runs):
+        raise AssertionError(f"m3: the row-sharded dense step launched K1: {out}")
+    return out
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--phases", default="abcdefghijkl",
+    parser.add_argument("--phases", default="abcdefghijklm",
                         help="phases to run (a always runs); the result lines print "
                              "only when all ran")
     parser.add_argument("--profile", action="store_true",
@@ -2155,7 +2505,7 @@ def main() -> int:
     seconds["a"] = time.perf_counter() - t0
 
     rows_b, runs, main_launches = [], [], 0
-    if phases & set("bcdhikl"):
+    if phases & set("bcdhiklm"):
         t0 = time.perf_counter()
         mods, mtypes, labels = make_stream(N_RECORDS, noise_rate=NOISE_RATE, binary=True,
                                            sort_by_uploaded=True, seed=SEED)
@@ -2172,7 +2522,7 @@ def main() -> int:
         t0 = time.perf_counter()
         phase_c(mods, mtypes, labels, device, "sSVDMC", 4 * WINDOW)   # warm-up, not counted
         reset_counts()
-        runs = [phase_c(mods, mtypes, labels, device, a, N_RECORDS)
+        runs = [phase_c(mods, mtypes, labels, device, a, N_RECORDS, sync_spans=args.profile)
                 for a in ("SWFDMC", "sSVDMC")]
         main_launches = ak.launches
         seconds["c"] = time.perf_counter() - t0
@@ -2301,6 +2651,20 @@ def main() -> int:
         phase_l3(smi)
         seconds["l3"] = time.perf_counter() - t1
         seconds["l"] = time.perf_counter() - t0
+    m_launches = 0               # K1 launches on phase (m)'s main paths
+    if "m" in phases:
+        t0 = time.perf_counter()
+        torch.cuda.empty_cache()
+        m_launches += phase_m1(mods, mtypes, labels, device, smi)["k1_launches"]
+        seconds["m1"] = time.perf_counter() - t0
+        t1 = time.perf_counter()
+        m_launches += phase_m2(mods, smi)["k1_launches"]
+        seconds["m2"] = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        with nccl_world_of_one() as mesh:
+            phase_m3(mods, mtypes, labels, device, mesh, smi)
+        seconds["m3"] = time.perf_counter() - t1
+        seconds["m"] = time.perf_counter() - t0
     if args.profile:
         t0 = time.perf_counter()
         if not phases & set("efghijl"):
@@ -2318,7 +2682,7 @@ def main() -> int:
                     print("[profile]", json.dumps(row_profile), flush=True)
         seconds["profile"] = time.perf_counter() - t0
     print("[seconds]", json.dumps(seconds), flush=True)
-    if phases != set("abcdefghijkl") or args.profile:
+    if phases != set("abcdefghijklm") or args.profile:
         return 0
 
     main_rows = [r for r in rows_b if r["case"] in ("location", "time", "tags", "text")]
@@ -2343,8 +2707,8 @@ def main() -> int:
         "name": "knn_adjacency", "route": "cuda",
         "source": "mused_tpu_torch/csrc/knn_adjacency.cu",
         "replaces": "mused_tpu/ops/pallas/affinity_kernel.py:185",
-        "launches": main_launches + k_launches,
-        "launches_by_phase": {"c": main_launches, "k": k_launches},
+        "launches": main_launches + k_launches + m_launches,
+        "launches_by_phase": {"c": main_launches, "k": k_launches, "m": m_launches},
         "max_abs_err": max(r["max_abs_err"] for r in main_rows),
         **timed(main_rows, "one window's four main-path calls (location, time, tags, text)"),
         "per_metric": {r["case"]: {"route": r["route"], "ms": r["ms"],

@@ -8,8 +8,8 @@ own copies of the host tier it needs (``utils/config``, ``data/features``,
 built at first use), ``ops/matching``, ``utils/metrics``, ``utils/output``,
 ``utils/tee``), each naming its original.
 
-Layer map (slices 1-4: everything the JAX package does, but the scanned
-multi-window dispatch, not ported by decision):
+Layer map (slices 1-4 and the scanned multi-window dispatch: everything
+the JAX package does):
   main.py      the CLI sweep driver (``python -m mused_tpu_torch.main``)
   api.py       reference-compatible facade: every name of ``mused_tpu/api.py``
                (the engines, the loaders, SeqBasedSWFD, the reference's

@@ -19,8 +19,8 @@ ranks, one per card, started by the caller:
     torchrun --nproc-per-node p -m mused_tpu_torch.main --data-shards p
 
 (each rank binds ``cuda:LOCAL_RANK``); rank 0 alone writes the logs, plots
-and tee files.  Not ported: ``--windows-per-batch`` > 1 raises in the
-engine, as its entry points do.
+and tee files.  ``--windows-per-batch W`` dispatches W windows per group
+(the engine's scanned multi-window dispatch), with ``--data-shards`` too.
 """
 from __future__ import annotations
 
@@ -247,8 +247,10 @@ def build_parser() -> argparse.ArgumentParser:
                    help="huge-window SWFDMC: absorb candidate-form blocks (K4 / K5); "
                         "auto = on for a CUDA device when every modality is eligible")
     p.add_argument("--windows-per-batch", type=int, default=None,
-                   help="windows per device call; only 1 (or the default) runs: the "
-                        "scanned multi-window dispatch is not ported")
+                   help="dispatch this many tumbling windows per device group (the "
+                        "same labels as per-window dispatch; one label pull per "
+                        "group). Default: auto, which is per-window on the card and "
+                        "the CPU")
     p.add_argument("--matching", default="auto",
                    choices=["auto", "hungarian", "pot", "centroid"],
                    help="cross-window cluster-ID matching: auto = reference "

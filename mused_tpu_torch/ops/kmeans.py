@@ -4,9 +4,11 @@ Replaces sklearn KMeans / MiniBatchKMeans (reference matrix_operations.py:
 149-153; main.py:82-85).  The cluster count is dynamic per window (the
 reference's unique-ground-truth-label count, main.py:41/97), so centroids
 are padded to a static ``k_max`` and dead centres sit at +inf distance.
-Lloyd iterates until the centre shift drops below ``tol`` (one host sync
-per iteration to test it); an empty live cluster moves to the worst-fit
-point, sklearn's relocation rule.
+Lloyd iterates until the centre shift drops below ``tol``; an empty live
+cluster moves to the worst-fit point, sklearn's relocation rule.  The loop
+reads the device only every ``CHECK_EVERY`` iterations (see
+:func:`lloyd_loop`), where the JAX package branches with ``lax.cond`` and
+loops with ``lax.while_loop``.
 
 Random draws come from the caller's ``torch.Generator``; ``init`` injects
 the starting centroids instead.  ``mark_background`` is the label-free
@@ -18,34 +20,61 @@ from typing import NamedTuple
 
 import torch
 
+# Lloyd steps between host reads of the convergence flag.  4 ran fastest of
+# 4 / 8 / 16 on the H100 (chip_smoke.py phase m1): on the host-bound dense
+# path a read costs a short round trip, a frozen step some 40 launches.
+CHECK_EVERY = 4
 
-def _sq_dists(x: torch.Tensor, centroids: torch.Tensor) -> torch.Tensor:
-    """(n, k) squared Euclidean distances via the expanded-norm form."""
-    xn = torch.sum(x * x, dim=1)
+
+def _sq_dists(x: torch.Tensor, centroids: torch.Tensor,
+              xn: torch.Tensor | None = None) -> torch.Tensor:
+    """(n, k) squared Euclidean distances via the expanded-norm form
+    (``xn``: the rows' squared norms, when the caller keeps them)."""
+    xn = torch.sum(x * x, dim=1) if xn is None else xn
     cn = torch.sum(centroids * centroids, dim=1)
     return torch.clamp(xn[:, None] + cn[None, :] - 2.0 * (x @ centroids.T), min=0.0)
 
 
 def kmeanspp_init(x: torch.Tensor, k_max: int, k, generator: torch.Generator | None):
     """k-means++ seeding of ``k_max`` centres; centres at index >= k are zero.
-    The live count is read once on the host, so only the k - 1 live draws
-    run (the JAX package scans all k_max - 1 steps and masks the dead ones;
-    the live centres and the zeros are the same)."""
+    The live count is read on the host (a read of the device only when ``k``
+    is a device tensor), so only the k - 1 live draws run (the JAX package
+    scans all k_max - 1 steps and masks the dead ones; the live centres and
+    the zeros are the same).  The draws index the rows on the device."""
     n = x.shape[0]
     live = max(1, min(int(k), k_max))
     first = torch.randint(n, (1,), generator=generator, device=x.device)
-    cents = [x[first[0]]]
-    min_d2 = _sq_dists(x, cents[0][None, :])[:, 0]
+    cents = [x[first]]                                   # (1, d) each
+    min_d2 = _sq_dists(x, cents[0])[:, 0]
     for _ in range(1, live):
         total = torch.sum(min_d2)
         probs = torch.where(total > 0, min_d2 / torch.clamp(total, min=1e-30),
                             torch.full_like(min_d2, 1.0 / n))
-        c = x[torch.multinomial(probs, 1, generator=generator)[0]]
+        c = x[torch.multinomial(probs, 1, generator=generator)]
         min_d2 = torch.minimum(min_d2, torch.sum((x - c) ** 2, dim=1))
         cents.append(c)
     out = torch.zeros((k_max, x.shape[1]), dtype=x.dtype, device=x.device)
-    out[:live] = torch.stack(cents)
+    out[:live] = torch.cat(cents)
     return out
+
+
+def lloyd_loop(c: torch.Tensor, step, max_iters: int, tol: float) -> torch.Tensor:
+    """Iterate ``c = step(c)`` as ``lax.while_loop`` does while
+    ``shift > tol`` and fewer than ``max_iters`` steps ran, with ``step``
+    returning (new centres, shift).  Once a step's shift is not above
+    ``tol`` the centres freeze (that step's centres kept, as the while loop
+    stops right after it) and a device flag records it; the host reads the
+    flag every ``CHECK_EVERY`` steps, so the loop runs up to
+    ``CHECK_EVERY - 1`` frozen steps and reads the device at most
+    ceil(steps / ``CHECK_EVERY``) times."""
+    done = torch.zeros((), dtype=torch.bool, device=c.device)
+    for it in range(max_iters):
+        new_c, shift = step(c)
+        c = torch.where(done, c, new_c)
+        done = done | ~(shift > tol)
+        if (it + 1) % CHECK_EVERY == 0 and it + 1 < max_iters and bool(done):
+            break
+    return c
 
 
 def kmeans(x: torch.Tensor, k, generator: torch.Generator | None = None, *,
@@ -56,33 +85,32 @@ def kmeans(x: torch.Tensor, k, generator: torch.Generator | None = None, *,
     centroids (k_max, d))."""
     n = x.shape[0]
     x = x.float()
-    k = torch.as_tensor(k, device=x.device)
-    alive = torch.arange(k_max, device=x.device) < k
+    alive = torch.arange(k_max, device=x.device) < k      # k: int or device tensor
     c = kmeanspp_init(x, k_max, k, generator) if init is None else init.float()
     arange_k = torch.arange(k_max, device=x.device)
+    k_eff = min(k_max, n)
+    xn = torch.sum(x * x, dim=1)
 
     def assign(cent):
-        return torch.argmin(torch.where(alive[None, :], _sq_dists(x, cent), torch.inf),
+        return torch.argmin(torch.where(alive[None, :], _sq_dists(x, cent, xn), torch.inf),
                             dim=1)
 
-    for _ in range(max_iters):
+    def step(c):
         labels = assign(c)
         onehot = (labels[:, None] == arange_k[None, :]).float()
         counts = torch.sum(onehot, dim=0)
         new_c = torch.where((counts > 0)[:, None],
                             (onehot.T @ x) / torch.clamp(counts, min=1.0)[:, None], c)
+        # the i-th empty live cluster moves to the i-th worst-fit point,
+        # computed every step and selected only where a cluster is empty
         empty = alive & (counts == 0)
-        if bool(torch.any(empty)):
-            # the i-th empty live cluster moves to the i-th worst-fit point
-            dist_own = torch.gather(_sq_dists(x, new_c), 1, labels[:, None])[:, 0]
-            k_eff = min(k_max, n)
-            far = torch.sort(dist_own, descending=True, stable=True)[1][:k_eff]
-            slot = torch.clamp(torch.cumsum(empty.long(), 0) - 1, 0, k_eff - 1)
-            new_c = torch.where(empty[:, None], x[far[slot]], new_c)
-        shift = torch.sum((new_c - c) ** 2)
-        c = new_c
-        if not bool(shift > tol):
-            break
+        dist_own = torch.gather(_sq_dists(x, new_c, xn), 1, labels[:, None])[:, 0]
+        far = torch.sort(dist_own, descending=True, stable=True)[1][:k_eff]
+        slot = torch.clamp(torch.cumsum(empty.long(), 0) - 1, 0, k_eff - 1)
+        new_c = torch.where(empty[:, None], x[far[slot]], new_c)
+        return new_c, torch.sum((new_c - c) ** 2)
+
+    c = lloyd_loop(c, step, max_iters, tol)
     return assign(c), c
 
 

@@ -5,8 +5,9 @@ Each rank owns a contiguous share of the points; per iteration it assigns
 its rows locally and contributes the counts and the ``onehot.T @ x`` sums of
 its share to an all-reduce, so the centroids stay replicated (k_max × d,
 tiny).  The semantics are ``ops/kmeans.kmeans``'s (dead centres at +inf,
-the shift tolerance, the empty-cluster relocation), so one rank and p ranks
-agree up to the all-reduce's summation order.
+the shift tolerance, the empty-cluster relocation, the loop that reads the
+device every ``kmeans.CHECK_EVERY`` steps), so one rank and p ranks agree
+up to the all-reduce's summation order.
 
 k-means++ seeding runs replicated on the replicated points, outside the
 sharded loop: every rank draws the same centres from the caller's generator
@@ -38,36 +39,37 @@ def kmeans_sharded(x: torch.Tensor, k, generator: torch.Generator | None = None,
     centroids (k_max, d)), the same on every rank."""
     axis = Axis(mesh, "data")
     x = x.float()
-    k = torch.as_tensor(k, device=x.device)
-    alive = torch.arange(k_max, device=x.device) < k
+    alive = torch.arange(k_max, device=x.device) < k      # k: int or device tensor
     c = km.kmeanspp_init(x, k_max, k, generator) if init is None else init.float()
     x_s = x[axis.share(x.shape[0])]
     m, d = x_s.shape
     arange_k = torch.arange(k_max, device=x.device)
+    xn = torch.sum(x_s * x_s, dim=1)
 
     def assign(cent):
-        return torch.argmin(torch.where(alive[None, :], km._sq_dists(x_s, cent), torch.inf),
-                            dim=1)
+        return torch.argmin(
+            torch.where(alive[None, :], km._sq_dists(x_s, cent, xn), torch.inf), dim=1)
 
-    for _ in range(max_iters):
+    def step(c):
         labels = assign(c)
         onehot = (labels[:, None] == arange_k[None, :]).float()
         counts = axis.psum(torch.sum(onehot, dim=0))
         sums = axis.psum(onehot.T @ x_s)
         new_c = torch.where((counts > 0)[:, None],
                             sums / torch.clamp(counts, min=1.0)[:, None], c)
+        # the relocation runs every step (its gathers on every rank) and is
+        # selected only where a cluster is empty: the same on every rank,
+        # since the counts are summed
         empty = alive & (counts == 0)
-        if bool(torch.any(empty)):          # the same on every rank: counts are summed
-            dist_own = torch.gather(km._sq_dists(x_s, new_c), 1, labels[:, None])[:, 0]
-            vals, idx = _worst_fits(dist_own, min(k_max, m))
-            cand_x = axis.all_gather(x_s[idx]).reshape(-1, d)
-            cand_v = axis.all_gather(vals).reshape(-1)
-            k_eff = min(k_max, cand_v.shape[0])
-            _, gidx = _worst_fits(cand_v, k_eff)
-            slot = torch.clamp(torch.cumsum(empty.long(), 0) - 1, 0, k_eff - 1)
-            new_c = torch.where(empty[:, None], cand_x[gidx[slot]], new_c)
-        shift = torch.sum((new_c - c) ** 2)
-        c = new_c
-        if not bool(shift > tol):
-            break
+        dist_own = torch.gather(km._sq_dists(x_s, new_c, xn), 1, labels[:, None])[:, 0]
+        vals, idx = _worst_fits(dist_own, min(k_max, m))
+        cand_x = axis.all_gather(x_s[idx]).reshape(-1, d)
+        cand_v = axis.all_gather(vals).reshape(-1)
+        k_eff = min(k_max, cand_v.shape[0])
+        _, gidx = _worst_fits(cand_v, k_eff)
+        slot = torch.clamp(torch.cumsum(empty.long(), 0) - 1, 0, k_eff - 1)
+        new_c = torch.where(empty[:, None], cand_x[gidx[slot]], new_c)
+        return new_c, torch.sum((new_c - c) ** 2)
+
+    c = km.lloyd_loop(c, step, max_iters, tol)
     return axis.all_gather(assign(c)).reshape(-1), c

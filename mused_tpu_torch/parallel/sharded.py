@@ -267,12 +267,33 @@ def sharded_engine_step(swfd_state, minibatch_state, fused_s: torch.Tensor, n_cl
     return swfd_state, minibatch_state, reduced, labels, r_norm
 
 
-def sharded_scanned_steps(*args, **kwargs):
-    """The scanned multi-window dispatch (``windows_per_batch`` > 1) is not
-    ported: windows dispatch one at a time."""
-    raise NotImplementedError(
-        "the scanned multi-window dispatch is not ported (it hid a TPU link's round "
-        "trip); call sharded_engine_step once per window")
+def sharded_scanned_steps(swfd_state, minibatch_state, feats_batch: tuple, n_clusters,
+                          generators, *, approach: str, k_basis: int, reduced_dim: int,
+                          k_max: int, window: int, fd_shrink: str, types: tuple,
+                          tags_dim: int, text_dim: int, mesh, topology: str = "allgather",
+                          k_source: str = "given", eigengap_theta: float = 0.15,
+                          background: bool = False):
+    """W tumbling windows' sharded steps enqueued back to back, SPMD (the
+    mirror of the engine's ``scanned_window_steps``, composing
+    ``windows_per_batch`` with ``data_shards``): window j of the stacked
+    (W, n, ...) ``feats_batch`` goes through :func:`fused_shard` and
+    :func:`sharded_engine_step` with ``n_clusters[j]`` and the j-th
+    generator, the SWFD ring and mini-batch state threading through, as W
+    per-window sharded dispatches run them.  Returns (new_swfd,
+    new_minibatch, labels (W, n), r_norms (W,)), the same on every rank."""
+    labels, r_norms = [], []
+    for j, (k, gen) in enumerate(zip(n_clusters, generators)):
+        fused_s = fused_shard(tuple(f[j] for f in feats_batch), types, k_basis=k_basis,
+                              mesh=mesh, tags_dim=tags_dim, text_dim=text_dim)
+        swfd_state, minibatch_state, _, lab, r_norm = sharded_engine_step(
+            swfd_state, minibatch_state, fused_s, k, gen, approach=approach,
+            reduced_dim=reduced_dim, k_max=k_max, window=window, fd_shrink=fd_shrink,
+            mesh=mesh, topology=topology, k_source=k_source,
+            need_reduced=approach != "sSpectral", eigengap_theta=eigengap_theta,
+            background=background)
+        labels.append(lab)
+        r_norms.append(r_norm)
+    return swfd_state, minibatch_state, torch.stack(labels), torch.stack(r_norms)
 
 
 def sharded_window_step(location, times, user_ids, tags, text, n_clusters,

@@ -20,6 +20,15 @@ same engine for production use:
     ahead of the oldest finalized one, so a push returns without waiting
     for the device (``flush()`` drains); results may lag further by the
     work in flight, at most ``dispatch_ahead + 1`` windows;
+  * eligible configs (``windows_per_batch`` = W > 1, by the offline
+    engine's rule, ``engine.streaming.resolve_windows_per_batch``) buffer W
+    fired windows and dispatch them as one group
+    (``engine.streaming.scanned_group_dispatch``), whose labels are pulled
+    in one transfer and equal per-window dispatch's.  Results may then lag
+    by up to W - 1 buffered windows more, and the worker holds up to
+    ``dispatch_ahead + 1`` groups; ``flush()`` dispatches a partial group
+    window by window (never padded: the sketch state sees each window
+    once);
   * ``background=True`` adds the label-free background bucket
     (``kmeans.mark_background``): rows in the far mode of the embedding's
     distance-to-centroid distribution get event id -1 ("no event"), which
@@ -27,12 +36,11 @@ same engine for production use:
   * ``save()`` / ``load()`` checkpoint the whole detector (device sketch
     state, matcher state, the raw-record tail the next windows need).
 
-Windows always dispatch one at a time: the JAX package's scanned group
-dispatch hid a TPU link's round trip and is not ported.  The worker thread
-launches device work and the caller thread pulls labels on the same (the
-current) CUDA stream, so window order holds; readiness is a CUDA event
-recorded after each dispatch.  Everything downstream of featurization is
-the offline engine's window step: serving adds no second compute path.
+The worker thread launches device work and the caller thread pulls labels
+on the same (the current) CUDA stream, so window order holds; readiness is
+a CUDA event recorded after each window's or group's dispatch.  Everything
+downstream of featurization is the offline engine's window step or group
+call: serving adds no second compute path.
 """
 from __future__ import annotations
 
@@ -105,10 +113,30 @@ class _DispatchWorker:
 
 def _entry_ready(entry) -> bool:
     """True when finalizing ``entry`` will not wait for the device: its
-    dispatch event has completed (always True off the card, and for a huge
-    window, which completes inside its dispatch)."""
-    _, pending, event = entry
-    return pending.clusters is not None or event is None or event.query()
+    window's or group's dispatch event has completed (always True off the
+    card, and for a huge window, which completes inside its dispatch)."""
+    if len(entry) == 3:                  # (row_start, _PendingWindow, event)
+        _, pending, event = entry
+        return pending.clusters is not None or event is None or event.query()
+    return entry[3].ready()              # a group member: its _GroupHandle
+
+
+class _GroupHandle:
+    """A dispatched group's device labels (W, n) and r_norms (W,), pulled
+    to the host once for its W windows."""
+
+    def __init__(self, labels: torch.Tensor, r_norms: torch.Tensor, event):
+        self._labels, self.r_norms, self._event = labels, r_norms, event
+        self._host: np.ndarray | None = None
+
+    def ready(self) -> bool:
+        return self._host is not None or self._event is None or self._event.query()
+
+    def pull(self) -> np.ndarray:
+        if self._host is None:
+            self._host = self._labels.cpu().numpy()
+            self._labels = None
+        return self._host
 
 
 class WindowResult(NamedTuple):
@@ -158,6 +186,13 @@ class StreamDetector:
         # a huge window matches inside its dispatch, which needs the previous
         # window's matched labels: no lag
         self.max_lag = 0 if self.engine.huge else max(int(max_lag), 0)
+        # the offline engine's rule for W; without lag a group cannot wait
+        self._batch_w = 1 if self.max_lag == 0 else engine_mod.resolve_windows_per_batch(
+            cfg, standard_types=list(self.modality_types) == engine_mod.STANDARD_TYPES,
+            backend=self.engine.device.type)
+        self._scan_types = engine_mod.scanned_types_for(self.modality_types, cfg.features)
+        # (row_start, window index, window rows) fired and awaiting a full group
+        self._gbuf: list[tuple[int, int, list[np.ndarray]]] = []
         # retention: per-modality lists of immutable pushed chunks covering
         # at least the last window_size rows (see push())
         self._rchunks: list[list[np.ndarray]] = [[] for _ in self.modality_types]
@@ -166,9 +201,10 @@ class StreamDetector:
         self._count = 0          # absolute records pushed
         self._window_index = 0
         self._prev_clusters: np.ndarray | None = None
-        # (row_start, _PendingWindow, CUDA event or None): appended by the
-        # dispatch worker, consumed by the caller thread (one producer, one
-        # consumer; deque ops are atomic)
+        # (row_start, _PendingWindow, CUDA event or None) per window, or
+        # (row_start, window index, stable feats, _GroupHandle, position) per
+        # member of a group: appended by the dispatch worker, consumed by the
+        # caller thread (one producer, one consumer; deque ops are atomic)
         self._pending: collections.deque[tuple] = collections.deque()
         self._seen_events: set[int] = set()
         # labels are never consulted (k_estimate is label-free); this array
@@ -264,7 +300,13 @@ class StreamDetector:
         row_start = i + 1 - self.cfg.window_size
         widx = self._window_index
         self._window_index += 1
-        self._submit(lambda: self._dispatch_one(row_start, widx, window))
+        if self._batch_w > 1:
+            self._gbuf.append((row_start, widx, window))
+            if len(self._gbuf) == self._batch_w:
+                group, self._gbuf = self._gbuf, []
+                self._submit(lambda: self._dispatch_group(group))
+        else:
+            self._submit(lambda: self._dispatch_one(row_start, widx, window))
         return self._drain_ready()
 
     def _drain_ready(self) -> list[WindowResult]:
@@ -273,7 +315,8 @@ class StreamDetector:
         (``max_lag`` plus what the worker can hold) only windows whose device
         work has completed; past it the pull blocks, so the lag and host
         memory stay bounded."""
-        hard = self.max_lag + (self._dispatch_ahead + 1 if self._worker else 0)
+        hard = self.max_lag + (self._batch_w * (self._dispatch_ahead + 1)
+                               if self._worker else 0)
         out = []
         while len(self._pending) > self.max_lag:
             if len(self._pending) <= hard and not _entry_ready(self._pending[0]):
@@ -290,15 +333,46 @@ class StreamDetector:
         pending = eng.dispatch_window(host, to_device(host, eng.device),
                                       self.modality_types, self._dummy_labels, widx,
                                       self._prev_clusters)
-        event = None
-        if eng.device.type == "cuda":
-            event = torch.cuda.Event()
-            event.record()
-        self._pending.append((row_start, pending, event))
+        self._pending.append((row_start, pending, self._recorded_event()))
+
+    def _recorded_event(self):
+        """A CUDA event recorded after the work enqueued so far (None off the card)."""
+        if self.engine.device.type != "cuda":
+            return None
+        event = torch.cuda.Event()
+        event.record()
+        return event
+
+    def _dispatch_group(self, group: list) -> None:
+        """Featurize a full group, move it to the device stacked and dispatch
+        it as one group call (on the worker thread when asynchronous)."""
+        eng = self.engine
+        host = [eng.featurize(rows, self.modality_types) for _, _, rows in group]
+        feats = to_device(engine_mod.stack_window_features([tuple(h) for h in host]),
+                          eng.device)
+        k, k_source = eng._k_plan(self._dummy_labels)
+        labels, r_norms = engine_mod.scanned_group_dispatch(
+            eng, feats, [k] * len(group), [w for _, w, _ in group], types=self._scan_types,
+            k_source=k_source)
+        handle = _GroupHandle(labels, r_norms, self._recorded_event())
+        for pos, ((row_start, widx, _), h) in enumerate(zip(group, host)):
+            self._pending.append((row_start, widx, eng._stable_feats(h), handle, pos))
 
     def _finalize_oldest(self) -> WindowResult:
-        row_start, pending, _ = self._pending.popleft()
-        clusters = self.engine.finalize_window(pending, self._prev_clusters)
+        entry = self._pending.popleft()
+        eng = self.engine
+        if len(entry) == 3:
+            row_start, pending, _ = entry
+            widx = pending.window_index
+            clusters = eng.finalize_window(pending, self._prev_clusters)
+        else:
+            row_start, widx, stable_feats, handle, pos = entry
+            labels = handle.pull()[pos]
+            if self.cfg.approach == "SWFDMC" and eng.swfd_R is None:
+                eng.swfd_R = float(handle.r_norms[0])
+            clusters = engine_mod.match_window_labels(
+                self._prev_clusters, labels, self.cfg, method=eng._match_method(),
+                centroid_matcher=eng.centroid_matcher, stable_feats=stable_feats)
         self._prev_clusters = clusters
         ids, counts = np.unique(clusters, return_counts=True)
         # the background id (-1) is "no event": never in event_ids /
@@ -309,14 +383,18 @@ class StreamDetector:
             ids, counts = ids[1:], counts[1:]
         new = np.array([e for e in ids.tolist() if e not in self._seen_events], ids.dtype)
         self._seen_events.update(ids.tolist())
-        return WindowResult(window_index=pending.window_index, row_start=row_start,
+        return WindowResult(window_index=widx, row_start=row_start,
                             clusters=clusters, event_ids=ids, counts=counts,
                             new_events=new, background=n_background)
 
     def flush(self) -> list[WindowResult]:
-        """Finalize every queued window (in-flight dispatches drain first)."""
+        """Finalize every queued window: in-flight dispatches drain first,
+        then a partial group dispatches window by window."""
         if self._worker is not None:
             self._worker.drain()
+        for row_start, widx, rows in self._gbuf:
+            self._dispatch_one(row_start, widx, rows)
+        self._gbuf = []
         out = []
         while self._pending:
             out.append(self._finalize_oldest())

@@ -4,8 +4,9 @@ Copied, not imported, so the port runs where the JAX package is absent:
 ``APPROACHES``, ``FeatureConfig`` and ``PipelineConfig`` with the original's
 code, names and defaults (the sweep helpers are not copied; the port does
 not call them).  Field comments are the original's and describe the JAX
-package's options; the port runs every one but ``windows_per_batch`` > 1,
-on which it raises ``NotImplementedError`` (``engine/streaming.py``).
+package's options, and the port runs every one (``windows_per_batch`` > 1
+as a group of per-window steps enqueued back to back, with no host read
+between them, instead of one ``lax.scan``: ``engine/streaming.py``).
 
 The original's note: the reference hard-codes every knob in module-level
 dicts (reference main.py:262-313: ``experiments``, ``approaches``,

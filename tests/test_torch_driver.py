@@ -210,7 +210,6 @@ def test_cli_demo_runs_in_its_own_process(tmp_path):
 
 
 @pytest.mark.parametrize("flags,exc,match", [
-    (["--windows-per-batch", "4"], NotImplementedError, "scanned multi-window dispatch"),
     # the rows layout runs since slice 4b, over the ranks torchrun starts
     (["--data-shards", "2"], ValueError, "process group of 2 ranks"),
 ])
@@ -236,6 +235,22 @@ def test_cli_flags_of_slice_4b_run_the_demo_as_the_plain_cli(flags, tmp_path, mo
         body = open(os.path.join("logs", log)).read()
         logs[name] = re.sub(r"'processing_time': \[[^]]*\]", "", body)
     assert logs["flags"] == logs["plain"]
+
+
+def test_cli_windows_per_batch_logs_what_the_per_window_cli_logs(tmp_path, monkeypatch):
+    """``--windows-per-batch 4`` runs the scanned group dispatch, whose
+    metrics equal per-window dispatch's."""
+    logs = {}
+    for w in ("1", "4"):
+        (tmp_path / w).mkdir()
+        monkeypatch.chdir(tmp_path / w)
+        with contextlib.redirect_stdout(io.StringIO()):
+            assert tmain.cli(["--dataset", "demo", "--device", "cpu", "--no-tee",
+                              "--approaches", "SWFDMC", "sSVDMC", "--windows-per-batch", w]) == 0
+        (log,) = os.listdir("logs")
+        body = open(os.path.join("logs", log)).read()
+        logs[w] = re.sub(r"'processing_time': \[[^]]*\]", "", body)
+    assert logs["4"] == logs["1"]
 
 
 def test_cli_demo_tees_into_its_log_dir(tmp_path, monkeypatch):

@@ -9,7 +9,11 @@ reduced_dim 8:
   * the same errors for a label-derived count and for bad shapes;
   * a pushed buffer is copied; a failed dispatch poisons the detector;
   * with the JAX side's draws injected, NMI within 0.05 of the JAX detector;
-  * the background bucket on the crisis stream fires and lifts NMI.
+  * the background bucket on the crisis stream fires and lifts NMI;
+  * with ``windows_per_batch=4`` (groups of 4 windows, a partial group
+    flushed window by window) the results equal per-window serving, do not
+    depend on the pushes' sizes, resume after a save with a partly filled
+    group, and a non-batchable approach is clamped to per-window dispatch.
 """
 import sys
 
@@ -240,3 +244,51 @@ def test_background_bucket_on_the_crisis_stream():
 
 def test_api_reexports_the_detector():
     assert tapi.StreamDetector is StreamDetector
+
+
+def _equal_results(got, want):
+    assert len(got) == len(want)
+    for x, y in zip(got, want):
+        assert (x.window_index, x.row_start) == (y.window_index, y.row_start)
+        np.testing.assert_array_equal(x.clusters, y.clusters)
+        np.testing.assert_array_equal(x.new_events, y.new_events)
+
+
+@pytest.mark.parametrize("approach", ["SWFDMC", "sSVDMC"])
+def test_group_serving_equals_per_window_serving(stream, approach):
+    """7 windows: one group of 4 dispatched, 3 buffered and flushed window
+    by window, the state threading through both (tests/test_serving.py's
+    scanned case)."""
+    mods, mtypes, _ = stream
+    rows = [m[:7 * W] for m in mods]
+    per_window = _all(port(mtypes, approach), rows, 96)
+    det = port(mtypes, approach, cfg=dict(windows_per_batch=4))
+    assert det._batch_w == 4
+    _equal_results(_all(det, rows, 96), per_window)
+
+
+def test_group_serving_chunking_and_save_load_with_a_partial_group(stream, tmp_path):
+    mods, mtypes, _ = stream
+    group = dict(windows_per_batch=4)
+    full = _all(port(mtypes, cfg=group), mods, 512)
+    _equal_results(_all(port(mtypes, cfg=group), mods, 13), full)
+    det = port(mtypes, cfg=group)
+    cut = 5 * W + 7                    # one group dispatched, one window buffered
+    out = _serve(det, mods, W, stop=cut)
+    assert len(det._gbuf) == 1
+    path = str(tmp_path / "det.npz")
+    out.extend(det.save(path))
+    det2 = StreamDetector.load(path, device="cpu")
+    assert det2._batch_w == 4 and det2._count == cut
+    out.extend(_serve(det2, [m[cut:] for m in mods], W) + det2.flush())
+    _equal_results(out, full)
+
+
+def test_group_serving_clamps_a_non_batchable_approach(stream):
+    mods, mtypes, _ = stream
+    det = port(mtypes, "DBSCAN_incr", cfg=dict(windows_per_batch=4, eps=1.5, min_samples=2))
+    assert det._batch_w == 1
+    got = _all(det, mods, 96)
+    want = _all(port(mtypes, "DBSCAN_incr", cfg=dict(eps=1.5, min_samples=2)), mods, 96)
+    assert any(len(np.unique(r.clusters)) > 1 for r in want)     # real labels
+    _equal_results(got, want)

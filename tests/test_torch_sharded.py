@@ -10,7 +10,9 @@ this process computes the JAX side.  Tolerances:
     the JAX package's, and inside the FD bound; ``global_max_row_norm`` and
     ``ppermute`` exact;
   * row-sharded k-means from the same initial centres: labels equal,
-    centroids within 1e-5;
+    centroids within 1e-5; on small-integer fixtures (sums exact in any
+    order) labels and centroids bit-equal to ``mused_tpu.ops.kmeans.kmeans``,
+    with at most ceil(steps / ``CHECK_EVERY``) host reads on every rank;
   * the fused (m, n) shard: time, username and tags bit-equal; location
     and text on >= 99.9% of edges with every row's degree equal (each
     modality alone, by invalidating the others on both sides); the fused
@@ -24,6 +26,7 @@ this process computes the JAX side.  Tolerances:
   * every rank returns the same replicated results.
 """
 import functools
+import math
 
 import jax
 import jax.numpy as jnp
@@ -42,9 +45,10 @@ from mused_tpu.parallel import sketch_merge as jsm
 from mused_tpu.parallel.mesh import make_mesh as jmake_mesh
 from mused_tpu_torch.data import features as tfeat
 from mused_tpu_torch.ops import blocked_affinity as tba
+from mused_tpu_torch.ops import kmeans as tkm
 from mused_tpu_torch.parallel import sharded as tsh
 import torch_dist
-from torch_parity import n as tonp, t
+from torch_parity import integer_kmeans_case, n as tonp, reference_lloyd, t
 
 DENSE_N, KB, RANK, TAGS_DIM, TEXT_DIM = 64, 3, 8, 256, 512
 HUGE_N, BLOCK, NBINS, ELL, K_MAX = 512, 64, 128, 16, 4
@@ -59,6 +63,7 @@ HUGE_FD = {f"huge_fd_{mode}_{cand}_{select}_{topo}": dict(mode=mode, cand_fold=c
                                             ("subspace", True, "binned", "ring"),
                                             ("subspace", False, "binned", "ring"))}
 JOIN_TIMEOUT = 180
+INTEGER_CASES = ("converges", "empty_cluster", "max_iters")
 
 
 def _standard_window(rng, n, h_tags=TAGS_DIM, h_text=TEXT_DIM):
@@ -148,6 +153,11 @@ def world():
     far = np.array(km_init)
     far[2] = 1e3                                     # a centre no point takes: relocation
     kmeans = {"kmeans": (x, 3, 5, km_init), "kmeans_relocate": (x, 3, 5, far)}
+    kmeans_reads = {}
+    for name in INTEGER_CASES:
+        xi, k, k_max, key_i, max_iters, tol = integer_kmeans_case(name)
+        init = np.array(jkm._kmeanspp_init(jnp.asarray(xi), k_max, jnp.int32(k), key_i))
+        kmeans_reads[name] = (xi, k, k_max, init, max_iters, tol)
     huge = _standard_window(np.random.default_rng(5), HUGE_N)
     svd_key, huge_key = jax.random.key(7), jax.random.key(8)
     svd_fused = _jax_fused(std, ("standard",))
@@ -155,7 +165,8 @@ def world():
     payload = {
         "consts": {"ell": ELL // 2, "kb": KB, "rank": RANK, "tags_dim": TAGS_DIM,
                    "text_dim": TEXT_DIM, "block": BLOCK, "nbins": NBINS, "k_max": K_MAX},
-        "sketches": sketches, "rows": rows, "kmeans": kmeans, "fused": fused,
+        "sketches": sketches, "rows": rows, "kmeans": kmeans, "kmeans_reads": kmeans_reads,
+        "fused": fused,
         "svd_fused": svd_fused,
         "svd_omega": np.asarray(jax.random.normal(svd_key, (DENSE_N, k), jnp.float32)),
         "huge": huge, "huge_fd": {k_: dict(v, ell=ELL) for k_, v in HUGE_FD.items()},
@@ -322,6 +333,23 @@ def test_kmeans_sharded_matches_jax(world, name):
         assert np.abs(cents[2]).max() < 100
 
 
+@pytest.mark.parametrize("name", INTEGER_CASES)
+def test_kmeans_sharded_reads_the_host_once_per_check(world, name):
+    """At most ceil(steps / CHECK_EVERY) reads of ``Tensor.__bool__`` on
+    every rank, labels and centroids bit-equal to ``mused_tpu.ops.kmeans.kmeans``
+    (its k-means++ centres injected) on sums exact in any order."""
+    x, k, k_max, key, max_iters, tol = integer_kmeans_case(name)
+    want_labels, want_cents = jkm.kmeans(jnp.asarray(x), jnp.int32(k), key, k_max=k_max,
+                                         max_iters=max_iters, tol=tol)
+    init = world["payload"]["kmeans_reads"][name][3]
+    steps = reference_lloyd(x, k, init, k_max=k_max, max_iters=max_iters, tol=tol)[2]
+    for res in world["ranks"]:
+        labels, cents, reads = res[f"reads_{name}"]
+        assert reads <= math.ceil(steps / tkm.CHECK_EVERY), (reads, steps)
+        np.testing.assert_array_equal(labels, np.asarray(want_labels))
+        np.testing.assert_array_equal(cents, np.asarray(want_cents))
+
+
 def _shards(world, name):
     return np.concatenate([r[name] for r in world["ranks"]])
 
@@ -425,7 +453,3 @@ def test_unknown_merge_topology_raises():
     with pytest.raises(ValueError, match="merge_topology"):
         tsm.merge(torch.zeros((2, 3)), 2, None, "tree")
 
-
-def test_scanned_steps_are_not_ported():
-    with pytest.raises(NotImplementedError, match="scanned"):
-        tsh.sharded_scanned_steps()

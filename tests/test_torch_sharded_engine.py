@@ -14,7 +14,10 @@ from the same points of the port's own reduction.  Tolerance: NMI and F1
 within 0.02 of the JAX engine's.  SWFDMC runs under both merge topologies,
 and sSVDMC_mini, the DBSCAN pair and the eigengap count with the background
 bucket run to finite metrics, as the JAX package's tests hold them; every
-rank reports the same metrics.
+rank reports the same metrics.  The scanned group dispatch
+(``windows_per_batch`` 2 and 4) of SWFDMC, sSVDMC and sSVDMC_mini equals
+per-window sharded dispatch exactly, and sSVDMC's equals the single-device
+group run within 1e-6 (tests/test_parallel.py's scanned cases).
 
 The same ranks then run the rank-0 write rule: a stream checkpointed on the
 ``columns`` and on the ``rows`` layout calls ``save_checkpoint`` on rank 0
@@ -53,6 +56,9 @@ PATHS = ("dense", "blocked")
 # tests/test_parallel.py holds them to finite metrics only)
 OTHERS = (("sSVDMC_mini", "dense"), ("sSVDMC_mini", "blocked"), ("DBSCAN_incr", "dense"),
           ("DBSCAN_centr", "dense"), ("DBSCAN_centr", "blocked"))
+# the scanned dispatch's runs: approach -> its per-window run's name
+SCANNED = {"SWFDMC": "SWFDMC-dense-allgather", "sSVDMC": "sSVDMC-dense-plain",
+           "sSVDMC_mini": "sSVDMC_mini-dense"}
 WINDOW, SHARDS, RANK, KB = 64, 4, 8, 3
 JOIN_TIMEOUT = 180
 
@@ -143,6 +149,12 @@ def runs():
     swfd += [(f"{a}-{p}", _cfg_kw(a, p)) for a, p in OTHERS]
     swfd.append(("sSVDMC-dense-eigengap-background",
                  _cfg_kw("sSVDMC", "dense", k_estimate="eigengap", background_bucket=True)))
+    swfd.append(("sSVDMC-dense-plain", _cfg_kw("sSVDMC", "dense")))
+    for w in (2, 4):
+        swfd += [(f"{a}-dense-W{w}", _cfg_kw(a, "dense", windows_per_batch=w))
+                 for a in SCANNED]
+        swfd.append((f"sSVDMC-single-W{w}",
+                     _cfg_kw("sSVDMC", "dense", shards=1, windows_per_batch=w)))
     with tempfile.TemporaryDirectory(prefix="mused_inbox_") as inbox, \
             tempfile.TemporaryDirectory(prefix="mused_ckpt_") as root:
         payload = {
@@ -204,6 +216,21 @@ def test_every_rank_reports_the_same_metrics(runs):
 
     for other in runs["ranks"][1:]:
         assert metrics(other) == metrics(runs["ranks"][0])
+
+
+@pytest.mark.parametrize("w", [2, 4])
+@pytest.mark.parametrize("approach", list(SCANNED))
+def test_sharded_groups_equal_per_window_sharded_dispatch(runs, approach, w):
+    got = runs["ranks"][0][f"{approach}-dense-W{w}"]
+    assert got == runs["ranks"][0][SCANNED[approach]]
+    assert all(np.isfinite(v) for v in got.values())
+
+
+@pytest.mark.parametrize("w", [2, 4])
+def test_sharded_groups_equal_the_single_device_groups(runs, w):
+    got, want = (runs["ranks"][0][f"sSVDMC-{where}-W{w}"] for where in ("dense", "single"))
+    for key in ("nmi_score", "f1_score"):
+        assert got[key] == pytest.approx(want[key], abs=1e-6)
 
 
 @pytest.mark.parametrize("layout", ["columns", "rows", "rows-blocked"])

@@ -298,6 +298,16 @@ def sharded_cases(rank: int, payload: dict) -> dict:
                                                            topology=topo)
     for name, (x, k, k_max, init) in payload["kmeans"].items():
         out[name] = ks.kmeans_sharded(T(x), k, None, k_max=k_max, mesh=mesh4, init=T(init))
+    orig_bool = torch.Tensor.__bool__
+    for name, (x, k, k_max, init, max_iters, tol) in payload["kmeans_reads"].items():
+        reads = []
+        torch.Tensor.__bool__ = lambda t: reads.append(1) or orig_bool(t)
+        try:
+            labels, cents = ks.kmeans_sharded(T(x), k, None, k_max=k_max, mesh=mesh4,
+                                              max_iters=max_iters, tol=tol, init=T(init))
+        finally:
+            torch.Tensor.__bool__ = orig_bool
+        out[f"reads_{name}"] = (labels, cents, len(reads))
     for name, (feats, types) in payload["fused"].items():
         out[name] = sharded.fused_shard(tuple(T(f) for f in feats), types, k_basis=c["kb"],
                                         mesh=mesh4, tags_dim=c["tags_dim"],

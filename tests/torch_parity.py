@@ -182,3 +182,61 @@ def crisis_serving_reference(rows=20_000, window=2000, chunk=500):
 if __name__ == "__main__":
     for line in crisis_serving_reference():
         print(line)
+
+
+def reference_lloyd(x, k: int, init, *, k_max: int, max_iters: int = 100, tol: float = 1e-4):
+    """The port's Lloyd loop as it was before it stopped reading the host
+    every iteration (two reads per step: any empty cluster, shift > tol):
+    (labels, centroids, steps run), the yardstick of the repaired loop."""
+    x = torch.as_tensor(x).float()
+    n = x.shape[0]
+    alive = torch.arange(k_max) < k
+    c = torch.as_tensor(init).float()
+    arange_k = torch.arange(k_max)
+
+    def sq_dists(cent):
+        xn = torch.sum(x * x, dim=1)
+        cn = torch.sum(cent * cent, dim=1)
+        return torch.clamp(xn[:, None] + cn[None, :] - 2.0 * (x @ cent.T), min=0.0)
+
+    def assign(cent):
+        return torch.argmin(torch.where(alive[None, :], sq_dists(cent), torch.inf), dim=1)
+
+    steps = 0
+    for _ in range(max_iters):
+        steps += 1
+        labels = assign(c)
+        onehot = (labels[:, None] == arange_k[None, :]).float()
+        counts = torch.sum(onehot, dim=0)
+        new_c = torch.where((counts > 0)[:, None],
+                            (onehot.T @ x) / torch.clamp(counts, min=1.0)[:, None], c)
+        empty = alive & (counts == 0)
+        if bool(torch.any(empty)):
+            dist_own = torch.gather(sq_dists(new_c), 1, labels[:, None])[:, 0]
+            k_eff = min(k_max, n)
+            far = torch.sort(dist_own, descending=True, stable=True)[1][:k_eff]
+            slot = torch.clamp(torch.cumsum(empty.long(), 0) - 1, 0, k_eff - 1)
+            new_c = torch.where(empty[:, None], x[far[slot]], new_c)
+        shift = torch.sum((new_c - c) ** 2)
+        c = new_c
+        if not bool(shift > tol):
+            break
+    return assign(c), c, steps
+
+
+def integer_kmeans_case(name: str):
+    """(x, k, k_max, JAX key, max_iters, tol) of a k-means fixture of small
+    integers, whose sums are exact in any order: "converges",
+    "empty_cluster" (the k-means++ seeding leaves a live cluster empty) or
+    "max_iters" (never converges)."""
+    rng = np.random.default_rng(11)
+    if name == "converges":
+        x = rng.integers(0, 16, size=(64, 2))
+        return x.astype(np.float32), 4, 6, jax.random.key(0), 100, 1e-4
+    if name == "empty_cluster":
+        # three distinct points, four centres: the seeding's last draw
+        # (uniform, every distance 0) repeats one, and its cluster is empty
+        x = np.repeat(np.array([[0, 0], [8, 0], [0, 8]]), [20, 24, 20], axis=0)
+        return x.astype(np.float32), 4, 4, jax.random.key(1), 100, 1e-4
+    x = np.concatenate([rng.integers(0, 6, size=(32, 3)), rng.integers(20, 26, size=(32, 3))])
+    return x.astype(np.float32), 3, 5, jax.random.key(2), 20, -1.0     # never converges
