@@ -7,7 +7,7 @@ Phases (any failure exits non-zero; no phase is skipped):
   (a) a CUDA device is present; print ``nvidia-smi`` name and power limit;
       build the kernels from ``mused_tpu_torch/csrc`` and print the build
       seconds and ptxas' register / shared-memory report per kernel, and the
-      dynamic shared memory of K1's kernels at window 2000; build the native
+      shared memory per CTA of K1's sim_keys and radix_select; build the native
       hasher and incdbscan core (``mused_tpu_torch/native``) and fail if
       either does not build;
   (b) K1 against its plain PyTorch version on the card, per metric at the
@@ -18,7 +18,8 @@ Phases (any failure exits non-zero; no phase is skipped):
       512-row chunks and text with bf16 operands: l1, jaccard and
       chord3 bit-equal, dot and euclidean >= 99.9% of edges with every
       row's degree identical; each case's route (tensor-core or
-      coordinate), mismatched entries and the times of both;
+      coordinate), mismatched entries, the times of both and the SM clock,
+      power draw and temperature before and after the kernel's timing;
   (c) ``api.process_streaming_data`` on the card over a seeded 150,000-record
       synthetic stream at the reference defaults (window 2000, k_basis 50,
       reduced_dim 50, binary labels, noise 0.95, sorted) for SWFDMC and
@@ -79,15 +80,26 @@ Phases (any failure exits non-zero; no phase is skipped):
          blocked SVD, 8 of blocked spectral), no K1;
       i2 the dense path: the same approaches at 32,768 rows (HDBSCAN then
          takes the card's Borůvka) and Spectral_batch at 16,384, 4 K1 each;
+         with ``--parent DIR`` (an unpacked tree of an earlier commit) also
+         the earlier tree's i2 in a subprocess, which builds that tree's
+         kernels, in turns: earlier, this, this, earlier; its first run
+         also times that tree's K1 on the four main-path calls at window
+         2000 and the n of i4, whose edges (a digest of their indices) must
+         equal this tree's;
       i3 sSpectral and DBSCAN_centr over (f)'s stream at window 98,304
          (768 / 576 K2 and 384 / 288 K3 per window);
       i4 K2 (tags, text) and K3 on the batch columns' last block (n =
-         151,552, nbins 4096) held to (e)'s rules, K1 at n = 32,768 held to
-         (b)'s; blocked DBSCAN equal to the dense DBSCAN on a 20,000-row
-         reduced embedding (on a grid that makes every squared distance
-         exact); the card's Borůvka against host Prim at 16,384 rows: the
-         same MST weights there, and the same partition on 16 separated
-         blobs;
+         151,552, nbins 4096) held to (e)'s rules; K1 at n = 8,192, 16,384 and
+         32,768 on the stream's first n records' four main-path calls, plus
+         Euclidean and dot on small-integer rows (exact products, so held
+         bit-equal), held to (b)'s rules: ms, bound, share of bound,
+         mismatched entries; at 32,768 text in 2048-row chunks (the chunking
+         before the key scratch was sized from free memory: every tile
+         computed) bit-equal to one chunk; blocked DBSCAN equal to the
+         dense DBSCAN on a 20,000-row reduced embedding (on a grid that
+         makes every squared distance exact); the card's Borůvka against
+         host Prim at 16,384 rows: the same MST weights there, and the same
+         partition on 16 separated blobs;
   (j) slice 4a, the column-sharded layouts:
       j1 K3 on tags jaccard + text dot (the column-sharded sweep's pair) on
          (e)'s first block: bit-equal to two K2 launches and held to (e)'s
@@ -175,9 +187,10 @@ The engine's spans measure host time unless they are compared: under
 at their ends (``SpanTimer(sync_all=True)``), so each covers its device
 work.  ``--profile`` also traces one huge window per approach with
 torch.profiler (kernel time by name, device busy share, host time by
-operator), and with (l) 10 windows of the row-sharded dense step per
-approach (SWFDMC, sSVDMC, beside the engine's spans), and prints no result
-lines.
+operator), with (i) K1's four calls at n = 32,768 and text in 2048-row
+chunks (device time by kernel per call, over 20 calls), and with (l) 10 windows of the row-sharded
+dense step per approach (SWFDMC, sSVDMC, beside the engine's spans), and
+prints no result lines.
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
@@ -185,6 +198,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import hashlib
 import inspect
 import io
 import json
@@ -256,11 +270,13 @@ SSVD_SWEEPS = 6              # blocked randomized SVD: sweeps per huge window
 SPECTRAL_SWEEPS = 8          # blocked spectral: degrees, 6 iterations, the Ritz product
 
 
-def nvidia_smi_line() -> str:
-    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True, text=True,
-                         check=True, timeout=60)
+def nvidia_smi_line(query: str = "name,power.limit") -> str:
+    out = subprocess.run(["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True, timeout=60)
     return out.stdout.strip().splitlines()[0]
+
+
+CLOCKS = "clocks.sm,power.draw,temperature.gpu"   # sampled beside K1's timings
 
 
 def cuda_ms(fn, reps: int = 10, warmup: int = 2) -> float:
@@ -384,29 +400,38 @@ def kernel_cases(mods, engine: streaming.StreamingEngine, device) -> list[tuple]
     ]
 
 
+def edges_sha256(adj: torch.Tensor) -> str:
+    """A digest of the 0/1 matrix's edges (their (row, column) indices)."""
+    return hashlib.sha256(adj.nonzero().cpu().numpy().tobytes()).hexdigest()
+
+
 def phase_b(cases, tag: str = "b", reps: int = 10, plain_reps: int = 10) -> list[dict]:
     rows = []
     for name, metric, x, valid, k, opts in cases:
         plain_opts = {o: v for o, v in opts.items() if o == "input_dtype"}
         got = ak.knn_adjacency(x, valid, k, metric, **opts)
+        clocks = [nvidia_smi_line(CLOCKS)]
+        ms = cuda_ms(lambda: ak.knn_adjacency(x, valid, k, metric, **opts), reps=reps,
+                     warmup=min(2, reps))    # timed before the plain version fills the cache
+        clocks.append(nvidia_smi_line(CLOCKS))
         want = ak.knn_adjacency_reference(x, valid, k, metric, **plain_opts)
         torch.cuda.synchronize()
         agree = edge_agreement(got, want)
         same_degree = bool(torch.equal(got.sum(1), want.sum(1)))
         row = {"case": name, "metric": metric, "route": ak.route(metric), **opts,
-               "n": x.shape[0], "d": x.shape[1], "k": k,
+               "n": x.shape[0], "d": x.shape[1], "k": k, "edges_sha256": edges_sha256(got),
+               "clocks_before_after": clocks,
                "edges": int(want.sum()), "mismatched_entries": int((got != want).sum()),
                "edge_agreement": agree, "same_degree": same_degree,
                "max_abs_err": float((got - want).abs().max()),
-               "ms": cuda_ms(lambda: ak.knn_adjacency(x, valid, k, metric, **opts), reps=reps,
-                             warmup=min(2, reps)),
+               "ms": ms,
                "plain_ms": cuda_ms(lambda: ak.knn_adjacency_reference(x, valid, k, metric,
                                                                       **plain_opts),
                                    reps=plain_reps, warmup=min(2, plain_reps - 1))}
         del got, want
         with_bound(row, k1_bound(metric, x.shape[0], x.shape[1]))
         print(f"[{tag}]", json.dumps(row), flush=True)
-        ok = (row["mismatched_entries"] == 0 if metric in BIT_EQUAL
+        ok = (row["mismatched_entries"] == 0 if metric in BIT_EQUAL or name.startswith("exact")
               else agree >= EDGE_AGREEMENT and same_degree)
         if not ok:
             raise AssertionError(f"kernel disagrees with its plain version: {row}")
@@ -1084,6 +1109,9 @@ BATCH_PADDED_ROWS, BATCH_NBINS = 151_552, 4_096
 BATCH_DENSE_ROWS, BATCH_SPECTRAL_ROWS = 32_768, 16_384   # i2: the dense path
 CHECK_DBSCAN_ROWS, CHECK_HDBSCAN_ROWS = 20_000, 16_384   # i4: blocked against dense
 BATCH_APPROACHES = ("SVDMC_batch", "Spectral_batch", "DBSCAN_batch", "HDBSCAN_batch")
+K1_ROWS = (8_192, 16_384, 32_768)    # i4: K1 at the dense batch's sizes
+K1_CHUNK_BEFORE = 2_048      # rows per chunk at n = 32,768 under the former 256 MB key scratch
+MAIN_CASES = ("location", "time", "tags", "text")
 
 
 def batch_cfg(approach: str, n_rows: int) -> PipelineConfig:
@@ -1146,6 +1174,82 @@ def phase_i2(mods, mtypes, labels) -> list:
             for a in BATCH_APPROACHES]
 
 
+# K1 and i2 in an earlier tree, run from its root: that tree's chip_smoke, modules and
+# kernels; argv[1] lists the n of K1's four main-path calls (none: i2 alone)
+EARLIER = """
+import hashlib, json, sys
+import torch
+import chip_smoke as cs
+cs.streaming.configure_precision()
+device = torch.device("cuda")
+mods, mtypes, labels = cs.make_stream(cs.N_RECORDS, noise_rate=cs.NOISE_RATE, binary=True,
+                                      sort_by_uploaded=True, seed=cs.SEED)
+cs.build.load()
+engine = cs.streaming.StreamingEngine(cs.batch_cfg("SVDMC_batch", cs.BATCH_DENSE_ROWS), device)
+k1 = {}
+for n in json.loads(sys.argv[1]):
+    k1[n] = {}
+    for name, metric, x, valid, k, _ in cs.main_cases(mods, engine, device, n):
+        got = cs.ak.knn_adjacency(x, valid, k, metric)
+        k1[n][name] = {
+            "edges_sha256": hashlib.sha256(got.nonzero().cpu().numpy().tobytes()).hexdigest(),
+            "ms": cs.cuda_ms(lambda: cs.ak.knn_adjacency(x, valid, k, metric), reps=3)}
+        del got
+    torch.cuda.empty_cache()
+print("[earlier]", json.dumps({"k1": k1, "i2": cs.phase_i2(mods, mtypes, labels)}), flush=True)
+"""
+
+
+def earlier_tree(tree: str, k1_rows: tuple = ()) -> dict:
+    """K1's four main-path calls at ``k1_rows`` (ms, digest of the edges)
+    and phase i2, run by the tree unpacked at ``tree`` (its own kernels,
+    built there) in a subprocess on this card."""
+    torch.cuda.empty_cache()
+    tree = os.path.abspath(tree)
+    env = {**os.environ, "PYTHONPATH": tree}
+    proc = subprocess.run([sys.executable, "-c", EARLIER, json.dumps(list(k1_rows))], cwd=tree,
+                          env=env, capture_output=True, text=True, timeout=900)
+    rows = [ln for ln in proc.stdout.splitlines() if ln.startswith("[earlier] ")]
+    if proc.returncode != 0 or not rows:
+        raise AssertionError(f"the tree at {tree} failed ({proc.returncode}):\n"
+                             f"{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
+    return json.loads(rows[-1][len("[earlier] "):])
+
+
+def phase_i2_against(mods, mtypes, labels, tree: str) -> dict:
+    """i2's dense batch seconds per approach with this tree's K1 and the
+    earlier tree's, in turns (earlier, this, this, earlier); the first
+    earlier run also times K1 at window 2000 and ``K1_ROWS``."""
+    first = earlier_tree(tree, (WINDOW, *K1_ROWS))
+    runs = {"earlier": [first["i2"]],
+            "this": [phase_i2(mods, mtypes, labels) for _ in range(2)]}
+    runs["earlier"].append(earlier_tree(tree)["i2"])
+    out = {"earlier_tree": tree, "k1": first["k1"], "i2_seconds": {
+        a: {who: [r[i]["seconds"] for r in rr] for who, rr in runs.items()}
+        for i, a in enumerate(BATCH_APPROACHES)}}
+    print("[i2] earlier tree against this one", json.dumps(out["i2_seconds"]), flush=True)
+    return out
+
+
+def k1_against(rows_by_n: dict, earlier: dict) -> dict:
+    """This tree's K1 main-path calls against the earlier tree's on the same
+    inputs: ms each and the same edges (digests equal), or the run fails."""
+    out = {}
+    for n, rows in rows_by_n.items():
+        for r in rows:
+            old = earlier.get(str(n), {}).get(r["case"])
+            if old is not None:
+                out.setdefault(n, {})[r["case"]] = {
+                    "earlier_ms": old["ms"], "ms": r["ms"],
+                    "same_edges": old["edges_sha256"] == r["edges_sha256"]}
+    print("[i4] K1 against the earlier tree", json.dumps(out), flush=True)
+    differ = [(n, c) for n, by_case in out.items() for c, v in by_case.items()
+              if not v["same_edges"]]
+    if differ:
+        raise AssertionError(f"K1's edges differ from the earlier tree's at {differ}")
+    return out
+
+
 def exact_grid(x: torch.Tensor) -> tuple[torch.Tensor, float]:
     """``x`` rounded to a power-of-two grid fine enough to keep its shape and
     coarse enough that every squared distance of the expanded-norm form
@@ -1156,6 +1260,61 @@ def exact_grid(x: torch.Tensor) -> tuple[torch.Tensor, float]:
     m2 = float(torch.max(torch.sum(x * x, dim=1)))
     scale = float(2.0 ** np.floor(0.5 * np.log2(2.0 ** 21 / max(m2, 1e-30))))
     return torch.round(x * scale) / scale, 1.0 / scale
+
+
+def exact_cases(n: int, device) -> list[tuple]:
+    """Euclidean and dot on (n, 64) integers in [-3, 3]: every product and
+    sum exact in float32, so kernel and plain version see the same keys, with
+    many ties at the k-th."""
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    xi = torch.randint(-3, 4, (n, 64), generator=gen, device=device).float()
+    ones = torch.ones(n, dtype=torch.bool, device=device)
+    return [("exact_euclidean", "euclidean", xi, ones, K_BASIS - 1, {}),
+            ("exact_dot", "dot", xi, ones, K_BASIS, {})]
+
+
+def k1_chunk_check(case: tuple, tag: str = "i4") -> dict:
+    """One K1 case in ``K1_CHUNK_BEFORE``-row chunks (every tile computed)
+    against one chunk of all rows (upper triangle, mirrored): bit-equal,
+    with both times."""
+    name, metric, x, valid, k, _ = case
+    whole = ak.knn_adjacency(x, valid, k, metric)
+    chunked = ak.knn_adjacency(x, valid, k, metric, chunk_rows=K1_CHUNK_BEFORE)
+    out = {"case": f"{name}_{K1_CHUNK_BEFORE}_row_chunks", "n": x.shape[0],
+           "chunk_rows": K1_CHUNK_BEFORE, "equal_to_one_chunk": bool(torch.equal(whole, chunked)),
+           "ms": cuda_ms(lambda: ak.knn_adjacency(x, valid, k, metric,
+                                                  chunk_rows=K1_CHUNK_BEFORE), reps=3),
+           "one_chunk_ms": cuda_ms(lambda: ak.knn_adjacency(x, valid, k, metric), reps=3)}
+    print(f"[{tag}]", json.dumps(out), flush=True)
+    if not out["equal_to_one_chunk"]:
+        raise AssertionError(f"row chunks differ from one chunk: {out}")
+    return out
+
+
+K1_PROFILE_CALLS = 20    # calls per trace: traces of a few calls held no device events
+
+
+def profile_k1(mods, device) -> list:
+    """Device time by kernel per call of K1's four calls at the dense
+    batch's n, and of text in ``K1_CHUNK_BEFORE``-row chunks (``--profile``)."""
+    engine = streaming.StreamingEngine(batch_cfg("SVDMC_batch", BATCH_DENSE_ROWS), device)
+    cases = main_cases(mods, engine, device, BATCH_DENSE_ROWS)
+    text = cases[MAIN_CASES.index("text")]
+    cases.append((f"text_{K1_CHUNK_BEFORE}_row_chunks", *text[1:5],
+                  {"chunk_rows": K1_CHUNK_BEFORE}))
+    out = []
+    for name, metric, x, valid, k, opts in cases:
+        def run(calls: int = K1_PROFILE_CALLS):
+            for _ in range(calls):
+                ak.knn_adjacency(x, valid, k, metric, **opts)
+            torch.cuda.synchronize()
+        run(1)
+        row = traced(run, {"k1_case": name, "n": x.shape[0], "calls": K1_PROFILE_CALLS})
+        per_call = {r["name"]: r["ms"] / K1_PROFILE_CALLS for r in row["kernels_ms"]}
+        print("[profile] K1 per call", json.dumps({"k1_case": name, "kernels_ms": per_call}),
+              flush=True)
+        out.append(row)
+    return out
 
 
 def phase_i4(mods, mtypes, device) -> dict:
@@ -1184,9 +1343,15 @@ def phase_i4(mods, mtypes, device) -> dict:
     torch.cuda.empty_cache()
 
     engine = streaming.StreamingEngine(batch_cfg("SVDMC_batch", BATCH_DENSE_ROWS), device)
-    out["K1"] = phase_b(main_cases(mods, engine, device, BATCH_DENSE_ROWS), tag="i4",
-                        reps=3, plain_reps=1)
-    torch.cuda.empty_cache()
+    out["K1_by_rows"] = {}
+    for n in K1_ROWS:
+        cases = main_cases(mods, engine, device, n) + exact_cases(n, device)
+        out["K1_by_rows"][n] = phase_b(cases, tag="i4", reps=3, plain_reps=1)
+        if n == BATCH_DENSE_ROWS:
+            out["K1_chunks"] = k1_chunk_check(cases[MAIN_CASES.index("text")])
+        del cases
+        torch.cuda.empty_cache()
+    out["K1"] = [r for r in out["K1_by_rows"][BATCH_DENSE_ROWS] if r["case"] in MAIN_CASES]
 
     n_rows = CHECK_DBSCAN_ROWS
     reduced = batch._blocked_reduce([m[:n_rows] for m in mods], mtypes,
@@ -2464,6 +2629,9 @@ def main() -> int:
     parser.add_argument("--phases", default="abcdefghijklm",
                         help="phases to run (a always runs); the result lines print "
                              "only when all ran")
+    parser.add_argument("--parent", metavar="DIR",
+                        help="an unpacked earlier tree: phase i2 (and K1 at i4's n) also "
+                             "run there, in turns with this tree's")
     parser.add_argument("--profile", action="store_true",
                         help="also trace one huge window per approach with torch.profiler "
                              "(kernel time by name, busy share); prints no result lines")
@@ -2483,10 +2651,9 @@ def main() -> int:
     t0 = time.perf_counter()
     lib = build.load()
     print(f"[a] kernel library {build.library_path()} ready in "
-          f"{time.perf_counter() - t0:.2f} s (nvcc {build.build_seconds} s); K1 at "
-          f"n={WINDOW}: coordinate kernel {lib.mused_knn_rows_per_block(WINDOW)} rows per "
-          f"block; dynamic shared memory sim_keys {lib.mused_knn_tc_smem_bytes(WINDOW, 0)} "
-          f"B, select_keys {lib.mused_knn_tc_smem_bytes(WINDOW, 1)} B", flush=True)
+          f"{time.perf_counter() - t0:.2f} s (nvcc {build.build_seconds} s); K1 shared "
+          f"memory per CTA: sim_keys {lib.mused_knn_smem_bytes(0)} B, radix_select "
+          f"{lib.mused_knn_smem_bytes(1)} B", flush=True)
     for line in build.build_log.splitlines():
         if any(w in line for w in ("entry function", "registers", "spill")) or \
                 line.startswith("=="):
@@ -2570,7 +2737,7 @@ def main() -> int:
         phase_h4(mods, mtypes, labels)
         phase_h5(hmods)
         seconds["h"] = time.perf_counter() - t0
-    kernels_i = {}
+    kernels_i, i2_against, k1_earlier = {}, None, None
     if "i" in phases:
         t0 = time.perf_counter()
         cols = None                 # the huge window's panels: the batch needs the room
@@ -2578,7 +2745,10 @@ def main() -> int:
         phase_i1(mods, mtypes, labels)
         seconds["i1"] = time.perf_counter() - t0
         t1 = time.perf_counter()
-        phase_i2(mods, mtypes, labels)
+        if args.parent:
+            i2_against = phase_i2_against(mods, mtypes, labels, args.parent)
+        else:
+            phase_i2(mods, mtypes, labels)
         seconds["i2"] = time.perf_counter() - t1
         t1 = time.perf_counter()
         for approach in ("sSpectral", "DBSCAN_centr"):
@@ -2588,6 +2758,9 @@ def main() -> int:
         t1 = time.perf_counter()
         torch.cuda.empty_cache()
         kernels_i = phase_i4(mods, mtypes, device)
+        if i2_against:
+            k1_earlier = k1_against({WINDOW: rows_b, **kernels_i["K1_by_rows"]},
+                                    i2_against["k1"])
         seconds["i4"] = time.perf_counter() - t1
         seconds["i"] = time.perf_counter() - t0
     kernels_j = {}
@@ -2671,6 +2844,8 @@ def main() -> int:
             hmods, hmtypes, hlabels = make_stream(HUGE_RECORDS, noise_rate=NOISE_RATE,
                                                   binary=True, sort_by_uploaded=True,
                                                   seed=SEED)
+        if "i" in phases:
+            profile_k1(mods, device)
         for approach in ("SWFDMC", "sSVDMC"):
             profile_huge_window(hmods, hmtypes, hlabels, approach)
         if "l" in phases:
@@ -2718,6 +2893,13 @@ def main() -> int:
         "e2e_windows_per_s": {r["approach"]: r["windows_per_s"] for r in runs},
         "at_dense_batch_rows": timed(kernels_i["K1"], f"the dense batch's four calls at "
                                                       f"n = {BATCH_DENSE_ROWS} (phase i4)"),
+        "by_rows": {n: {r["case"]: {k: r[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                                      "share_of_bound", "mismatched_entries")}
+                        for r in rows}
+                    for n, rows in kernels_i["K1_by_rows"].items()},
+        "row_chunks_at_dense_batch_rows": kernels_i["K1_chunks"],
+        "against_earlier_tree": k1_earlier and {"k1": k1_earlier,
+                                                "i2_seconds": i2_against["i2_seconds"]},
     }, {
         "name": "binned_candidates", "route": "cuda",
         "source": "mused_tpu_torch/csrc/blocked_select.cu",

@@ -10,52 +10,56 @@
 // columns tied at it, lowest index first; invalid rows emit nothing.
 //
 // Design for Hopper, not a copy of the TPU tiling (that one keeps a
-// (256, n) strip in 128 MB of VMEM across a sequential grid).  Two routes,
-// split by what bounds each metric:
+// (256, n) strip in 128 MB of VMEM across a sequential grid).  Every call
+// runs per chunk of rows a keys kernel, which stores each similarity's
+// order-preserving uint32 key (masks applied) to a (chunk, ld) scratch in
+// device memory (ld = n rounded up to 4, so rows are 16-byte aligned), then
+// the select.  The wrapper sizes the chunk from free device memory, so
+// up to n = 32,768 one chunk usually holds all rows.
 //
-// * Contraction metrics (dot, euclidean, jaccard): three kernels per call.
-//   1. row_stats: squared norms (euclidean) or set sizes (jaccard), once.
-//   2. sim_keys: a CTA owns a 64 x 64 output tile; 4 warps of 32 x 32 run
-//      mma.sync m16n8k8 TF32 -> f32 on 32-deep feature chunks that a 3-stage
-//      cp.async pipeline stages in shared memory.  The mma's k positions
-//      are a fixed permutation of the features, the same for rows and
-//      columns, so one conflict-free 128-bit load (16-byte slots swizzled by
-//      row parity) feeds two 8-deep steps.  f32 operands take the 3xTF32
-//      split: hi = tf32_rna(x), lo = tf32_rna(x - hi), sim = lo.hi + hi.lo +
-//      hi.hi in one f32 accumulator, which keeps about f32 accuracy.  A warp
-//      votes per 8-deep step: a step where its row or column fragment is all
-//      zero is skipped before the split (it adds only zero products), and
-//      each lo product is skipped where that lo fragment is zero.  So 0/1
-//      jaccard and bf16-rounded inputs run one exact pass, and sparse rows
-//      skip most steps.  The epilogue applies the metric and the mask and stores each
-//      value's order-preserving uint32 key to a (rows, n) scratch in device
-//      memory (16 MB at n = 2000, resident in the 50 MB L2).  x.x^T is
-//      symmetric, so a call whose rows are all n computes only the tiles on
-//      and above the diagonal and mirrors the stores.
-//   3. select_keys: one warp per row copies the row's keys to shared memory
-//      once and runs the exact select below.
-// * Coordinate metrics (l1, chord3; d <= 3): selection-bound, so one
-//   CUDA-core kernel keeps TM rows' keys for ALL n columns in shared memory,
-//   with unfused __fsub_rn / __fmul_rn / __fadd_rn in the JAX package's
-//   order (bit-equal to the plain version), then selects in place.
+// Keys kernels, split by what bounds each metric:
+// * Contraction metrics (dot, euclidean, jaccard): row_stats (squared norms
+//   or set sizes, once per call), then sim_keys: a CTA owns a 64 x 64 output
+//   tile; 4 warps of 32 x 32 run mma.sync m16n8k8 TF32 -> f32 on 32-deep
+//   feature chunks that a 3-stage cp.async pipeline stages in shared memory.
+//   The mma's k positions are a fixed permutation of the features, the same
+//   for rows and columns, so one conflict-free 128-bit load (16-byte slots
+//   swizzled by row parity) feeds two 8-deep steps.  f32 operands take the
+//   3xTF32 split: hi = tf32_rna(x), lo = tf32_rna(x - hi), sim = lo.hi +
+//   hi.lo + hi.hi in one f32 accumulator, which keeps about f32 accuracy.  A
+//   warp votes per 8-deep step: a step where its row or column fragment is
+//   all zero is skipped before the split (it adds only zero products), and
+//   each lo product is skipped where that lo fragment is zero.  So 0/1
+//   jaccard and bf16-rounded inputs run one exact pass, and sparse rows skip
+//   most steps.  x.x^T is symmetric, so a chunk of all n rows computes only
+//   the tiles on and above the diagonal and mirrors the stores.
+// * Coordinate metrics (l1, chord3; d <= 3 on the main path): coord_keys, a
+//   CUDA-core tile of 32 rows x 256 columns per CTA, with unfused __fsub_rn /
+//   __fmul_rn / __fadd_rn in the JAX package's order (bit-equal to the plain
+//   version).
 //
-// Selection is exact and free of float compares: the k-th largest key is
-// found by a 32-step bisection over the key space (IEEE total order, so
-// -0.0 < +0.0 exactly as lax.top_k orders them), then every key above it is
-// kept plus the first (k - #above) ties in column order via warp ballots.
+// Select: radix_select, exact and free of float compares (IEEE total order on
+// the keys, so -0.0 < +0.0 exactly as lax.top_k orders them); one CTA of
+// kRadixThreads per row, many rows in flight on every SM whatever n is.  A
+// long row no longer fits a few warps' shared memory (128 KB at n =
+// 32,768), so the keys stream from the scratch (L2 / HBM) in 16-byte loads.
+// Three histogram passes over the row's digits (bits 31-21, 20-10, 9-0;
+// 2048 / 2048 / 1024 bins in shared memory, increments aggregated per warp
+// with __match_any_sync, since sparse rows hold thousands of equal keys)
+// each pick the bin holding the k-th key by a CTA-wide suffix scan, so the
+// third fixes the k-th key and counts its ties.  A fourth pass writes the
+// row: every key above the k-th, and its ties too when all are kept; else
+// the first (k - #above) ties by a CTA-wide prefix count in column order.
 //
-// What bounds it on an H100 at the main path's widest modality (text,
-// n = 2000, d = 4096): dense, 3 x 32.8 GFLOP = 98 GFLOP of TF32 tensor work,
-// about 0.5 ms at 40% of the 495 TFLOP/s dense TF32 peak (dense unit rows
-// measured 0.47 ms for sim_keys on an H100 SXM at 700 W); the 64-wide tiles
-// re-read the panel once per tile row: 528 tiles x 2 x 64 rows x 16 KB,
-// about 1.1 GB of L2 -> shared traffic; the key scratch is 16 MB written
-// and read once; the select's 34 passes read shared memory.  Text rows hold
-// about 4.5 nonzeros of 4096 and tags 1.2 of 2048, so the zero-step skip
-// removes most tensor work and the staging of the dense panels bounds both
-// (about 7 TB/s measured for text on that card).  mma.sync without wgmma,
-// TMA or a persistent schedule is the known gap to the dense peak; a sparse
-// route would remove the staging.
+// What bounds it on an H100: at window 2000 the tensor-core similarity of
+// text (3 x 32.8 GFLOP TF32 if dense; about 0.5 ms at 40% of the 495 TFLOP/s
+// peak, but the zero-step skip removes most of it and staging the dense
+// panels bounds tags and text), with the 16 MB scratch resident in the 50 MB
+// L2.  At n = 32,768 bytes: the keys written once (4.3 GB), read four times
+// by the radix select, and the (n, n) output written once (4.3 GB), about
+// 26 GB or 8 ms at 3.35 TB/s per call, on top of text's and tags' tensor
+// work.  mma.sync without wgmma, TMA or a persistent schedule is the known
+// gap to the dense peak; a sparse route would remove the staging.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -75,71 +79,227 @@ __device__ __forceinline__ int warp_sum(int v) {
   return __reduce_add_sync(0xffffffffu, v);
 }
 
-int max_smem_bytes() {
-  int dev = 0, bytes = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess) return 0;
-  if (cudaDeviceGetAttribute(&bytes, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev)
-      != cudaSuccess)
-    return 0;
-  return bytes;
+// Key-scratch row stride: n rounded up to 4 keys (16-byte rows).
+int key_stride(int n) { return (n + 3) & ~3; }
+
+// ---------------------------------------------------------------------------
+// exact top-k of each row: radix select, one CTA per row, keys streamed
+// ---------------------------------------------------------------------------
+
+constexpr int kRadixThreads = 256;
+constexpr int kRadixBins = 2048;      // digits of 11, 11 and 10 bits
+
+// One histogram increment per distinct bin per warp; every lane of the warp
+// calls it (``on`` false: no increment).
+__device__ __forceinline__ void hist_add(uint32_t* hist, uint32_t bin, bool on) {
+  if (!__any_sync(0xffffffffu, on)) return;
+  const unsigned peers = __match_any_sync(0xffffffffu, on ? bin : 0xffffffffu);
+  if (on && (threadIdx.x & 31) == __ffs(peers) - 1) atomicAdd(&hist[bin], __popc(peers));
 }
 
-// ---------------------------------------------------------------------------
-// exact top-k of one row of order keys (one warp)
-// ---------------------------------------------------------------------------
+// The row's 4 keys at columns c .. c + 3 (c a multiple of 4; the row is
+// padded to 16 bytes); columns >= n read as in[j] = false.
+__device__ __forceinline__ uint4 load4(const uint32_t* row, int c, int n, bool (&in)[4]) {
+#pragma unroll
+  for (int j = 0; j < 4; ++j) in[j] = c + j < n;
+  return c < n ? *reinterpret_cast<const uint4*>(row + c) : make_uint4(0u, 0u, 0u, 0u);
+}
 
-// keys: the row's n order keys (masked columns hold order_key(kNeg));
-// writes the row's n 0/1 floats to orow.
-__device__ void select_row(const uint32_t* keys, int n, int k, bool row_valid,
-                           float* orow, int lane) {
+// Writes 0/1 of columns c .. c + 3 that are < n.
+__device__ __forceinline__ void store4(float* orow, int c, int n, const bool (&o)[4]) {
+  if ((n & 3) == 0) {
+    if (c < n)
+      *reinterpret_cast<float4*>(orow + c) =
+          make_float4(o[0] ? 1.f : 0.f, o[1] ? 1.f : 0.f, o[2] ? 1.f : 0.f, o[3] ? 1.f : 0.f);
+  } else {
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      if (c + j < n) orow[c + j] = o[j] ? 1.f : 0.f;
+  }
+}
+
+// Histogram pass PASS over the row: digit bits 31-21, 20-10 or 9-0 of the
+// keys whose higher bits equal ``prefix``.  Pass 0 also counts real keys.
+template <int NT, int PASS>
+__device__ __forceinline__ int radix_pass(const uint32_t* row, int n, uint32_t prefix,
+                                          uint32_t* hist) {
+  constexpr int kShift = PASS == 0 ? 21 : PASS == 1 ? 10 : 0;
+  constexpr uint32_t kMask = PASS == 2 ? 0x3ffu : 0x7ffu;
   const uint32_t real = order_key(0.5f * kNeg);   // key > real: a real value
-  int n_valid = 0;
-  for (int c = lane; c < n; c += 32) n_valid += keys[c] > real;
-  const int total = warp_sum(n_valid);
-  const int keff = row_valid ? min(k, total) : 0;
-  if (keff == 0) {
-    for (int c = lane; c < n; c += 32) orow[c] = 0.f;
+  int n_real = 0;
+#pragma unroll 2
+  for (int base = 0; base < n; base += 4 * NT) {
+    const int c = base + 4 * (int)threadIdx.x;
+    bool in[4];
+    const uint4 v = load4(row, c, n, in);
+    const uint32_t kk[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      bool on = in[j];
+      if (PASS == 0) n_real += on && kk[j] > real;
+      if (PASS == 1) on = on && (kk[j] >> 21) == prefix;
+      if (PASS == 2) on = on && (kk[j] >> 10) == prefix;
+      hist_add(hist, (kk[j] >> kShift) & kMask, on);
+    }
+  }
+  return n_real;
+}
+
+// The bin b of hist[0, NB) that holds the need-th largest key: S(b + 1) <
+// need <= S(b), S(b) = the count in bins >= b.  res = {b, S(b + 1), hist[b]}.
+// Starts and ends with a barrier.
+template <int NT, int NB>
+__device__ __forceinline__ void find_bin(const uint32_t* hist, int need, int* warp_tot,
+                                         int* res) {
+  constexpr int kPer = NB / NT;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int top = NB - 1 - (int)threadIdx.x * kPer;   // bins top, top - 1, ...
+  __syncthreads();
+  int local = 0;
+#pragma unroll
+  for (int i = 0; i < kPer; ++i) local += hist[top - i];
+  int incl = local;
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const int y = __shfl_up_sync(0xffffffffu, incl, off);
+    if (lane >= off) incl += y;
+  }
+  if (lane == 31) warp_tot[warp] = incl;
+  __syncthreads();
+  int above = incl - local;
+  for (int w = 0; w < warp; ++w) above += warp_tot[w];
+  if (above < need && above + local >= need) {
+    int s = above;
+    for (int i = 0; i < kPer; ++i) {
+      const int h = hist[top - i];
+      if (s + h >= need) {
+        res[0] = top - i;
+        res[1] = s;
+        res[2] = h;
+        break;
+      }
+      s += h;
+    }
+  }
+  __syncthreads();
+}
+
+template <int NT>
+__device__ __forceinline__ void clear_hist(uint32_t* hist) {
+  for (int i = threadIdx.x; i < kRadixBins; i += NT) hist[i] = 0u;
+}
+
+// Rows [row0, row0 + gridDim.x) from their keys (row r of the chunk at
+// keys + r * ld), one CTA per row.
+template <int NT>
+__global__ void __launch_bounds__(NT)
+radix_select_kernel(const uint32_t* __restrict__ keys, const uint8_t* __restrict__ valid,
+                    float* __restrict__ out, int n, int ld, int row0, int k) {
+  __shared__ uint32_t hist[kRadixBins];
+  __shared__ int warp_tot[NT / 32];
+  __shared__ int res[3];
+  __shared__ int n_real;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int gr = row0 + blockIdx.x;
+  const uint32_t* row = keys + (size_t)blockIdx.x * ld;
+  float* orow = out + (size_t)gr * n;
+
+  int keff = 0;
+  if (valid[gr]) {
+    clear_hist<NT>(hist);
+    if (threadIdx.x == 0) n_real = 0;
+    __syncthreads();
+    const int mine = warp_sum(radix_pass<NT, 0>(row, n, 0u, hist));
+    if (lane == 0) atomicAdd(&n_real, mine);
+    __syncthreads();
+    keff = min(k, n_real);
+  }
+  if (keff == 0) {   // uniform across the CTA
+    const bool none[4] = {false, false, false, false};
+    for (int c = 4 * threadIdx.x; c < n; c += 4 * NT) store4(orow, c, n, none);
     return;
   }
-  // largest key t with #{key >= t} >= keff, i.e. the keff-th largest key
-  uint64_t lo = 0, hi = 1ull << 32;
-  while (hi - lo > 1) {
-    const uint64_t mid = (lo + hi) >> 1;
-    int cnt = 0;
-    for (int c = lane; c < n; c += 32) cnt += keys[c] >= (uint32_t)mid;
-    if (warp_sum(cnt) >= keff) lo = mid; else hi = mid;
-  }
-  const uint32_t kth = (uint32_t)lo;
-  int above = 0;
-  for (int c = lane; c < n; c += 32) above += keys[c] > kth;
-  const int need = keff - warp_sum(above);
+  find_bin<NT, kRadixBins>(hist, keff, warp_tot, res);
+  uint32_t prefix = res[0];
+  int above = res[1];
+  clear_hist<NT>(hist);
+  __syncthreads();
+  radix_pass<NT, 1>(row, n, prefix, hist);
+  find_bin<NT, kRadixBins>(hist, keff - above, warp_tot, res);
+  prefix = (prefix << 11) | res[0];
+  above += res[1];
+  clear_hist<NT>(hist);
+  __syncthreads();
+  radix_pass<NT, 2>(row, n, prefix, hist);
+  find_bin<NT, 1024>(hist, keff - above, warp_tot, res);
+  const uint32_t kth = (prefix << 10) | res[0];
+  above += res[1];
+  const int need = keff - above, ties = res[2];   // 1 <= need <= ties
 
+  if (need == ties) {   // every tie kept
+    for (int c = 4 * threadIdx.x; c < n; c += 4 * NT) {
+      bool in[4];
+      const uint4 v = load4(row, c, n, in);
+      const bool o[4] = {in[0] && v.x >= kth, in[1] && v.y >= kth, in[2] && v.z >= kth,
+                         in[3] && v.w >= kth};
+      store4(orow, c, n, o);
+    }
+    return;
+  }
   int taken = 0;   // ties kept so far, in column order
-  for (int base = 0; base < n; base += 32) {
-    const int c = base + lane;
-    const uint32_t key = c < n ? keys[c] : 0u;
-    const bool tie = c < n && key == kth;
-    const unsigned m = __ballot_sync(0xffffffffu, tie);
-    const int rank = taken + __popc(m & ((1u << lane) - 1u));
-    if (c < n) orow[c] = (key > kth || (tie && rank < need)) ? 1.f : 0.f;
-    taken += __popc(m);
+  for (int base = 0; base < n; base += 4 * NT) {
+    const int c = base + 4 * (int)threadIdx.x;
+    bool in[4];
+    const uint4 v = load4(row, c, n, in);
+    const uint32_t kk[4] = {v.x, v.y, v.z, v.w};
+    bool tie[4];
+    int cnt = 0;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      tie[j] = in[j] && kk[j] == kth;
+      cnt += tie[j];
+    }
+    int incl = cnt;
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const int y = __shfl_up_sync(0xffffffffu, incl, off);
+      if (lane >= off) incl += y;
+    }
+    if (lane == 31) warp_tot[warp] = incl;
+    __syncthreads();
+    int rank = taken + incl - cnt, total = 0;
+    for (int w = 0; w < NT / 32; ++w) {
+      const int t = warp_tot[w];
+      if (w < warp) rank += t;
+      total += t;
+    }
+    bool o[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      o[j] = (in[j] && kk[j] > kth) || (tie[j] && rank < need);
+      rank += tie[j];
+    }
+    store4(orow, c, n, o);
+    taken += total;
+    __syncthreads();   // warp_tot is rewritten next round
   }
 }
 
 // ---------------------------------------------------------------------------
-// coordinate route (l1, chord3): keys of TM rows x all columns in shared memory
+// coordinate keys (l1, chord3): 32 rows x 256 columns per CTA
 // ---------------------------------------------------------------------------
 
 constexpr int kThreads = 256;     // 8 warps
-constexpr int kTileCols = 256;    // columns per similarity tile: one per thread
+constexpr int kTileCols = 256;    // columns per tile: one per thread
+constexpr int kCoordRows = 32;    // rows per tile
 constexpr int kDk = 32;           // feature chunk staged in shared memory
 
-// One feature step: column value b against the TM row values a[0..TM), in
-// the reference's unfused order.
-template <int TM, int METRIC>
-__device__ __forceinline__ void accumulate(float (&acc)[TM], const float* a, float b) {
+// One feature step: column value b against the row values a[0..kCoordRows),
+// in the reference's unfused order.
+template <int METRIC>
+__device__ __forceinline__ void accumulate(float (&acc)[kCoordRows], const float* a, float b) {
 #pragma unroll
-  for (int r = 0; r < TM; ++r) {
+  for (int r = 0; r < kCoordRows; ++r) {
     if (METRIC == kL1) {   // |dt_taken| + |dt_upload|
       acc[r] = __fadd_rn(acc[r], fabsf(__fsub_rn(a[r], b)));
     } else {               // kChord3: ((dx^2 + dy^2) + dz^2)
@@ -149,94 +309,46 @@ __device__ __forceinline__ void accumulate(float (&acc)[TM], const float* a, flo
   }
 }
 
-size_t coord_smem_bytes(int tm, int n_pad) {
-  return ((size_t)tm * n_pad               // key strip
-          + (size_t)kTileCols * (kDk + 1)  // column chunk (padded: no bank conflicts)
-          + (size_t)kDk * tm)              // row chunk, [kDk][TM]
-         * sizeof(float);
-}
-
-template <int TM, int METRIC>
+// Keys of rows [row0, row0 + rows) x all n columns.
+template <int METRIC>
 __global__ void __launch_bounds__(kThreads)
-knn_coord_kernel(const float* __restrict__ x, const uint8_t* __restrict__ valid,
-                 float* __restrict__ out, int n, int d, int n_pad, int k) {
-  extern __shared__ float smem[];
-  uint32_t* strip = reinterpret_cast<uint32_t*>(smem);
-  float* col_tile = smem + (size_t)TM * n_pad;
-  float* row_tile = col_tile + kTileCols * (kDk + 1);
-
+coord_keys_kernel(const float* __restrict__ x, const uint8_t* __restrict__ valid,
+                  uint32_t* __restrict__ keys, int n, int d, int ld, int row0, int rows) {
+  __shared__ float col_tile[kTileCols * (kDk + 1)];   // padded: no bank conflicts
+  __shared__ float row_tile[kDk * kCoordRows];        // [kDk][kCoordRows]
   const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int row0 = blockIdx.x * TM;
+  const int c0 = blockIdx.x * kTileCols;
+  const int r0 = row0 + blockIdx.y * kCoordRows;
+  const int row_end = row0 + rows;
 
-  for (int c0 = 0; c0 < n_pad; c0 += kTileCols) {
-    float acc[TM];
+  float acc[kCoordRows];
 #pragma unroll
-    for (int r = 0; r < TM; ++r) acc[r] = 0.f;
-    for (int d0 = 0; d0 < d; d0 += kDk) {
-      const int dk_n = min(kDk, d - d0);
-      for (int i = tid; i < kTileCols * dk_n; i += kThreads) {
-        const int cr = i / dk_n, cc = i - cr * dk_n;
-        const int gr = c0 + cr;
-        col_tile[cr * (kDk + 1) + cc] = gr < n ? x[(size_t)gr * d + d0 + cc] : 0.f;
-      }
-      for (int i = tid; i < TM * dk_n; i += kThreads) {
-        const int rr = i / dk_n, cc = i - rr * dk_n;
-        const int gr = row0 + rr;
-        row_tile[cc * TM + rr] = gr < n ? x[(size_t)gr * d + d0 + cc] : 0.f;
-      }
-      __syncthreads();
-      for (int dk = 0; dk < dk_n; ++dk)
-        accumulate<TM, METRIC>(acc, row_tile + dk * TM, col_tile[tid * (kDk + 1) + dk]);
-      __syncthreads();
+  for (int r = 0; r < kCoordRows; ++r) acc[r] = 0.f;
+  for (int d0 = 0; d0 < d; d0 += kDk) {
+    const int dk_n = min(kDk, d - d0);
+    for (int i = tid; i < kTileCols * dk_n; i += kThreads) {
+      const int cr = i / dk_n, cc = i - cr * dk_n;
+      const int gc = c0 + cr;
+      col_tile[cr * (kDk + 1) + cc] = gc < n ? x[(size_t)gc * d + d0 + cc] : 0.f;
     }
-    const int col = c0 + tid;
-    const bool col_ok = col < n && valid[col] != 0;
+    for (int i = tid; i < kCoordRows * dk_n; i += kThreads) {
+      const int rr = i / dk_n, cc = i - rr * dk_n;
+      const int gr = r0 + rr;
+      row_tile[cc * kCoordRows + rr] = gr < row_end ? x[(size_t)gr * d + d0 + cc] : 0.f;
+    }
+    __syncthreads();
+    for (int dk = 0; dk < dk_n; ++dk)
+      accumulate<METRIC>(acc, row_tile + dk * kCoordRows, col_tile[tid * (kDk + 1) + dk]);
+    __syncthreads();
+  }
+  const int col = c0 + tid;
+  if (col >= n) return;
+  const bool col_ok = valid[col] != 0;
 #pragma unroll
-    for (int r = 0; r < TM; ++r)
-      strip[(size_t)r * n_pad + col] =
-          order_key((col_ok && row0 + r != col) ? -acc[r] : kNeg);
-  }
-  __syncthreads();
-
-  for (int r = warp; r < TM; r += kThreads / 32) {
-    const int gr = row0 + r;
-    if (gr < n)
-      select_row(strip + (size_t)r * n_pad, n, k, valid[gr] != 0, out + (size_t)gr * n,
-                 lane);
-  }
-}
-
-// Largest row tile in {16, 8, 4, 2, 1} whose key strip fits shared memory.
-int rows_per_block(int n) {
-  const int n_pad = (n + kTileCols - 1) / kTileCols * kTileCols;
-  const size_t limit = (size_t)max_smem_bytes();
-  for (int tm = 16; tm >= 1; tm >>= 1)
-    if (coord_smem_bytes(tm, n_pad) <= limit) return tm;
-  return 0;
-}
-
-template <int TM, int METRIC>
-cudaError_t launch_coord(const float* x, const uint8_t* valid, float* out, int n, int d,
-                         int k, cudaStream_t stream) {
-  const int n_pad = (n + kTileCols - 1) / kTileCols * kTileCols;
-  const size_t smem = coord_smem_bytes(TM, n_pad);
-  auto kern = knn_coord_kernel<TM, METRIC>;
-  cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       (int)smem);
-  if (e != cudaSuccess) return e;
-  kern<<<(n + TM - 1) / TM, kThreads, smem, stream>>>(x, valid, out, n, d, n_pad, k);
-  return cudaGetLastError();
-}
-
-template <int TM>
-cudaError_t launch_coord_metric(int metric, const float* x, const uint8_t* valid,
-                                float* out, int n, int d, int k, cudaStream_t s) {
-  switch (metric) {
-    case kL1: return launch_coord<TM, kL1>(x, valid, out, n, d, k, s);
-    case kChord3: return launch_coord<TM, kChord3>(x, valid, out, n, d, k, s);
-    default: return cudaErrorInvalidValue;
+  for (int r = 0; r < kCoordRows; ++r) {
+    const int gr = r0 + r;
+    if (gr < row_end)
+      keys[(size_t)(gr - row0) * ld + col] = order_key((col_ok && gr != col) ? -acc[r] : kNeg);
   }
 }
 
@@ -250,7 +362,6 @@ constexpr int kTcK = 32;                 // features per pipeline stage
 constexpr int kTcStages = 3;
 constexpr int kTcStageFloats = 2 * kTcTile * kTcK;   // row tile + column tile
 constexpr size_t kTcSmemBytes = (size_t)kTcStages * kTcStageFloats * sizeof(float);
-constexpr int kSelectMaxWarps = 8;
 
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool pred) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
@@ -313,7 +424,7 @@ template <int METRIC>
 __global__ void __launch_bounds__(kTcThreads, 4)
 sim_keys_kernel(const float* __restrict__ x, const uint8_t* __restrict__ valid,
                 const float* __restrict__ stats, uint32_t* __restrict__ keys, int n,
-                int d, int row0, int rows, int col_tiles, bool symmetric) {
+                int d, int ld, int row0, int rows, int col_tiles, bool symmetric) {
   extern __shared__ __align__(16) float tc_smem[];
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int wm = warp >> 1, wn = warp & 1;
@@ -486,68 +597,51 @@ sim_keys_kernel(const float* __restrict__ x, const uint8_t* __restrict__ valid,
           } else {   // kEuclidean
             sim = -__fsub_rn(__fadd_rn(s_r, stats[col]), __fmul_rn(2.f, v));
           }
-          keys[(size_t)(row - row0) * n + col] =
+          keys[(size_t)(row - row0) * ld + col] =
               order_key(valid[col] != 0 && row != col ? sim : kNeg);
           if (mirror)   // row0 == 0: column col is scratch row col
-            keys[(size_t)col * n + row] = order_key(row_ok ? sim : kNeg);
+            keys[(size_t)col * ld + row] = order_key(row_ok ? sim : kNeg);
         }
     }
 }
 
-// Exact top-k of rows [row0, row0 + rows) from their keys, one warp per row.
-__global__ void __launch_bounds__(kSelectMaxWarps * 32)
-select_keys_kernel(const uint32_t* __restrict__ keys, const uint8_t* __restrict__ valid,
-                   float* __restrict__ out, int n, int row0, int rows, int k) {
-  extern __shared__ uint32_t row_keys[];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int r = blockIdx.x * (blockDim.x >> 5) + warp;
-  if (r >= rows) return;
-  uint32_t* s = row_keys + (size_t)warp * n;
-  const uint32_t* g = keys + (size_t)r * n;
-  for (int c = lane; c < n; c += 32) s[c] = g[c];
-  __syncwarp();
-  const int gr = row0 + r;
-  select_row(s, n, k, valid[gr] != 0, out + (size_t)gr * n, lane);
-}
-
-// Rows per select block: as many warps (<= 8) as rows of keys fit shared memory.
-int select_warps(int n) {
-  const size_t per_row = (size_t)n * sizeof(uint32_t);
-  const size_t fit = (size_t)max_smem_bytes() / per_row;
-  return (int)(fit < (size_t)kSelectMaxWarps ? fit : kSelectMaxWarps);
-}
+// ---------------------------------------------------------------------------
+// launcher
+// ---------------------------------------------------------------------------
 
 template <int METRIC>
-cudaError_t launch_tc(const float* x, const uint8_t* valid, float* stats, uint32_t* keys,
-                      float* out, int n, int d, int k, int chunk, cudaStream_t s) {
-  if (METRIC != kDot) {
+cudaError_t launch(const float* x, const uint8_t* valid, float* stats, uint32_t* keys,
+                   float* out, int n, int d, int k, int chunk, cudaStream_t s) {
+  constexpr bool kTensorCore = METRIC == kDot || METRIC == kEuclidean || METRIC == kJaccard;
+  const int ld = key_stride(n);
+  cudaError_t e;
+  if constexpr (METRIC == kEuclidean || METRIC == kJaccard) {
     row_stats_kernel<METRIC><<<(n + 7) / 8, 256, 0, s>>>(
         reinterpret_cast<const float4*>(x), stats, n, d / 4);
-    const cudaError_t e = cudaGetLastError();
+    if ((e = cudaGetLastError()) != cudaSuccess) return e;
+  }
+  if constexpr (kTensorCore) {
+    e = cudaFuncSetAttribute(sim_keys_kernel<METRIC>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kTcSmemBytes);
     if (e != cudaSuccess) return e;
   }
-  auto sim = sim_keys_kernel<METRIC>;
-  cudaError_t e = cudaFuncSetAttribute(sim, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       (int)kTcSmemBytes);
-  if (e != cudaSuccess) return e;
-  const int warps = select_warps(n);
-  if (warps == 0) return cudaErrorInvalidValue;
-  const size_t sel_smem = (size_t)warps * n * sizeof(uint32_t);
-  e = cudaFuncSetAttribute(select_keys_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           (int)sel_smem);
-  if (e != cudaSuccess) return e;
 
   const int col_tiles = (n + kTcTile - 1) / kTcTile;
   for (int row0 = 0; row0 < n; row0 += chunk) {
     const int rows = min(chunk, n - row0);
-    const bool symmetric = rows == n;
-    const int row_tiles = (rows + kTcTile - 1) / kTcTile;
-    const int blocks = symmetric ? col_tiles * (col_tiles + 1) / 2 : row_tiles * col_tiles;
-    sim<<<blocks, kTcThreads, kTcSmemBytes, s>>>(x, valid, stats, keys, n, d, row0, rows,
-                                                 col_tiles, symmetric);
+    if constexpr (kTensorCore) {
+      const bool symmetric = rows == n;
+      const int row_tiles = (rows + kTcTile - 1) / kTcTile;
+      const int blocks = symmetric ? col_tiles * (col_tiles + 1) / 2 : row_tiles * col_tiles;
+      sim_keys_kernel<METRIC><<<blocks, kTcThreads, kTcSmemBytes, s>>>(
+          x, valid, stats, keys, n, d, ld, row0, rows, col_tiles, symmetric);
+    } else {
+      const dim3 grid((n + kTileCols - 1) / kTileCols, (rows + kCoordRows - 1) / kCoordRows);
+      coord_keys_kernel<METRIC><<<grid, kThreads, 0, s>>>(x, valid, keys, n, d, ld, row0, rows);
+    }
     if ((e = cudaGetLastError()) != cudaSuccess) return e;
-    select_keys_kernel<<<(rows + warps - 1) / warps, warps * 32, sel_smem, s>>>(
-        keys, valid, out, n, row0, rows, k);
+    radix_select_kernel<kRadixThreads><<<rows, kRadixThreads, 0, s>>>(keys, valid, out, n, ld,
+                                                                     row0, k);
     if ((e = cudaGetLastError()) != cudaSuccess) return e;
   }
   return cudaSuccess;
@@ -557,36 +651,19 @@ cudaError_t launch_tc(const float* x, const uint8_t* valid, float* stats, uint32
 
 extern "C" {
 
-// Coordinate route.  x (n, d) f32 row-major (chord3: d = 3; l1: any d),
-// valid (n,) bytes 0/1, out (n, n) f32; 1 <= k < n.  Launches on `stream`
-// and returns cudaGetLastError() after the launch.
-int mused_knn_adjacency(const void* x, const void* valid, void* out, int n, int d,
-                        int k, int metric, void* stream) {
-  if (n <= 0 || d <= 0 || k <= 0) return (int)cudaErrorInvalidValue;
-  const float* xf = static_cast<const float*>(x);
-  const uint8_t* v = static_cast<const uint8_t*>(valid);
-  float* o = static_cast<float*>(out);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (rows_per_block(n)) {
-    case 16: return (int)launch_coord_metric<16>(metric, xf, v, o, n, d, k, s);
-    case 8: return (int)launch_coord_metric<8>(metric, xf, v, o, n, d, k, s);
-    case 4: return (int)launch_coord_metric<4>(metric, xf, v, o, n, d, k, s);
-    case 2: return (int)launch_coord_metric<2>(metric, xf, v, o, n, d, k, s);
-    case 1: return (int)launch_coord_metric<1>(metric, xf, v, o, n, d, k, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
-}
-
-// Tensor-core route (dot, euclidean, jaccard).  x (n, d) f32 row-major with
-// d % 4 == 0 and a 16-byte aligned base; valid (n,) bytes 0/1; stats (n,)
-// f32 scratch; keys (chunk, n) uint32 scratch; out (n, n) f32; 1 <= k < n.
-// Rows run in chunks of `chunk` (n, or a multiple of the 64-row tile).  Launches row_stats (not for dot), then per
-// chunk sim_keys and select_keys, on `stream`; returns the first launch error.
-int mused_knn_adjacency_tc(const void* x, const void* valid, void* stats, void* keys,
-                           void* out, int n, int d, int k, int metric, int chunk,
-                           void* stream) {
+// x (n, d) f32 row-major; valid (n,) bytes 0/1; stats (n,) f32 scratch;
+// keys (chunk, n rounded up to 4) uint32 scratch; out (n, n) f32; 1 <= k < n.
+// dot / euclidean / jaccard need d % 4 == 0 and a 16-byte aligned x; chord3
+// takes d = 3, l1 any d.  Rows run in chunks of `chunk` (n, or a multiple of
+// the 64-row tile).  Launches row_stats (euclidean, jaccard), then per chunk
+// the keys kernel and radix_select, on `stream`; returns the first launch
+// error.
+int mused_knn_adjacency(const void* x, const void* valid, void* stats, void* keys, void* out,
+                        int n, int d, int k, int metric, int chunk, void* stream) {
+  const bool tensor_core = metric == kDot || metric == kEuclidean || metric == kJaccard;
   if (n <= 0 || d <= 0 || k <= 0 || chunk <= 0 || (chunk < n && chunk % kTcTile) ||
-      d % 4 != 0 || reinterpret_cast<uintptr_t>(x) % 16 != 0)
+      (tensor_core && (d % 4 != 0 || reinterpret_cast<uintptr_t>(x) % 16 != 0)) ||
+      (metric == kChord3 && d != 3))
     return (int)cudaErrorInvalidValue;
   const float* xf = static_cast<const float*>(x);
   const uint8_t* v = static_cast<const uint8_t*>(valid);
@@ -595,20 +672,19 @@ int mused_knn_adjacency_tc(const void* x, const void* valid, void* stats, void* 
   float* o = static_cast<float*>(out);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (metric) {
-    case kDot: return (int)launch_tc<kDot>(xf, v, st, ks, o, n, d, k, chunk, s);
-    case kEuclidean: return (int)launch_tc<kEuclidean>(xf, v, st, ks, o, n, d, k, chunk, s);
-    case kJaccard: return (int)launch_tc<kJaccard>(xf, v, st, ks, o, n, d, k, chunk, s);
+    case kDot: return (int)launch<kDot>(xf, v, st, ks, o, n, d, k, chunk, s);
+    case kEuclidean: return (int)launch<kEuclidean>(xf, v, st, ks, o, n, d, k, chunk, s);
+    case kJaccard: return (int)launch<kJaccard>(xf, v, st, ks, o, n, d, k, chunk, s);
+    case kL1: return (int)launch<kL1>(xf, v, st, ks, o, n, d, k, chunk, s);
+    case kChord3: return (int)launch<kChord3>(xf, v, st, ks, o, n, d, k, chunk, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
-// Row tile the coordinate kernel picks for an n-row window (0: n does not fit).
-int mused_knn_rows_per_block(int n) { return rows_per_block(n); }
-
-// Dynamic shared memory of the tensor-core route's kernels at n rows:
-// which 0 = sim_keys, 1 = select_keys.
-int mused_knn_tc_smem_bytes(int n, int which) {
-  return which == 0 ? (int)kTcSmemBytes : select_warps(n) * n * (int)sizeof(uint32_t);
+// Shared memory per CTA: which 0 = sim_keys (dynamic), 1 = radix_select (static).
+int mused_knn_smem_bytes(int which) {
+  return which == 0 ? (int)kTcSmemBytes
+                    : (int)(sizeof(uint32_t) * kRadixBins + sizeof(int) * (kRadixThreads / 32 + 4));
 }
 
 const char* mused_cuda_error_string(int code) {

@@ -9,7 +9,7 @@ anything it does not take; for tensors on the CPU it runs
 is no fallback from a CUDA tensor to the plain version.
 
 Metrics (every modality of the standard path, plus the generic types) and
-the route each takes on the card:
+the keys kernel each takes on the card:
   dot        tensor cores (3xTF32); cosine / TF-IDF cosine on pre-normalized rows
   euclidean  tensor cores (3xTF32); -(|r|^2 + |c|^2 - 2 r.c), norms hoisted
   jaccard    tensor cores (one exact TF32 pass on 0/1 incidence); inter / union
@@ -17,6 +17,8 @@ the route each takes on the card:
   chord3     coordinate kernel; negative squared chord of unit-xyz differences
              (location; unlike the f32 dot it keeps resolution at city-scale
              angles)
+Every metric stores its keys to a device scratch of (chunk rows, n), from
+which a radix select of one CTA per row picks each row's k.
 
 ``input_dtype="bfloat16"`` rounds the operands to bf16 first, as the TPU
 kernel's option does; products stay exact and sums f32, and on the
@@ -24,6 +26,8 @@ tensor-core route the lo half of every operand is then zero, so its
 products are skipped and one TF32 pass remains.
 """
 from __future__ import annotations
+
+from typing import Callable
 
 import torch
 
@@ -33,9 +37,10 @@ from mused_tpu_torch.ops.kernels import build
 METRICS = ("dot", "euclidean", "jaccard", "l1", "chord3")
 TENSOR_CORE = ("dot", "euclidean", "jaccard")   # the rest: the coordinate kernel
 INPUT_DTYPES = ("float32", "bfloat16")
-MAX_ROWS = 32_768   # dense-window limit: one row's keys fit shared memory
-KEY_SCRATCH_BYTES = 256 << 20   # the tensor-core route's (rows, n) uint32 keys
-TILE = 64                       # its output tile; row chunks are multiples of it
+MAX_ROWS = 32_768   # dense-window limit (larger windows take the blocked path)
+KEY_SCRATCH_BYTES = 256 << 20   # keys of every row up to this size: no memory query
+KEY_MEMORY_SHARE = 0.5          # above it, at most this share of the free memory
+TILE = 64                       # the tensor-core output tile; chunks are multiples of it
 
 launches = 0        # kernel launches so far (plain-version calls not counted)
 
@@ -75,8 +80,37 @@ def _operands(x: torch.Tensor, input_dtype: str) -> torch.Tensor:
 
 
 def route(metric: str) -> str:
-    """The kernel a CUDA call of ``metric`` runs: "tensor-core" or "coordinate"."""
+    """The keys kernel a CUDA call of ``metric`` runs: "tensor-core" or "coordinate"."""
     return "tensor-core" if metric in TENSOR_CORE else "coordinate"
+
+
+def key_stride(n: int) -> int:
+    """Columns of a key-scratch row: n rounded up to 4 (16-byte rows)."""
+    return -(-n // 4) * 4
+
+
+def chunk_rows_for(n: int, free: Callable[[], int], chunk_rows: int | None = None) -> int:
+    """Rows of keys one chunk holds: ``chunk_rows`` if given, else all n when
+    their keys fit ``KEY_SCRATCH_BYTES`` or ``KEY_MEMORY_SHARE`` of the
+    ``free()`` bytes (asked only then), else as many as fit that share.
+    Below n the count is rounded down to a multiple of ``TILE`` (at least
+    one tile).  One chunk of all rows lets the tensor-core route compute the
+    upper triangle only."""
+    row_bytes = 4 * key_stride(n)
+    if chunk_rows:
+        rows = int(chunk_rows)
+    elif n * row_bytes <= KEY_SCRATCH_BYTES:
+        rows = n
+    else:
+        rows = int(free() * KEY_MEMORY_SHARE) // row_bytes
+    return n if rows >= n else max(TILE, rows // TILE * TILE)
+
+
+def free_bytes(device: torch.device) -> int:
+    """Device memory an allocation can take: free on the card plus what the
+    caching allocator holds unused."""
+    free, _ = torch.cuda.mem_get_info(device)
+    return free + torch.cuda.memory_reserved(device) - torch.cuda.memory_allocated(device)
 
 
 def knn_adjacency_reference(x: torch.Tensor, valid: torch.Tensor, k: int,
@@ -111,11 +145,9 @@ def knn_adjacency(x: torch.Tensor, valid: torch.Tensor, k: int,
     Same semantics as ``affinity.knn_adjacency`` on the metric's similarity
     (exclude self, exactly k per valid row, lowest index first on ties).
     CUDA tensors run the hand-written kernels; CPU tensors the plain version.
-    ``chunk_rows`` bounds the rows whose keys the tensor-core route holds at
-    once (default: as many as fit ``KEY_SCRATCH_BYTES``; rounded down to a
-    multiple of ``TILE``).  One chunk of all n rows computes the tiles on and
-    above the diagonal only and mirrors them.  A call counts as one launch
-    however many chunks and CUDA kernels it runs.
+    ``chunk_rows`` bounds the rows whose keys a call holds at once (default:
+    :func:`chunk_rows_for` on the free device memory).  A call counts as one
+    launch however many chunks and CUDA kernels it runs.
     """
     _check(x, valid, metric, input_dtype)
     if x.device.type == "cpu":
@@ -137,20 +169,15 @@ def knn_adjacency(x: torch.Tensor, valid: torch.Tensor, k: int,
     out = torch.empty((n, n), dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        if metric in TENSOR_CORE:
-            if d % 4 or x.data_ptr() % 16:   # 16-byte rows for cp.async
-                x = torch.nn.functional.pad(x, (0, -d % 4)).contiguous()
-            chunk = int(chunk_rows or KEY_SCRATCH_BYTES // (4 * n))
-            chunk = n if chunk >= n else max(TILE, chunk // TILE * TILE)
-            stats = torch.empty(n, dtype=torch.float32, device=x.device)
-            keys = torch.empty((chunk, n), dtype=torch.int32, device=x.device)
-            code = lib.mused_knn_adjacency_tc(
-                x.data_ptr(), valid.data_ptr(), stats.data_ptr(), keys.data_ptr(),
-                out.data_ptr(), n, x.shape[1], k, METRICS.index(metric), chunk, stream)
-        else:
-            code = lib.mused_knn_adjacency(x.data_ptr(), valid.data_ptr(), out.data_ptr(),
-                                           n, d, k, METRICS.index(metric), stream)
-    build.check(code, f"knn_adjacency[{metric}] n={n} d={d} k={k}")
+        if metric in TENSOR_CORE and (d % 4 or x.data_ptr() % 16):   # 16-byte rows
+            x = torch.nn.functional.pad(x, (0, -d % 4)).contiguous()
+        chunk = chunk_rows_for(n, lambda: free_bytes(x.device), chunk_rows)
+        stats = torch.empty(n, dtype=torch.float32, device=x.device)
+        keys = torch.empty((chunk, key_stride(n)), dtype=torch.int32, device=x.device)
+        code = lib.mused_knn_adjacency(x.data_ptr(), valid.data_ptr(), stats.data_ptr(),
+                                       keys.data_ptr(), out.data_ptr(), n, x.shape[1], k,
+                                       METRICS.index(metric), chunk, stream)
+    build.check(code, f"knn_adjacency[{metric}] n={n} d={d} k={k} chunk={chunk}")
     global launches
     launches += 1
     return out

@@ -99,14 +99,10 @@ def _build(path: str) -> None:
 
 def _configure(lib) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.mused_knn_adjacency.argtypes = [p, p, p, i, i, i, i, p]
+    lib.mused_knn_adjacency.argtypes = [p] * 5 + [i] * 5 + [p]
     lib.mused_knn_adjacency.restype = i
-    lib.mused_knn_adjacency_tc.argtypes = [p] * 5 + [i] * 5 + [p]
-    lib.mused_knn_adjacency_tc.restype = i
-    lib.mused_knn_rows_per_block.argtypes = [i]
-    lib.mused_knn_rows_per_block.restype = i
-    lib.mused_knn_tc_smem_bytes.argtypes = [i, i]
-    lib.mused_knn_tc_smem_bytes.restype = i
+    lib.mused_knn_smem_bytes.argtypes = [i]
+    lib.mused_knn_smem_bytes.restype = i
     lib.mused_binned_candidates.argtypes = [p] * 7 + [i] * 6 + [p]
     lib.mused_binned_candidates.restype = i
     lib.mused_binned_candidates_splits.argtypes = [i] * 4

@@ -13,6 +13,9 @@ package, on seeded numpy inputs (all on the CPU):
 import contextlib
 import dataclasses
 import io
+import os
+import shutil
+import subprocess
 
 import numpy as np
 import pytest
@@ -77,15 +80,35 @@ def test_native_hasher_matches_python(window, sparse, monkeypatch):
         np.testing.assert_array_equal(g, w)
 
 
+@pytest.fixture(scope="module")
+def jax_native_hasher(tmp_path_factory):
+    """The JAX package's hasher, built from its Makefile into a directory of
+    this module's own.  Its loader runs ``make -B`` in place, writing the
+    library while another test process may be opening it; a private build
+    keeps that race away from these cases."""
+    build_dir = tmp_path_factory.mktemp("jax_native")
+    for name in ("Makefile", "hasher.cpp"):
+        shutil.copy2(os.path.join(jnative._DIR, name), build_dir / name)
+    make = subprocess.run(["make", "-C", str(build_dir), "-s", "libmused_hasher.so"],
+                          capture_output=True, text=True, timeout=300)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jnative, "_DIR", str(build_dir))
+        mp.setattr(jnative, "_lib", None)
+        mp.setattr(jnative, "_load_failed", False)
+        assert jnative.available(), (f"the JAX package's hasher did not load: make exited "
+                                     f"{make.returncode}: {make.stdout}{make.stderr}")
+        yield jnative
+
+
 @pytest.mark.parametrize("fn", ["hash_text_counts", "multihot_tags",
                                 "hash_text_sparse", "multihot_tags_sparse"])
-def test_native_hasher_matches_the_jax_package_native(window, fn):
+def test_native_hasher_matches_the_jax_package_native(window, fn, jax_native_hasher):
     _, _, _, tags, text = window
     texts = [f"{a} {b}" for a, b in text]
     cells = ["" if c is None or isinstance(c, float) else c for c in tags[:, 0]]
     rows = texts if "text" in fn else cells
     args = (rows, 512) if fn in ("hash_text_counts", "multihot_tags") else (rows, 512, 8)
-    got, want = getattr(tnative, fn)(*args), getattr(jnative, fn)(*args)
+    got, want = getattr(tnative, fn)(*args), getattr(jax_native_hasher, fn)(*args)
     assert got is not None and want is not None
     for g, w in zip(got if isinstance(got, tuple) else (got,),
                     want if isinstance(want, tuple) else (want,)):
