@@ -32,19 +32,27 @@ Phases (any failure exits non-zero; no phase is skipped):
       196,608-record stream (window 98,304, nbins 1536): K2 per metric
       (location chord3, time l1, tags jaccard, text dot, and chord on a
       128-wide random generic panel), K3 against two K2 launches and the
-      plain version, K4 / K5 on that block's real candidate block at the
-      fold's live widths (K4 r = 66 and 132, K5 r = 66) and the JAX
-      package's 128-padded ones (K4 128 and 256, K5 128); times of each
-      kernel and its plain version, its bound (max(operations / peak of
-      their type, bytes / HBM rate), with the formula's inputs), share of
-      bound, launches per window, K2's cluster split and K5's slot split,
-      for K2 dot / jaccard the bare cuBLAS product's time as a yardstick,
-      and for the coordinate metrics (K2 chord3 / l1, K3) both their
+      plain version, the list kernels on that block's real candidate block
+      (every array the products read equal to the plain lists, the exact
+      edge count), K4 / K5 over those lists at the fold's live widths (K4
+      r = 66 and 132, K5 r = 66) and the JAX package's 128-padded ones (K4
+      128 and 256, K5 128), exact on integers, within the probe tolerances
+      below and bit-identical over two launches; times of each kernel and
+      its plain version, its bound (max(operations / peak of their type,
+      bytes / HBM rate), with the formula's inputs; K4 / K5 count 2 r
+      operations per edge of the block, the dense 2 r block n beside as
+      ``bound_dense_ms``), share of bound, launches per window, K2's
+      cluster split, K5's time without the username term, for K4 / K5 one
+      cuSPARSE product of the block as a CSR tensor (``library_ms``), for
+      K2 dot / jaccard the bare cuBLAS product's time as a yardstick, and
+      for the coordinate metrics (K2 chord3 / l1, K3) both their
       instruction bound and the older FMA-rate bound (tolerances at the
-      constants below);
+      constants below); with ``--parent DIR`` also the earlier tree's K4 /
+      K5 on the same block and operands in a subprocess, in turns
+      (earlier, this, earlier), integers bit-equal;
   (f) ``api.process_streaming_data`` on the card over that stream at
       window 98,304: SWFDMC with the candidate-native fold (exactly 96 K2,
-      48 K3, 96 K4 and 48 K5 launches per window) and sSVDMC on the binned
+      48 K3, 96 K4, 48 K5 and 48 list launches per window) and sSVDMC on the binned
       blocked SVD (576 K2 and 288 K3 per window); 2 native hasher calls per
       window; metrics in [0, 1];
   (g) on 3 blocks of the first huge window, the kernel route's candidate
@@ -70,7 +78,8 @@ Phases (any failure exits non-zero; no phase is skipped):
          checkpoints after window 4 deleted, the rerun resumes at window 4
          and its metrics equal the first run's;
       h5 the detector on 2 huge windows of (e)'s stream (98,304 rows,
-         SWFDMC, background): 96 K2, 48 K3, 96 K4 and 48 K5 per window;
+         SWFDMC, background): 96 K2, 48 K3, 96 K4, 48 K5 and 48 list
+         launches per window;
   (i) slices 2c + 2d, the batch engine and the blocked clustering family:
       i1 ``api.process_batch_data`` on (c)'s 150,000 records (the
          reference's default subset: the blocked path, 151,552 padded rows,
@@ -113,7 +122,7 @@ Phases (any failure exits non-zero; no phase is skipped):
       j3 the column-sharded entry points on the card at world size 1 (an
          NCCL group of one, mesh (1, 1)) on (f)'s first window: fused rows
          bit-equal to the single-device binned route on 3 blocks; the FD
-         fold with exactly 96 K3, 0 K2, 96 K4 and 48 K5 and the
+         fold with exactly 96 K3, 0 K2, 96 K4, 48 K5 and 48 lists and the
          single-device fold's sq_frobenius; the blocked SVD (576 K3) and
          spectral embedding (768 K3); seconds beside (f)'s and (i3)'s;
   (k) slices 2f + 2g, the driver surface and the remaining options:
@@ -157,7 +166,8 @@ Phases (any failure exits non-zero; no phase is skipped):
          location and text on >= 99.9% of edges with every row's degree
          equal; its ms beside the single-device K1 fusion's;
       l2 the huge-window ``rows`` layout on the first window of (f)'s
-         stream: SWFDMC with exactly 96 K2, 48 K3, 96 K4 and 48 K5 and the
+         stream: SWFDMC with exactly 96 K2, 48 K3, 96 K4, 48 K5 and 48 lists
+         and the
          single-device fold's sq_frobenius, sSVDMC with 576 K2 + 288 K3,
          sSpectral with 768 K2 + 384 K3; seconds beside (f)'s and (i3)'s;
       l3 ``main.cli --parallel-sweep`` on the demo sweep (one point per
@@ -187,7 +197,8 @@ The engine's spans measure host time unless they are compared: under
 at their ends (``SpanTimer(sync_all=True)``), so each covers its device
 work.  ``--profile`` also traces one huge window per approach with
 torch.profiler (kernel time by name, device busy share, host time by
-operator), with (i) K1's four calls at n = 32,768 and text in 2048-row
+operator), with (e) ten calls each of one block's list build and fold
+products (device time by kernel), with (i) K1's four calls at n = 32,768 and text in 2048-row
 chunks (device time by kernel per call, over 20 calls), and with (l) 10 windows of the row-sharded
 dense step per approach (SWFDMC, sSVDMC, beside the engine's spans), and
 prints no result lines.
@@ -249,6 +260,7 @@ DOT_RTOL, KEEP_AGREEMENT = 1e-4, 0.999
 PROBE_RTOL = 1e-5            # K4 / K5 on the real FD probe: max|err| / max|want|
 K2_DOT_ATOL, K2_DOT_GROUP_AGREEMENT = 1e-5, 0.999   # K2 dot on the real text panel
 K4_PROBE_RTOL = 1e-6         # K4 on the real probe (bf16 x 0/1, f32 sums in another order)
+HEAVY_ROWS = 64              # K4's heavy columns: more kept rows than this (csrc kHeavy)
 
 # H100 SXM dense peaks at 700 W (NVIDIA's data sheet) for the least time the
 # card could take: max(operations / peak of their type, bytes / memory rate),
@@ -529,7 +541,7 @@ def reset_counts() -> None:
 
 def huge_counts() -> dict:
     return {"K2": bs.launches, "K3": bs.pair_launches, "K4": cm.launches_t,
-            "K5": cm.launches}
+            "K5": cm.launches, "lists": cm.launches_lists}
 
 
 def gemm_yardstick(metric: str, cols: torch.Tensor, rows: torch.Tensor) -> dict:
@@ -647,7 +659,7 @@ def k3_check(xyz, lv, tim, tv, *, start: int, block: int, nbins: int, per_window
     return row
 
 
-def phase_e(cols: ba.Columns, device) -> dict:
+def phase_e(cols: ba.Columns, device, parent: str | None = None, profile: bool = False) -> dict:
     print(f"[e] card: {nvidia_smi_line()}", flush=True)
     n, block, start, nbins = cols.n, HUGE_BLOCK, 0, HUGE_NBINS
     if bs.default_nbins(n, k_max=3 * K_BASIS) != nbins:
@@ -680,7 +692,13 @@ def phase_e(cols: ba.Columns, device) -> dict:
                                      "sSVDMC": SSVD_SWEEPS * BLOCKS_PER_WINDOW})
 
     cand = ba.candidate_rowblock(cols, start, block, K_BASIS, nbins)
-    edges_dense = float(cm.dense_rows_reference(cand).sum())
+    dense = cm.dense_rows_reference(cand)
+    edges_dense = int(dense.sum())
+    out["lists"] = lists_check(cand, edges_dense)
+    cand = cm.with_lists(cand)           # built once: the fold's three products share it
+    bare = cm.with_lists(cand._replace(uid_rows=None, lists=None))   # the username term's share
+    csr = sparse_yardstick(dense)
+    del dense
     ell = min(REDUCED_DIM, n)
     r = ell + 16
     rp = -(-r // 128) * 128
@@ -700,52 +718,216 @@ def phase_e(cols: ba.Columns, device) -> dict:
     probe_y = y0.to(torch.bfloat16).contiguous()                 # K5's live r, as the fold
     probe_y_pad = torch.nn.functional.pad(y0, (0, rp - r)).to(torch.bfloat16).contiguous()
     ints = torch.Generator(device=device).manual_seed(SEED + 1)
-    checks = []
-    for name, fn, ref, x, per_win, tol in [
-            ("K4", cm.matvec_t, cm.matvec_t_reference, probe_t, BLOCKS_PER_WINDOW,
+    cases = []
+    for name, x, per_win, tol in [
+            ("K4", probe_t, BLOCKS_PER_WINDOW, K4_PROBE_RTOL),
+            ("K4", hilo_t, BLOCKS_PER_WINDOW, K4_PROBE_RTOL),
+            ("K4", pad_rows(v_hi.T, rp).contiguous(), 0, K4_PROBE_RTOL),
+            ("K4", torch.cat([pad_rows(v_hi.T, rp), pad_rows(v_lo.T, rp)]).contiguous(), 0,
              K4_PROBE_RTOL),
-            ("K4", cm.matvec_t, cm.matvec_t_reference, hilo_t, BLOCKS_PER_WINDOW,
-             K4_PROBE_RTOL),
-            ("K4", cm.matvec_t, cm.matvec_t_reference, pad_rows(v_hi.T, rp).contiguous(),
-             0, K4_PROBE_RTOL),
-            ("K4", cm.matvec_t, cm.matvec_t_reference,
-             torch.cat([pad_rows(v_hi.T, rp), pad_rows(v_lo.T, rp)]).contiguous(), 0,
-             K4_PROBE_RTOL),
-            ("K5", cm.matvec, cm.matvec_reference, probe_y, BLOCKS_PER_WINDOW, PROBE_RTOL),
-            ("K5", cm.matvec, cm.matvec_reference, probe_y_pad, 0, PROBE_RTOL)]:
+            ("K5", probe_y, BLOCKS_PER_WINDOW, PROBE_RTOL),
+            ("K5", probe_y_pad, 0, PROBE_RTOL)]:
         xi = torch.randint(-4, 5, tuple(x.shape), generator=ints, device=device).to(
             torch.bfloat16)
+        rr = x.shape[1] if name == "K5" else x.shape[0]
+        cases.append((f"{name}_{rr}", name, rr, x, xi, per_win, tol))
+    earlier = []
+    if parent:
+        saved = save_products(cand, cases)
+        earlier.append(earlier_products(parent, saved))
+    checks = []
+    for key, name, rr, x, xi, per_win, tol in cases:
+        fn, ref = ((cm.matvec_t, cm.matvec_t_reference) if name == "K4"
+                   else (cm.matvec, cm.matvec_reference))
         gi, wi = fn(cand, xi), ref(cand, xi)
-        gp, wp = fn(cand, x), ref(cand, x)
+        gp, wp, gp2 = fn(cand, x), ref(cand, x), fn(cand, x)
         torch.cuda.synchronize()
         if name == "K4":
-            (gi, ge), (wi, we), (gp, _), (wp, _) = gi, wi, gp, wp
-        rr = x.shape[1] if name == "K5" else x.shape[0]
+            (gi, ge), (wi, we), (gp, _), (wp, _), (gp2, _) = gi, wi, gp, wp, gp2
         row = {"kernel": name, "r": rr, "on_main_path": per_win > 0,
                "exact_on_integers": bool(torch.equal(gi, wi)),
+               "bit_identical_twice": bool(torch.equal(gp, gp2)),
                "probe_max_abs_err": float((gp - wp).abs().max()),
                "probe_rel_err": float((gp - wp).abs().max() / wp.abs().max().clamp(min=1e-30)),
                "ms": cuda_ms(lambda: fn(cand, x), reps=5, warmup=1),
                "plain_ms": cuda_ms(lambda: ref(cand, x), reps=3, warmup=1),
-               "launches_per_window": {"SWFDMC": per_win, "sSVDMC": 0}}
+               "launches_per_window": {"SWFDMC": per_win, "sSVDMC": 0},
+               "block_edges": edges_dense}
+        row.update(csr(name, x))
         io = rr * block * 2 + rr * n * 4 + 4 if name == "K4" else n * rr * 2 + block * rr * 4
-        with_bound(row, bound(2.0 * rr * block * n, "bf16", cand_bytes(cand) + io))
+        nbytes = cand_bytes(cand) + io
+        with_bound(row, bound(2.0 * rr * edges_dense, "bf16", nbytes))
+        row["bound_dense_ms"] = bound(2.0 * rr * block * n, "bf16", nbytes)["bound_ms"]
+        row["share_of_dense_bound"] = row["bound_dense_ms"] / row["ms"]
         if name == "K4":
             row["edges"] = float(ge)
             row["edges_exact"] = float(ge) == float(we) == edges_dense
-        else:
-            row["splits"] = build.load().mused_cand_matvec_splits(cand.slabs.shape[0], block,
-                                                                 nbins, rr)
-            if per_win and cand.uid_rows is not None:   # the username term's share
-                row["ms_without_usernames"] = cuda_ms(
-                    lambda: fn(cand._replace(uid_rows=None), x), reps=5, warmup=1)
+        if per_win:                          # the username term's share
+            row["ms_without_usernames"] = cuda_ms(lambda: fn(bare, x), reps=5, warmup=1)
         print(f"[e] {name}", json.dumps(row), flush=True)
         if not (row["exact_on_integers"] and row["probe_rel_err"] <= tol
-                and row.get("edges_exact", True)):
+                and row["bit_identical_twice"] and row.get("edges_exact", True)):
             raise AssertionError(f"{name} disagrees with its plain version: {row}")
         checks.append(row)
+    if parent:
+        earlier.append(earlier_products(parent, saved))
+        out["against_earlier_tree"] = products_against(cases, cand, checks, earlier)
+    if profile:                          # device time by kernel, 10 calls each
+        for name, fn in (("lists", lambda: cm.build_lists(cand._replace(lists=None))),
+                         ("K4 r=66", lambda: cm.matvec_t(cand, probe_t)),
+                         ("K4 r=132", lambda: cm.matvec_t(cand, hilo_t)),
+                         ("K5 r=66", lambda: cm.matvec(cand, probe_y))):
+            fn()
+
+            def ten(fn=fn):
+                for _ in range(10):
+                    fn()
+                torch.cuda.synchronize()
+            traced(ten, {"call": name, "calls": 10}, tag="e profile")
     out["K4"] = [c for c in checks if c["kernel"] == "K4"]
     out["K5"] = [c for c in checks if c["kernel"] == "K5"]
+    return out
+
+
+def lists_check(cand: cm.CandBlock, edges_dense: int) -> dict:
+    """The list kernels on the block against their plain version (every
+    array the products read, exact), the exact edge count; times and bound
+    (bytes: the slabs and uids read once, the lists the products read
+    written once)."""
+    before = cm.launches_lists
+    lists = cm.build_lists(cand)
+    want = cm.lists_reference(cand)
+    torch.cuda.synchronize()
+    e, nu = want["rowcols"].numel(), int(want["nu"][0])
+    got = {"rowptr": lists.array("rowptr"), "rowcols": lists.array("rowcols")[:e],
+           "colptr": lists.array("colptr"), "colrows": lists.array("colrows")[:e],
+           "uids": lists.array("uids")[:nu], "userptr": lists.array("userptr")[:nu + 1],
+           "userrows": lists.array("userrows"), "row_user": lists.array("row_user"),
+           "col_user": lists.array("col_user"),
+           "ucolptr": lists.array("hoff")[torch.arange(nu + 1, device=lists.workspace.device)
+                                          * lists.q],
+           "ucols": lists.array("ucols")[:want["ucols"].numel()]}
+    differ = [k for k, v in got.items() if not torch.equal(v.long(), want[k].long())]
+    written = 4 * sum(v.numel() for v in got.values()) + 8
+    lens = want["colptr"][1:] - want["colptr"][:-1]
+    heavy = lens > HEAVY_ROWS
+    row = {"kernel": "lists", "block_edges": edges_dense, "list_entries": e, "users": nu,
+           "user_columns": int(want["ucols"].numel()), "edges": int(lists.edges[0]),
+           "longest_column": int(lens.max()), "heavy_columns": int(heavy.sum()),
+           "heavy_entries": int(lens[heavy].sum()),
+           "heavy_listed": int(lists.array("nhubs")[0]),
+           "launched": cm.launches_lists - before, "arrays_differ": differ,
+           "ms": cuda_ms(lambda: cm.build_lists(cand), reps=5, warmup=1),
+           "plain_ms": cuda_ms(lambda: cm.lists_reference(cand), reps=3, warmup=1),
+           "launches_per_window": {"SWFDMC": BLOCKS_PER_WINDOW, "sSVDMC": 0},
+           "library_ms": None}
+    with_bound(row, bound(0.0, "int8", cand_bytes(cand) + written))
+    print("[e] lists", json.dumps(row), flush=True)
+    if differ or row["launched"] != 1 or not row["edges"] == want["edges"] == edges_dense \
+            or row["heavy_listed"] != row["heavy_columns"]:
+        raise AssertionError(f"the list kernels disagree with their plain version: {row}")
+    return row
+
+
+def sparse_yardstick(dense: torch.Tensor):
+    """``library_ms`` of K4 / K5: one cuSPARSE product through torch.sparse of
+    the same fused block as a CSR tensor (built here, outside the timed
+    region): A @ y for K5, A^T (its own CSR) @ x for K4.  bf16 values as the
+    kernels' operands, f32 where torch refuses bf16.  A yardstick the port
+    never calls."""
+    mats = {}
+
+    def time_it(name: str, x: torch.Tensor) -> dict:
+        dense_op = x if name == "K5" else x.T
+        for dtype in (torch.bfloat16, torch.float32):
+            try:
+                if (name, dtype) not in mats:
+                    a = dense if name == "K5" else dense.T
+                    mats[name, dtype] = a.to(dtype).to_sparse_csr()
+                a, b = mats[name, dtype], dense_op.to(dtype).contiguous()
+                return {"library_ms": cuda_ms(lambda: torch.sparse.mm(a, b), reps=5,
+                                              warmup=1),
+                        "library": f"torch.sparse.mm, CSR {str(dtype)[6:]} (cuSPARSE)"}
+            except RuntimeError as e:        # a yardstick: report, do not fail the run
+                err = f"{str(dtype)[6:]} refused: {e}"[:200]
+        return {"library_ms": None, "library": err}
+    return time_it
+
+
+EARLIER_PRODUCTS = """
+import json, sys, torch
+from mused_tpu_torch.ops.kernels import cand_matvec as cm
+d = torch.load(sys.argv[1])
+dev = torch.device("cuda")
+cand = cm.CandBlock(d["slabs"].to(dev), d["uid_rows"].to(dev), d["uid_cols"].to(dev),
+                    d["start"])
+def ms(fn, reps=5):
+    fn()
+    torch.cuda.synchronize()
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(reps):
+        fn()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / reps
+outs, rows = {}, {}
+for key, name, x, xi in d["cases"]:
+    fn = cm.matvec_t if name == "K4" else cm.matvec
+    x, xi = x.to(dev), xi.to(dev)
+    first = lambda res: res[0] if name == "K4" else res
+    outs[key] = (first(fn(cand, x)).cpu(), first(fn(cand, xi)).cpu())
+    rows[key] = ms(lambda: fn(cand, x))
+torch.save(outs, sys.argv[2])
+print("[earlier-e]", json.dumps(rows), flush=True)
+"""
+
+
+def save_products(cand: cm.CandBlock, cases: list) -> str:
+    """Phase e's block and operands in a file an earlier tree can read."""
+    path = os.path.join(tempfile.mkdtemp(prefix="chip_smoke_e_"), "products.pt")
+    torch.save({"slabs": cand.slabs.cpu(), "uid_rows": cand.uid_rows.cpu(),
+                "uid_cols": cand.uid_cols.cpu(), "start": int(cand.start),
+                "cases": [(key, name, x.cpu(), xi.cpu())
+                          for key, name, _, x, xi, _, _ in cases]}, path)
+    return path
+
+
+def earlier_products(tree: str, saved: str) -> dict:
+    """K4 / K5 of the tree unpacked at ``tree`` (its own kernels, built
+    there) on phase e's saved block and operands: ms per case and the
+    outputs (probe, integers)."""
+    torch.cuda.empty_cache()
+    tree = os.path.abspath(tree)
+    outs = saved + f".{len(os.listdir(os.path.dirname(saved)))}.out"
+    proc = subprocess.run([sys.executable, "-c", EARLIER_PRODUCTS, saved, outs], cwd=tree,
+                          env={**os.environ, "PYTHONPATH": tree}, capture_output=True,
+                          text=True, timeout=900)
+    rows = [ln for ln in proc.stdout.splitlines() if ln.startswith("[earlier-e] ")]
+    if proc.returncode != 0 or not rows:
+        raise AssertionError(f"the tree at {tree} failed ({proc.returncode}):\n"
+                             f"{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
+    return {"ms": json.loads(rows[-1][len("[earlier-e] "):]), "outputs": torch.load(outs)}
+
+
+def products_against(cases: list, cand: cm.CandBlock, checks: list, earlier: list) -> dict:
+    """This tree's K4 / K5 against the earlier tree's on the same block and
+    operands, timed in turns (earlier, this, earlier): ms each, the integer
+    outputs bit-equal, the probe outputs' largest difference over the
+    largest value."""
+    out = {}
+    for (key, name, _, x, xi, _, _), row in zip(cases, checks):
+        fn = cm.matvec_t if name == "K4" else cm.matvec
+        first = (lambda res: res[0]) if name == "K4" else (lambda res: res)
+        got_p, got_i = first(fn(cand, x)).cpu(), first(fn(cand, xi)).cpu()
+        old_p, old_i = earlier[0]["outputs"][key]
+        out[key] = {"earlier_ms": [e["ms"][key] for e in earlier], "ms": row["ms"],
+                    "integers_equal": bool(torch.equal(got_i, old_i)),
+                    "probe_rel_diff": float((got_p - old_p).abs().max()
+                                            / old_p.abs().max().clamp(min=1e-30))}
+    print("[e] K4 / K5 against the earlier tree", json.dumps(out), flush=True)
+    if not all(v["integers_equal"] for v in out.values()):
+        raise AssertionError(f"K4 / K5 differ from the earlier tree's on integers: {out}")
     return out
 
 
@@ -769,9 +951,11 @@ def phase_f(mods, mtypes, labels, device, approach: str, n_records: int,
     counts = huge_counts()
     blocks = HUGE_WINDOW // HUGE_BLOCK
     sweeps = SPECTRAL_SWEEPS if approach == "sSpectral" else SSVD_SWEEPS
-    per_window = ({"K2": 2 * blocks, "K3": blocks, "K4": 2 * blocks, "K5": blocks}
+    per_window = ({"K2": 2 * blocks, "K3": blocks, "K4": 2 * blocks, "K5": blocks,
+                   "lists": blocks}
                   if approach == "SWFDMC" else
-                  {"K2": 2 * sweeps * blocks, "K3": sweeps * blocks, "K4": 0, "K5": 0})
+                  {"K2": 2 * sweeps * blocks, "K3": sweeps * blocks, "K4": 0, "K5": 0,
+                   "lists": 0})
     out = {"approach": approach, "records": n_records, "windows": windows,
            "launches": counts, "k1_launches": ak.launches,
            "native_hasher_calls": native.calls - hashed, "seconds": secs,
@@ -1092,7 +1276,8 @@ def phase_h5(hmods) -> dict:
     print("[h5]", json.dumps(out), flush=True)
     want = {k: v * out["windows"] for k, v in
             {"K2": 2 * BLOCKS_PER_WINDOW, "K3": BLOCKS_PER_WINDOW,
-             "K4": 2 * BLOCKS_PER_WINDOW, "K5": BLOCKS_PER_WINDOW}.items()}
+             "K4": 2 * BLOCKS_PER_WINDOW, "K5": BLOCKS_PER_WINDOW,
+             "lists": BLOCKS_PER_WINDOW}.items()}
     if out["windows"] != 2 or out["huge_launches"] != want or out["k1_launches"]:
         raise AssertionError(f"h5: launches {out['huge_launches']} (K1 "
                              f"{out['k1_launches']}) for {out['windows']} windows, "
@@ -1129,8 +1314,9 @@ def batch_run(mods, mtypes, labels, approach: str, n_rows: int, tag: str) -> dic
     blocked = n_rows > batch.MAX_DENSE_ROWS
     blocks = -(-n_rows // batch.BLOCK_ROWS)
     sweeps = SPECTRAL_SWEEPS if approach == "Spectral_batch" else SSVD_SWEEPS
-    want = ({"K1": 0, "K2": 2 * sweeps * blocks, "K3": sweeps * blocks, "K4": 0, "K5": 0}
-            if blocked else {"K1": 4, "K2": 0, "K3": 0, "K4": 0, "K5": 0})
+    want = ({"K1": 0, "K2": 2 * sweeps * blocks, "K3": sweeps * blocks, "K4": 0, "K5": 0,
+             "lists": 0}
+            if blocked else {"K1": 4, "K2": 0, "K3": 0, "K4": 0, "K5": 0, "lists": 0})
     reset_counts()
     hashed = native.calls
     torch.cuda.reset_peak_memory_stats()
@@ -1707,9 +1893,11 @@ def phase_j3(hmods, cols: ba.Columns, device, single_seconds: dict) -> dict:
     out["single_device_seconds_per_window"] = single_seconds
     print("[j3]", json.dumps(out), flush=True)
     blocks = n // block
-    want = {"fd": {"K2": 0, "K3": 2 * blocks, "K4": 2 * blocks, "K5": blocks},
-            "svd": {"K2": 0, "K3": 2 * SSVD_SWEEPS * blocks, "K4": 0, "K5": 0},
-            "spectral": {"K2": 0, "K3": 2 * SPECTRAL_SWEEPS * blocks, "K4": 0, "K5": 0}}
+    want = {"fd": {"K2": 0, "K3": 2 * blocks, "K4": 2 * blocks, "K5": blocks,
+                   "lists": blocks},
+            "svd": {"K2": 0, "K3": 2 * SSVD_SWEEPS * blocks, "K4": 0, "K5": 0, "lists": 0},
+            "spectral": {"K2": 0, "K3": 2 * SPECTRAL_SWEEPS * blocks, "K4": 0, "K5": 0,
+                         "lists": 0}}
     if not all(rows_equal):
         raise AssertionError(f"j3: column-sharded fused rows differ: {rows_equal}")
     for name, w in want.items():
@@ -2225,11 +2413,12 @@ def phase_l2(hmods, hmtypes, hlabels, cols: ba.Columns, device, mesh, single_sec
     out = {"card": smi, "world_size": 1, "window": HUGE_WINDOW, "runs": {},
            "single_device_seconds_per_window": single_seconds}
     blocks = BLOCKS_PER_WINDOW
-    want = {"SWFDMC": {"K2": 2 * blocks, "K3": blocks, "K4": 2 * blocks, "K5": blocks},
+    want = {"SWFDMC": {"K2": 2 * blocks, "K3": blocks, "K4": 2 * blocks, "K5": blocks,
+                       "lists": blocks},
             "sSVDMC": {"K2": 2 * SSVD_SWEEPS * blocks, "K3": SSVD_SWEEPS * blocks,
-                       "K4": 0, "K5": 0},
+                       "K4": 0, "K5": 0, "lists": 0},
             "sSpectral": {"K2": 2 * SPECTRAL_SWEEPS * blocks, "K3": SPECTRAL_SWEEPS * blocks,
-                          "K4": 0, "K5": 0}}
+                          "K4": 0, "K5": 0, "lists": 0}}
     for approach in L2_APPROACHES:
         cfg = huge_cfg(approach, HUGE_WINDOW)
         engine = row_engine(cfg, mesh, device)
@@ -2630,11 +2819,12 @@ def main() -> int:
                         help="phases to run (a always runs); the result lines print "
                              "only when all ran")
     parser.add_argument("--parent", metavar="DIR",
-                        help="an unpacked earlier tree: phase i2 (and K1 at i4's n) also "
-                             "run there, in turns with this tree's")
+                        help="an unpacked earlier tree: phase i2 (and K1 at i4's n) and "
+                             "phase e's K4 / K5 also run there, in turns with this tree's")
     parser.add_argument("--profile", action="store_true",
                         help="also trace one huge window per approach with torch.profiler "
-                             "(kernel time by name, busy share); prints no result lines")
+                             "(kernel time by name, busy share), and with (e) ten calls of "
+                             "each K4 / K5 / list call; prints no result lines")
     args = parser.parse_args()
     phases = set(args.phases) | {"a"}
     if not torch.cuda.is_available():
@@ -2698,7 +2888,8 @@ def main() -> int:
         phase_d(mods, mtypes, device)
         seconds["d"] = time.perf_counter() - t0
 
-    kernels_e, huge_runs, huge_launches = {}, [], {"K2": 0, "K3": 0, "K4": 0, "K5": 0}
+    kernels_e, huge_runs, huge_launches = {}, [], {"K2": 0, "K3": 0, "K4": 0, "K5": 0,
+                                                   "lists": 0}
     single_seconds = {}           # single-device seconds per huge window (f, i3)
     if phases & set("efghijl"):
         t0 = time.perf_counter()
@@ -2713,7 +2904,7 @@ def main() -> int:
         seconds["huge_stream"] = time.perf_counter() - t0
     if "e" in phases:
         t0 = time.perf_counter()
-        kernels_e = phase_e(cols, device)
+        kernels_e = phase_e(cols, device, args.parent, args.profile)
         seconds["e"] = time.perf_counter() - t0
     if "f" in phases:
         t0 = time.perf_counter()
@@ -2867,6 +3058,17 @@ def main() -> int:
     k5_main = [r for r in kernels_e["K5"] if r["on_main_path"]]
     wps = {f"huge_{r['approach']}": r["windows_per_s"] for r in huge_runs}
 
+    def products(rows: list, what: str) -> dict:
+        """timed() with the CSR yardstick and the dense-count bound beside."""
+        out = timed(rows, what)
+        lib = [r["library_ms"] for r in rows]
+        out.update(library_ms=None if None in lib else sum(lib),
+                   library=rows[0]["library"],
+                   bound_dense_ms=sum(r["bound_dense_ms"] for r in rows),
+                   block_edges=rows[0]["block_edges"],
+                   ms_without_usernames=sum(r["ms_without_usernames"] for r in rows))
+        return out
+
     def timed(rows: list, what: str) -> dict:
         """ms, plain_ms and the bound of the rows' calls together."""
         ms = sum(r["ms"] for r in rows)
@@ -2939,7 +3141,8 @@ def main() -> int:
         "replaces": "mused_tpu/ops/pallas/cand_matvec.py:176",
         "launches": huge_launches["K4"],
         "max_abs_err": max(r["probe_max_abs_err"] for r in k4_main),
-        **timed(k4_main, "one block's two fold calls (r = 66 probe, r = 132 hi/lo)"),
+        **products(k4_main, "one block's two fold calls (r = 66 probe, r = 132 hi/lo), "
+                            "with the block's lists built"),
         "padded_rows_ms": {r["r"]: r["ms"] for r in kernels_e["K4"] if not r["on_main_path"]},
     }, {
         "name": "matvec", "route": "cuda",
@@ -2947,8 +3150,17 @@ def main() -> int:
         "replaces": "mused_tpu/ops/pallas/cand_matvec.py:219",
         "launches": huge_launches["K5"],
         "max_abs_err": max(r["probe_max_abs_err"] for r in k5_main),
-        **timed(k5_main, "one block's fold call (r = 66)"),
+        **products(k5_main, "one block's fold call (r = 66), with the block's lists built"),
         "padded_cols_ms": {r["r"]: r["ms"] for r in kernels_e["K5"] if not r["on_main_path"]},
+    }, {
+        "name": "cand_lists", "route": "cuda",
+        "source": "mused_tpu_torch/csrc/cand_matvec.cu",
+        "replaces": "mused_tpu/ops/pallas/cand_matvec.py:99 (_mask_tile, the tile rebuild "
+                    "K4 and K5 share)",
+        "launches": huge_launches["lists"],
+        "max_abs_err": 0.0,
+        **timed([kernels_e["lists"]], "one block's list build (shared by its three "
+                                      "fold products)"),
     }]
     missing = [k["name"] for k in kernels if k["launches"] <= 0]
     if missing:

@@ -244,7 +244,8 @@ def shrink_rr_cands(sketch: torch.Tensor, cand, ell: int, *, oversample: int = 1
                     allreduce=_local):
     """shrink_rr_pair where the rows are a candidate-form block
     (``ops/kernels/cand_matvec.CandBlock``): every product with the rows
-    runs off the int8 slabs (K4 / K5), the dense (block, n) block never
+    runs off the int8 slabs (K4 / K5, gathers over the block's candidate
+    lists, built once here on the card), the dense (block, n) block never
     exists.  Returns (B' (ell, d), delta, edges), edges the exact fused edge
     count (== ||rows||_F^2).
 
@@ -265,6 +266,7 @@ def shrink_rr_cands(sketch: torch.Tensor, cand, ell: int, *, oversample: int = 1
     zero = torch.zeros((), dtype=torch.float32, device=sketch.device)
     if not bool(allreduce(nonzero.to(torch.int32)) > 0):
         return sketch, zero, zero
+    cand = cm.with_lists(cand)           # the three products share one list build
     ellr = sketch.shape[0]
     m2 = ellr + cand.block
     r = min(ell + oversample, m2)

@@ -1,5 +1,6 @@
 """Products with candidate-form fused adjacency rows: the hand-written Hopper
-kernels K4 / K5 and their plain versions.
+kernels K4 / K5, the candidate lists they gather over, and their plain
+versions.
 
 Replaces the TPU kernels ``mused_tpu/ops/pallas/cand_matvec.py:
 matvec_t_pallas`` (K4) and ``matvec_pallas`` (K5).  The CUDA source is
@@ -15,17 +16,23 @@ slabs, one per binned modality:
 
 plus the username modality as uids (rows -1 and columns -2 where invalid,
 so invalid never matches).  The fused tile of column group g is
-``OR_m (slab_m == g) | (uid_row == uid_col & not self)``; the kernels
-rebuild it on the fly, so the dense block never exists in memory.
+``OR_m (slab_m == g) | (uid_row == uid_col & not self)``; the dense block
+never exists in memory.  On the card the products gather over the block's
+kept entries: :func:`build_lists` (one launch of the list kernels per block,
+counted in ``launches_lists``) turns the slabs into per-row and per-column
+lists and per-user tables, which :func:`with_lists` attaches to the block so
+that its products share them.
 
 ``matvec_t`` / ``matvec`` launch the kernels for CUDA tensors and raise on
 anything they do not take; for tensors on the CPU they run the plain
 versions ``matvec_t_reference`` / ``matvec_reference``.  Operands are bf16
 and sums f32 (the 0/1 tile is bf16-exact, so each product equals the f32
-product of the bf16 operand).
+product of the bf16 operand).  ``lists_reference`` is the plain version of
+the lists.
 """
 from __future__ import annotations
 
+import ctypes
 from typing import NamedTuple
 
 import torch
@@ -34,23 +41,57 @@ from mused_tpu_torch.ops.kernels import build
 
 launches_t = 0      # K4 launches so far (plain-version calls not counted)
 launches = 0        # K5 launches so far
+launches_lists = 0  # list builds so far
 
 
 def reset_launches() -> None:
-    global launches_t, launches
-    launches_t = launches = 0
+    global launches_t, launches, launches_lists
+    launches_t = launches = launches_lists = 0
+
+
+# The arrays of a block's lists, in the order of the CUDA source's Buf enum
+# (int32; "edges" is one 64-bit count).  colcnt, edges, nhubs and hist stay
+# last.
+LIST_ARRAYS = ("rowptr", "rowcols", "colptr", "colrows", "coltmp", "rowcnt", "row_user",
+               "userptr", "userrows", "uids", "nu", "suid", "col_user", "hoff", "ucols",
+               "tiles", "hubs", "colcnt", "edges", "nhubs", "hist")
+
+
+class CandLists(NamedTuple):
+    """The lists of one candidate block on the card, in one int32 workspace:
+    each row's kept columns (slot order; entries the username term counts
+    left out), each column's rows (ascending), the block's distinct uids
+    with each user's rows and columns, and the exact edge count."""
+
+    workspace: torch.Tensor
+    offsets: tuple
+    sizes: tuple
+    q: int                               # column chunks of the user-column sort
+    pointers: ctypes.Array               # the arrays' addresses, in LIST_ARRAYS order
+
+    def array(self, name: str) -> torch.Tensor:
+        k = LIST_ARRAYS.index(name)
+        return self.workspace[self.offsets[k]:self.offsets[k] + self.sizes[k]]
+
+    @property
+    def edges(self) -> torch.Tensor:
+        """(1,) int64: the exact fused edge count of the block."""
+        return self.array("edges").view(torch.int64)
 
 
 class CandBlock(NamedTuple):
     """Candidate-form fused adjacency rows [start, start+block) of an
     implicit (n, n) fused kNN adjacency, n = groups * nbins.  ``g0`` is the
-    global id of local group 0 (0 on one device)."""
+    global id of local group 0 (0 on one device).  ``lists``, when set, are
+    this block's candidate lists (:func:`with_lists`): replace any other
+    field and they must be dropped."""
 
     slabs: torch.Tensor                 # (M, block, nbins) int8: local grp or -1
     uid_rows: torch.Tensor | None       # (block, 1) int32, -1 where invalid
     uid_cols: torch.Tensor              # (groups, nbins) int32, -2 where invalid
     start: int                          # global row offset
     g0: int = 0                         # global group offset
+    lists: CandLists | None = None      # built from these slabs (with_lists)
 
     @property
     def block(self) -> int:
@@ -127,11 +168,70 @@ def matvec_reference(cand: CandBlock, y: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def _exclusive(counts: torch.Tensor) -> torch.Tensor:
+    return torch.nn.functional.pad(torch.cumsum(counts, 0), (1, 0))
+
+
+def lists_reference(cand: CandBlock) -> dict:
+    """Plain version of the list kernels: int64 tensors named as in
+    :data:`LIST_ARRAYS` (``ucolptr`` for the per-user column offsets the
+    kernel keeps in ``hoff``; the user tables only with usernames) and the
+    exact ``edges`` (a Python int).
+
+    A row's list holds the local column of every (slot, group) some plane
+    keeps, once (the first plane to hold it), in (slot, plane) order, less
+    the columns with the row's uid other than its own (the username term
+    counts those); ``colrows`` lists each column's rows ascending.  The
+    username term of (row i, column c) is ``row_user[i] == col_user[c]``
+    off the self pair."""
+    sl = cand.slabs.long()
+    m_count, block, nbins = sl.shape
+    groups, dev = cand.groups, sl.device
+    n = groups * nbins
+    keep = (sl >= 0) & (sl < groups)
+    for m in range(1, m_count):
+        keep[m] &= ~(sl[:m] == sl[m]).any(0)
+    col = sl.clamp(0, groups - 1) * nbins + torch.arange(nbins, device=dev)
+    user = cand.uid_rows is not None
+    if user:
+        urow = cand.uid_rows[:, 0].long()
+        ucol = cand.uid_cols.reshape(-1).long()
+        self_col = cand.start + torch.arange(block, device=dev) - cand.g0 * nbins
+        keep &= ~((ucol[col] == urow[None, :, None]) & (col != self_col[None, :, None]))
+    rows, slots, planes = keep.permute(1, 2, 0).nonzero(as_tuple=True)
+    rowcols = col[planes, rows, slots]
+    out = {"rowptr": _exclusive(torch.bincount(rows, minlength=block)), "rowcols": rowcols,
+           "colptr": _exclusive(torch.bincount(rowcols, minlength=n)),
+           "colrows": rows[torch.sort(rowcols, stable=True).indices]}
+    edges = rowcols.numel()
+    if user:
+        uids, row_user = torch.unique(urow, sorted=True, return_inverse=True)
+        nu = uids.numel()
+        pos = torch.searchsorted(uids, ucol).clamp(max=nu - 1)
+        col_user = torch.where(uids[pos] == ucol, pos, -1)
+        matched = col_user >= 0
+        userptr = _exclusive(torch.bincount(row_user, minlength=nu))
+        self_row = cand.g0 * nbins + torch.arange(n, device=dev) - cand.start
+        inside = (self_row >= 0) & (self_row < block)
+        own = inside & (row_user[self_row.clamp(0, block - 1)] == col_user)
+        sizes = (userptr[1:] - userptr[:-1])[col_user.clamp(min=0)]
+        edges += int(torch.where(matched, sizes - own.long(), 0).sum())
+        out.update(nu=torch.tensor([nu], device=dev), uids=uids, row_user=row_user,
+                   userptr=userptr, userrows=torch.sort(row_user, stable=True).indices,
+                   col_user=col_user,
+                   ucolptr=_exclusive(torch.bincount(col_user[matched], minlength=nu)),
+                   ucols=torch.sort(torch.where(matched, col_user, nu),
+                                    stable=True).indices[:int(matched.sum())])
+    out["edges"] = edges
+    return out
+
+
 # ---------------------------------------------------------------------------
 # kernel wrappers
 # ---------------------------------------------------------------------------
 
-def _check_cand(cand: CandBlock, operand: torch.Tensor, name: str) -> None:
+def _check_cand(cand: CandBlock, operand: torch.Tensor | None = None,
+                name: str = "") -> None:
     s = cand.slabs
     if s.ndim != 3 or s.dtype != torch.int8:
         raise TypeError(f"slabs must be (M, block, nbins) int8, got {s.dtype} "
@@ -142,17 +242,21 @@ def _check_cand(cand: CandBlock, operand: torch.Tensor, name: str) -> None:
                         f"{cand.uid_cols.dtype} {tuple(cand.uid_cols.shape)}")
     if cand.groups > 127:
         raise ValueError(f"{cand.groups} groups exceed int8 group ids")
-    tensors = [s, cand.uid_cols, operand]
+    tensors = [s, cand.uid_cols]
     if cand.uid_rows is not None:
         if cand.uid_rows.dtype != torch.int32 or cand.uid_rows.shape != (cand.block, 1):
             raise TypeError(f"uid_rows must be ({cand.block}, 1) int32, got "
                             f"{cand.uid_rows.dtype} {tuple(cand.uid_rows.shape)}")
         tensors.append(cand.uid_rows)
-    if operand.dtype != torch.bfloat16 or operand.ndim != 2:
-        raise TypeError(f"{name} must be a 2-D bfloat16 tensor, got {operand.dtype} "
-                        f"{tuple(operand.shape)}")
+    if operand is not None:
+        if operand.dtype != torch.bfloat16 or operand.ndim != 2:
+            raise TypeError(f"{name} must be a 2-D bfloat16 tensor, got {operand.dtype} "
+                            f"{tuple(operand.shape)}")
+        tensors.append(operand)
+    if cand.lists is not None:
+        tensors.append(cand.lists.workspace)
     if any(t.device != s.device for t in tensors):
-        raise ValueError(f"slabs, uids and {name} must share a device")
+        raise ValueError(f"slabs, uids, lists and {name or 'operands'} must share a device")
     if s.device.type == "cuda" and not all(t.is_contiguous() for t in tensors):
         raise ValueError("the kernel takes contiguous tensors")
     if s.device.type not in ("cpu", "cuda"):
@@ -166,55 +270,102 @@ def _cand_args(cand: CandBlock):
             int(cand.g0))
 
 
+MAX_LIST_BLOCK = 32768      # the list kernels rank a block's rows pairwise
+MAX_PLANES = 32
+
+
+def build_lists(cand: CandBlock) -> CandLists:
+    """The candidate lists of a block on the card (one launch of the list
+    kernels, counted in ``launches_lists``).  CUDA tensors only: the plain
+    version is :func:`lists_reference`, and the plain products read the
+    slabs."""
+    _check_cand(cand)
+    if cand.slabs.device.type != "cuda":
+        raise ValueError("the candidate lists are the kernels' operand: build them for "
+                         "CUDA tensors (the CPU runs the plain products)")
+    if cand.block > MAX_LIST_BLOCK or cand.slabs.shape[0] > MAX_PLANES:
+        raise ValueError(f"the list kernels take blocks of at most {MAX_LIST_BLOCK} rows "
+                         f"and {MAX_PLANES} planes, got {tuple(cand.slabs.shape)}")
+    lib = build.load()
+    sizes = (ctypes.c_longlong * len(LIST_ARRAYS))()
+    q = lib.mused_cand_lists_sizes(cand.slabs.shape[0], cand.block, cand.nbins,
+                                   cand.groups, sizes)
+    offsets, total = [], 0
+    for size in sizes:
+        offsets.append(total)
+        total += -(-size // 4) * 4          # 16-byte aligned arrays
+    dev = cand.slabs.device
+    workspace = torch.empty((total,), dtype=torch.int32, device=dev)
+    base = workspace.data_ptr()
+    pointers = (ctypes.c_void_p * len(LIST_ARRAYS))(*[base + 4 * o for o in offsets])
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        code = lib.mused_cand_lists(*_cand_args(cand), pointers, q, stream)
+    build.check(code, f"cand_lists block={cand.block} nbins={cand.nbins} "
+                      f"groups={cand.groups} planes={cand.slabs.shape[0]}")
+    global launches_lists
+    launches_lists += 1
+    return CandLists(workspace, tuple(offsets), tuple(sizes), q, pointers)
+
+
+def with_lists(cand: CandBlock) -> CandBlock:
+    """``cand`` with its lists attached when the kernels will run it (CUDA
+    tensors), so that its products share one build; unchanged on the CPU or
+    when it has them."""
+    if cand.lists is not None or cand.slabs.device.type != "cuda":
+        return cand
+    return cand._replace(lists=build_lists(cand))
+
+
+def _launch(fn, cand: CandBlock, operand: torch.Tensor, r: int, out: torch.Tensor,
+            k4: bool, what: str) -> CandLists:
+    cand = with_lists(cand)
+    lists = cand.lists
+    lib = build.load()
+    dev = operand.device
+    words = lib.mused_cand_scratch_words(int(k4), cand.slabs.shape[0], cand.block, cand.nbins,
+                                         cand.groups, r, int(cand.uid_rows is not None))
+    scratch = torch.empty((words,), dtype=torch.float32, device=dev) if words else None
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        code = fn(*_cand_args(cand), lists.pointers, lists.q, operand.data_ptr(), r,
+                  out.data_ptr(), None if scratch is None else scratch.data_ptr(), stream)
+    build.check(code, f"{what} block={cand.block} nbins={cand.nbins} "
+                      f"groups={cand.groups} r={r}")
+    return lists
+
+
 def matvec_t(cand: CandBlock, x_t: torch.Tensor):
     """rows^T @ x for the implicit fused rows (K4): x_t is x pre-transposed,
     (r, block) bf16.  Returns (out_t (r, n) f32, edges () f32), edges the
-    exact fused edge count (exact in f32 below 2**24 edges per block)."""
+    exact fused edge count (exact in f32 below 2**24 edges per block).  A
+    block without lists gets them built first (one list launch)."""
     _check_cand(cand, x_t, "x_t")
     if x_t.shape[1] != cand.block:
         raise ValueError(f"x_t must be (r, {cand.block}), got {tuple(x_t.shape)}")
     if x_t.device.type == "cpu":
         return matvec_t_reference(cand, x_t)
     r = x_t.shape[0]
-    dev = x_t.device
-    out_t = torch.empty((r, cand.groups * cand.nbins), dtype=torch.float32, device=dev)
-    edges = torch.empty((1,), dtype=torch.int32, device=dev)
-    lib = build.load()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        code = lib.mused_cand_matvec_t(*_cand_args(cand), x_t.data_ptr(), r,
-                                       out_t.data_ptr(), edges.data_ptr(), stream)
-    build.check(code, f"cand_matvec_t block={cand.block} nbins={cand.nbins} "
-                      f"groups={cand.groups} r={r}")
+    out_t = torch.empty((r, cand.groups * cand.nbins), dtype=torch.float32, device=x_t.device)
+    lists = _launch(build.load().mused_cand_matvec_t, cand, x_t, r, out_t, True,
+                    "cand_matvec_t")
     global launches_t
     launches_t += 1
-    return out_t, edges[0].float()
+    return out_t, lists.edges[0].float()
 
 
 def matvec(cand: CandBlock, y: torch.Tensor) -> torch.Tensor:
     """rows @ y for the implicit fused rows (K5): y (n, r) bf16 -> (block, r)
-    f32.  Any r: the kernel pads the live columns in shared memory and
-    writes only those."""
+    f32, any r.  A block without lists gets them built first."""
     _check_cand(cand, y, "y")
-    if y.shape[0] != cand.groups * cand.nbins:
-        raise ValueError(f"y must be ({cand.groups * cand.nbins}, r), got "
-                         f"{tuple(y.shape)}")
+    n = cand.groups * cand.nbins
+    if y.shape[0] != n:
+        raise ValueError(f"y must be ({n}, r), got {tuple(y.shape)}")
     if y.device.type == "cpu":
         return matvec_reference(cand, y)
     r = y.shape[1]
-    dev = y.device
-    lib = build.load()
-    splits = lib.mused_cand_matvec_splits(cand.slabs.shape[0], cand.block, cand.nbins, r)
-    out = torch.empty((cand.block, r), dtype=torch.float32, device=dev)
-    scratch = (torch.empty((splits, cand.block, r), dtype=torch.float32, device=dev)
-               if splits > 1 else None)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        code = lib.mused_cand_matvec(*_cand_args(cand), y.data_ptr(), r, out.data_ptr(),
-                                     None if scratch is None else scratch.data_ptr(),
-                                     splits, stream)
-    build.check(code, f"cand_matvec block={cand.block} nbins={cand.nbins} "
-                      f"groups={cand.groups} r={r}")
+    out = torch.empty((cand.block, r), dtype=torch.float32, device=y.device)
+    _launch(build.load().mused_cand_matvec, cand, y, r, out, False, "cand_matvec")
     global launches
     launches += 1
     return out

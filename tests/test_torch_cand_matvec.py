@@ -18,6 +18,7 @@ from mused_tpu.ops.pallas import cand_matvec as jcm
 from mused_tpu_torch.ops import fd as tfd
 from mused_tpu_torch.ops.kernels import cand_matvec as tcm
 from mused_tpu_torch.utils.convert import cand_block_from_jax
+from cand_cases import CASES, cand_case, products_from_lists, torch_cand
 from torch_parity import jax_probe, n as tonp, t
 
 RTOL = 1e-4
@@ -161,3 +162,91 @@ def test_shrink_rr_cands_empty_block_is_a_no_op():
                      .to(torch.int32))
     b, _, edges = tfd.shrink_rr_cands(sketch, tc, 8)
     assert b is not sketch and float(edges) == tonp(tcm.dense_rows_reference(tc)).sum()
+
+
+# ---------------------------------------------------------------------------
+# the candidate lists (the kernels' operand): plain version against JAX
+# ---------------------------------------------------------------------------
+
+def _lists_case(name):
+    case = cand_case(name)
+    slabs, uid_rows, uid_cols, start, g0 = case
+    jc = jcm.CandBlock(jnp.asarray(slabs), None if uid_rows is None else jnp.asarray(uid_rows),
+                       jnp.asarray(uid_cols), jnp.int32(start), g0)
+    tc = torch_cand(tcm, case)
+    lists = {k: (v.numpy() if isinstance(v, torch.Tensor) else v)
+             for k, v in tcm.lists_reference(tc).items()}
+    return tc, lists, np.asarray(jcm.dense_rows_reference(jc))
+
+
+@pytest.mark.parametrize("name", CASES)
+def test_lists_rebuild_the_jax_fused_rows(name):
+    """The row lists and the username term are disjoint and together give
+    the JAX package's fused rows bit for bit; the edge count is exact; the
+    column, user and user-column lists are the row lists' transposes in
+    ascending order."""
+    tc, lists, dense = _lists_case(name)
+    block, n, nbins = tc.block, tc.groups * tc.nbins, tc.nbins
+    listed = np.zeros((block, n), bool)
+    rows = np.repeat(np.arange(block), np.diff(lists["rowptr"]))
+    listed[rows, lists["rowcols"]] = True
+    assert listed.sum() == lists["rowcols"].size       # each column once per row
+    user = np.zeros_like(listed)
+    if "row_user" in lists:
+        ru, cu = lists["row_user"], lists["col_user"]
+        self_col = tc.start + np.arange(block) - tc.g0 * nbins
+        user = (ru[:, None] == cu[None, :]) & (cu[None, :] >= 0) \
+            & (np.arange(n)[None, :] != self_col[:, None])
+        nu = int(lists["nu"][0])
+        assert np.array_equal(lists["uids"], np.unique(tc.uid_rows.numpy()))
+        for u in range(nu):
+            got = lists["userrows"][lists["userptr"][u]:lists["userptr"][u + 1]]
+            assert np.array_equal(got, np.nonzero(ru == u)[0])
+            got = lists["ucols"][lists["ucolptr"][u]:lists["ucolptr"][u + 1]]
+            assert np.array_equal(got, np.nonzero(cu == u)[0])
+    assert not np.any(listed & user)
+    np.testing.assert_array_equal(listed | user, dense)
+    assert lists["edges"] == int(dense.sum())
+    for c in range(n):
+        got = lists["colrows"][lists["colptr"][c]:lists["colptr"][c + 1]]
+        assert np.array_equal(got, np.nonzero(listed[:, c])[0])
+    order = [np.nonzero(listed[i])[0] for i in range(block)]
+    slots = [lists["rowcols"][lists["rowptr"][i]:lists["rowptr"][i + 1]] % nbins
+             for i in range(block)]
+    assert all(np.all(np.diff(s) >= 0) for s in slots)        # slot order
+    assert all(np.array_equal(np.sort(g), o) for g, o in
+               zip((lists["rowcols"][lists["rowptr"][i]:lists["rowptr"][i + 1]]
+                    for i in range(block)), order))
+
+
+@pytest.mark.parametrize("name", CASES)
+def test_products_from_the_lists_equal_the_jax_kernels(name):
+    """The kernels' formula (list gathers plus per-user sums less the self
+    pair) on the plain lists equals the JAX kernels on integer operands."""
+    tc, lists, _ = _lists_case(name)
+    block, n = tc.block, tc.groups * tc.nbins
+    rng = np.random.default_rng(11)
+    x = rng.integers(-4, 5, (66, block)).astype(np.float32)
+    y = rng.integers(-4, 5, (n, 66)).astype(np.float32)
+    out_t, out = products_from_lists(lists, x, y, block=block, n=n, start=tc.start,
+                                     g0=tc.g0, nbins=tc.nbins)
+    slabs, uid_rows, uid_cols, start, g0 = cand_case(name)
+    jc = jcm.CandBlock(jnp.asarray(slabs), None if uid_rows is None else jnp.asarray(uid_rows),
+                       jnp.asarray(uid_cols), jnp.int32(start), g0)
+    want_t, _ = jcm.matvec_t_reference(jc, jnp.asarray(x).astype(jnp.bfloat16))
+    want = jcm.matvec_reference(jc, jnp.asarray(y).astype(jnp.bfloat16))
+    np.testing.assert_array_equal(out_t, np.asarray(want_t))
+    np.testing.assert_array_equal(out, np.asarray(want))
+
+
+def test_lists_are_for_the_card():
+    """On the CPU the products read the slabs: with_lists leaves a block as
+    it is and build_lists refuses; the plain products ignore lists."""
+    tc = torch_cand(tcm, cand_case("random"))
+    assert tcm.with_lists(tc) is tc
+    with pytest.raises(ValueError):
+        tcm.build_lists(tc)
+    before = tcm.launches_lists
+    x = torch.ones((8, tc.block), dtype=torch.bfloat16)
+    tcm.matvec_t(tc, x)
+    assert tcm.launches_lists == before
