@@ -40,7 +40,9 @@ Phases (any failure exits non-zero; no phase is skipped):
       below and bit-identical over two launches; times of each kernel and
       its plain version, its bound (max(operations / peak of their type,
       bytes / HBM rate), with the formula's inputs; K4 / K5 count 2 r
-      operations per edge of the block, the dense 2 r block n beside as
+      operations per edge of the block and the bytes of their operand,
+      output and the list arrays they read (the slabs once, in the list
+      build's bound), the dense 2 r block n with the slabs beside as
       ``bound_dense_ms``), share of bound, launches per window, K2's
       cluster split, K5's time without the username term, for K4 / K5 one
       cuSPARSE product of the block as a CSR tensor (``library_ms``), for
@@ -52,7 +54,7 @@ Phases (any failure exits non-zero; no phase is skipped):
       (earlier, this, earlier), integers bit-equal;
   (f) ``api.process_streaming_data`` on the card over that stream at
       window 98,304: SWFDMC with the candidate-native fold (exactly 96 K2,
-      48 K3, 96 K4, 48 K5 and 48 list launches per window) and sSVDMC on the binned
+      48 K3, 96 K4, 48 K5 and 48 list builds per window) and sSVDMC on the binned
       blocked SVD (576 K2 and 288 K3 per window); 2 native hasher calls per
       window; metrics in [0, 1];
   (g) on 3 blocks of the first huge window, the kernel route's candidate
@@ -350,6 +352,29 @@ def coord_bound(items: list, n: int, block: int, nbins: int) -> dict:
 def cand_bytes(cand: cm.CandBlock) -> int:
     return cand.slabs.numel() + (cand.block * 4 if cand.uid_rows is not None else 0) + \
         cand.uid_cols.numel() * 4
+
+
+def product_bytes(name: str, rr: int, cand: cm.CandBlock, lists_row: dict) -> int:
+    """The bytes K4 or K5 moves on a block whose lists are built (the list
+    build reads the slabs, and its own bound counts them): the operand and
+    the output once, and the int32 list arrays the kernel reads.  K4: x_t,
+    out_t, the edge count, colptr, colrows, the heavy columns; with uids
+    each column's and row's user, each user's rows.  K5: y, out, rowptr,
+    rowcols; with uids each row's and column's user, each user's columns
+    and their offsets."""
+    n, block, e = cand.groups * cand.nbins, cand.block, lists_row["list_entries"]
+    users, nu = cand.uid_rows is not None, lists_row["users"]
+    if name == "K4":
+        io = rr * block * 2 + rr * n * 4 + 8
+        words = (n + 1) + e + lists_row["heavy_listed"] + 1
+        if users:
+            words += n + block + (nu + 1) + block + 1
+    else:
+        io = n * rr * 2 + block * rr * 4
+        words = (block + 1) + e
+        if users:
+            words += block + n + (nu + 1) + lists_row["user_columns"] + 1
+    return io + 4 * words
 
 
 def with_bound(row: dict, b: dict) -> dict:
@@ -754,10 +779,12 @@ def phase_e(cols: ba.Columns, device, parent: str | None = None, profile: bool =
                "launches_per_window": {"SWFDMC": per_win, "sSVDMC": 0},
                "block_edges": edges_dense}
         row.update(csr(name, x))
+        # the dense count is the tile-rebuilding design's: it reads the slabs
         io = rr * block * 2 + rr * n * 4 + 4 if name == "K4" else n * rr * 2 + block * rr * 4
-        nbytes = cand_bytes(cand) + io
-        with_bound(row, bound(2.0 * rr * edges_dense, "bf16", nbytes))
-        row["bound_dense_ms"] = bound(2.0 * rr * block * n, "bf16", nbytes)["bound_ms"]
+        with_bound(row, bound(2.0 * rr * edges_dense, "bf16",
+                              product_bytes(name, rr, cand, out["lists"])))
+        row["bound_dense_ms"] = bound(2.0 * rr * block * n, "bf16",
+                                      cand_bytes(cand) + io)["bound_ms"]
         row["share_of_dense_bound"] = row["bound_dense_ms"] / row["ms"]
         if name == "K4":
             row["edges"] = float(ge)
@@ -808,6 +835,11 @@ def lists_check(cand: cm.CandBlock, edges_dense: int) -> dict:
                                           * lists.q],
            "ucols": lists.array("ucols")[:want["ucols"].numel()]}
     differ = [k for k, v in got.items() if not torch.equal(v.long(), want[k].long())]
+    same_shape = [(v.long(), want[k].long()) for k, v in got.items()
+                  if v.shape == want[k].shape]
+    mismatched = sum(int((a != b).sum()) for a, b in same_shape) + sum(
+        max(v.numel(), want[k].numel()) for k, v in got.items() if v.shape != want[k].shape)
+    max_err = max((int((a - b).abs().max()) for a, b in same_shape if a.numel()), default=0)
     written = 4 * sum(v.numel() for v in got.values()) + 8
     lens = want["colptr"][1:] - want["colptr"][:-1]
     heavy = lens > HEAVY_ROWS
@@ -817,6 +849,7 @@ def lists_check(cand: cm.CandBlock, edges_dense: int) -> dict:
            "heavy_entries": int(lens[heavy].sum()),
            "heavy_listed": int(lists.array("nhubs")[0]),
            "launched": cm.launches_lists - before, "arrays_differ": differ,
+           "mismatched_entries": mismatched, "max_abs_err": float(max_err),
            "ms": cuda_ms(lambda: cm.build_lists(cand), reps=5, warmup=1),
            "plain_ms": cuda_ms(lambda: cm.lists_reference(cand), reps=3, warmup=1),
            "launches_per_window": {"SWFDMC": BLOCKS_PER_WINDOW, "sSVDMC": 0},
@@ -3158,9 +3191,13 @@ def main() -> int:
         "replaces": "mused_tpu/ops/pallas/cand_matvec.py:99 (_mask_tile, the tile rebuild "
                     "K4 and K5 share)",
         "launches": huge_launches["lists"],
-        "max_abs_err": 0.0,
+        "max_abs_err": kernels_e["lists"]["max_abs_err"],
+        "mismatched_entries": kernels_e["lists"]["mismatched_entries"],
         **timed([kernels_e["lists"]], "one block's list build (shared by its three "
                                       "fold products)"),
+        "with_products": timed([kernels_e["lists"]] + k4_main + k5_main,
+                               "one block's list build and its three fold products: the "
+                               "slabs read once, by the list build"),
     }]
     missing = [k["name"] for k in kernels if k["launches"] <= 0]
     if missing:

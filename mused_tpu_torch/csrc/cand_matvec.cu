@@ -20,15 +20,18 @@
 // CUDA-core integer and f32 work bounded by memory latency and L2 traffic,
 // not by an arithmetic peak:
 //   * mused_cand_lists, once per block (the fold's three products share
-//     it), turns the slabs into lists in eleven short launches.  A warp per
-//     row walks the row's slots (4 per lane, word loads of every plane),
-//     keeps each (slot, group) once over the planes (the union is an OR),
-//     drops the entries whose column has the row's uid other than its own
-//     (the username term counts those), counts them, and after a scan writes
-//     the row's local column ids in slot order (rowptr / rowcols).  Flat
-//     passes over the entries then count each column (integer atomics), scan,
-//     and drop each entry's row into its column's bucket; a warp per column
-//     puts the bucket in row order (a rank by shuffles up to 32 rows, else a
+//     it), turns the slabs into lists in a memset and eight short launches,
+//     into one workspace whose layout only this file knows (the caller asks
+//     mused_cand_lists_layout for its size and the arrays' names and
+//     places).  A warp per row walks the row's slots (4 per lane, word loads
+//     of every plane), keeps each (slot, group) once over the planes (the
+//     union is an OR), drops the entries whose column has the row's uid
+//     other than its own (the username term counts those), counts them, and
+//     after a one-CTA scan writes the row's local column ids in slot order
+//     (rowptr / rowcols), counting each column as it goes (integer
+//     atomics).  A scan of the column counts and a flat pass over the
+//     entries drop each entry's row into its column's bucket; a warp per
+//     column puts the bucket in row order (a rank by shuffles up to 32 rows, else a
 //     bitmap of the block's rows in shared memory), so colrows is the same
 //     on every launch.  Columns of more than kHeavy rows are listed as hubs.
 //     With usernames it also ranks the block's rows by uid, numbers the
@@ -62,12 +65,14 @@
 // exact, so the kernels equal the plain versions bit for bit.
 //
 // What bounds them on an H100 at n = 98,304, block = 2048: the bytes of
-// their outputs and inputs, each once (K4 writes out_t, 26 MB at r = 66 and
-// 52 MB at r = 132; K5 reads y, 13 MB, and the slabs' lists), about 0.01-
-// 0.02 ms each; the 2 r operations per edge are 0.08-0.16 GFLOP.  What the
+// their outputs and inputs, each once.  The lists read the slabs (12.6 MB)
+// and write the lists; K4 reads x_t and the column lists (about 3 MB) and
+// writes out_t, 26 MB at r = 66 and 52 MB at r = 132; K5 reads y (13 MB)
+// and the row lists; about 0.005-0.025 ms each.  The 2 r operations per
+// edge are 0.08-0.16 GFLOP.  What the
 // design spends instead is dependent loads: list indices, then rows of x or
 // y, then per-user sums, each an L2 round trip, and launches (K4 runs 4
-// kernels, K5 2, the lists 11).
+// kernels and a memset, K5 2 and a memset, the lists 8 and a memset).
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <limits.h>
@@ -93,14 +98,18 @@ struct Cand {
   int n_mod, block, nbins, groups, start, g0;
 };
 
-// The lists' arrays, in the order of cand_matvec.LIST_ARRAYS (int32 each;
-// edges is one 64-bit count).  colcnt, edges, nhubs and hist stay last and
-// in this order: one memset zeroes them.
+// The lists' arrays, in one int32 workspace (edges is one 64-bit count);
+// kListNames names them in this order for the caller, and list_layout
+// places them.  colcnt, edges, nhubs and hist stay last and in this order:
+// one memset zeroes them.
 enum Buf {
   kRowPtr, kRowCols, kColPtr, kColRows, kColTmp, kRowCnt, kRowUser, kUserPtr, kUserRows,
   kUids, kNu, kSUid, kColUser, kHOff, kUCols, kTiles, kHubs, kColCnt, kEdges, kNHubs, kHist,
   kNumBufs
 };
+constexpr const char* kListNames =
+    "rowptr,rowcols,colptr,colrows,coltmp,rowcnt,row_user,userptr,userrows,uids,nu,suid,"
+    "col_user,hoff,ucols,tiles,hubs,colcnt,edges,nhubs,hist";
 
 struct Lists {
   int* a[kNumBufs];
@@ -256,7 +265,7 @@ __device__ void count_row(const Cand& c, const Lists& L, int i, int lane) {
 }
 
 // Row i's list, in slot order; each entry's row into colrows (sort_col
-// overwrites it).
+// overwrites it) and a count for its column.
 __device__ void fill_row(const Cand& c, const Lists& L, int i, int lane) {
   const RowWalk rw(c, i);
   int* out = L.a[kRowCols] + L.a[kRowPtr][i];
@@ -279,18 +288,14 @@ __device__ void fill_row(const Cand& c, const Lists& L, int i, int lane) {
 #pragma unroll
       for (int t = 0; t < 4; ++t)
         for (unsigned m = masks[t]; m; m &= m - 1) {
+          const int col = rw.column(c, m, s + t);
           rows[pos] = i;                 // each entry's row, for bucket_cols
-          out[pos++] = rw.column(c, m, s + t);
+          out[pos++] = col;
+          atomicAdd(L.a[kColCnt] + col, 1);
         }
       done += __shfl_sync(kFull, incl, 31);
     }
   }
-}
-
-// The entries' column counts, a thread per entry (all entries: rowptr[block]).
-__device__ void count_cols(const Cand& c, const Lists& L, int t, int threads) {
-  const int total = L.a[kRowPtr][c.block];
-  for (int e = t; e < total; e += threads) atomicAdd(L.a[kColCnt] + L.a[kRowCols][e], 1);
 }
 
 // Each entry's row into its column's bucket (in no order: sort_col orders
@@ -468,6 +473,32 @@ __device__ void scan_apply(const Scan& s, int t) {
   if (base + kScanTile >= s.count && threadIdx.x == kThreads - 1) s.out[s.count] = run;
 }
 
+// The whole of a short scan in one CTA (the row counts: at most
+// kMaxBlock / kScanTile tiles), tile after tile.
+__device__ void scan_whole(const Scan& s) {
+  constexpr int kPer = kScanTile / kThreads;
+  int carry = 0;
+  for (int base = 0; base < s.count; base += kScanTile) {
+    int v[kPer], sum = 0;
+#pragma unroll
+    for (int j = 0; j < kPer; ++j) {
+      const int e = base + threadIdx.x * kPer + j;
+      v[j] = e < s.count ? s.in[e] : 0;
+      sum += v[j];
+    }
+    int tot;
+    int run = carry + block_excl_scan(sum, &tot);
+#pragma unroll
+    for (int j = 0; j < kPer; ++j) {
+      const int e = base + threadIdx.x * kPer + j;
+      if (e < s.count) s.out[e] = run;
+      run += v[j];
+    }
+    carry += tot;
+  }
+  if (threadIdx.x == 0) s.out[s.count] = carry;
+}
+
 __device__ __forceinline__ bool pick_scan(const Scans& S, int narr, int* t, int* a) {
   for (*a = 0; *a < narr; ++*a) {
     if (*t < S.ntiles[*a]) return true;
@@ -486,21 +517,15 @@ __global__ void __launch_bounds__(kThreads) lists_count_kernel(Cand c, Lists L, 
   }
 }
 
-__global__ void __launch_bounds__(kThreads) scan_reduce_kernel(Scans S, int narr) {
-  int t = blockIdx.x, a;
-  if (pick_scan(S, narr, &t, &a)) scan_reduce(S.s[a], t);
+// Launch 2: rowptr, the row counts' scan (one CTA); with usernames, a
+// second CTA numbers the users.
+__global__ void __launch_bounds__(kThreads) rows_scan_kernel(Cand c, Lists L) {
+  if (blockIdx.x == 0) scan_whole(Scan{L.a[kRowCnt], L.a[kRowPtr], c.block, nullptr});
+  else number_users(c, L);
 }
 
-// The scans' second pass; a last CTA numbers the users.
-__global__ void __launch_bounds__(kThreads)
-scan_apply_kernel(Scans S, int narr, Cand c, Lists L, int users) {
-  int t = blockIdx.x, a;
-  if (pick_scan(S, narr, &t, &a)) scan_apply(S.s[a], t);
-  else if (users) number_users(c, L);
-}
-
-// Launch 4: the row lists; with usernames, the columns' users and chunk
-// counts; the edge count.
+// Launch 3: the row lists and the column counts; with usernames, the
+// columns' users and chunk counts; the edge count.
 __global__ void __launch_bounds__(kThreads) lists_fill_kernel(Cand c, Lists L, int row_ctas) {
   if (blockIdx.x < row_ctas) {
     if (blockIdx.x == 0 && threadIdx.x == 0)
@@ -512,29 +537,33 @@ __global__ void __launch_bounds__(kThreads) lists_fill_kernel(Cand c, Lists L, i
   }
 }
 
-// Launch 5 (and 7): a pass over every entry (grid-stride).
-template <bool BUCKET>
-__global__ void __launch_bounds__(kThreads) entries_kernel(Cand c, Lists L) {
-  const int t = blockIdx.x * kThreads + threadIdx.x, threads = gridDim.x * kThreads;
-  if (BUCKET) bucket_cols(c, L, t, threads);
-  else count_cols(c, L, t, threads);
+// Launches 4 and 5: the scans of the column counts and of the user-column
+// chunk counts (reduce, then apply), tile t of the arrays in turn.
+__global__ void __launch_bounds__(kThreads) scan_reduce_kernel(Scans S, int narr) {
+  int t = blockIdx.x, a;
+  if (pick_scan(S, narr, &t, &a)) scan_reduce(S.s[a], t);
 }
 
-// Launch 8: each column bucket in row order; with usernames, the first pass
-// of the chunk counts' scan.  Dynamic shared memory: a row bitmap per warp.
-__global__ void __launch_bounds__(kThreads)
-lists_sort_kernel(Cand c, Lists L, int col_ctas, Scans S) {
+__global__ void __launch_bounds__(kThreads) scan_apply_kernel(Scans S, int narr) {
+  int t = blockIdx.x, a;
+  if (pick_scan(S, narr, &t, &a)) scan_apply(S.s[a], t);
+}
+
+// Launch 6: each entry's row into its column's bucket (grid-stride).
+__global__ void __launch_bounds__(kThreads) bucket_kernel(Cand c, Lists L) {
+  bucket_cols(c, L, blockIdx.x * kThreads + threadIdx.x, gridDim.x * kThreads);
+}
+
+// Launch 7: each column bucket in row order.  Dynamic shared memory: a row
+// bitmap per warp.
+__global__ void __launch_bounds__(kThreads) lists_sort_kernel(Cand c, Lists L) {
   extern __shared__ unsigned bitmaps[];
-  if (blockIdx.x < col_ctas) {
-    const int words = (c.block + 31) / 32, warp = threadIdx.x >> 5;
-    const int col = blockIdx.x * kWarps + warp;
-    if (col < c.groups * c.nbins) sort_col(L, col, threadIdx.x & 31, bitmaps + warp * words, words);
-  } else {
-    scan_reduce(S.s[0], blockIdx.x - col_ctas);
-  }
+  const int words = (c.block + 31) / 32, warp = threadIdx.x >> 5;
+  const int col = blockIdx.x * kWarps + warp;
+  if (col < c.groups * c.nbins) sort_col(L, col, threadIdx.x & 31, bitmaps + warp * words, words);
 }
 
-// Launch 10: chunk q's columns into their users' lists, in column order.
+// Launch 8: chunk q's columns into their users' lists, in column order.
 // Dynamic shared memory: block + kQCols ints.
 __global__ void __launch_bounds__(kThreads) user_cols_kernel(Cand c, Lists L) {
   extern __shared__ int sm[];
@@ -984,17 +1013,41 @@ Cand make_cand(const void* slabs, const void* uid_rows, const void* uid_cols, in
               static_cast<const int*>(uid_cols), n_mod, block, nbins, groups, start, g0};
 }
 
-Lists make_lists(void* const* bufs, int q) {
-  Lists L;
-  for (int b = 0; b < kNumBufs; ++b) L.a[b] = static_cast<int*>(bufs[b]);
-  L.q = q;
-  return L;
-}
-
+// What the list kernels take: up to 32 planes (plane bit masks), kMaxBlock
+// rows (the row rank), int8 group ids, int32 entry and chunk offsets.
 bool cand_ok(int n_mod, int block, int nbins, int groups) {
   return n_mod > 0 && n_mod <= 32 && block > 0 && block <= kMaxBlock && nbins > 0 &&
          groups > 0 && groups <= 127 &&
-         static_cast<long long>(groups) * nbins < (1LL << 30);
+         static_cast<long long>(groups) * nbins < (1LL << 30) &&
+         static_cast<long long>(block) * chunks_of(groups * nbins) < INT_MAX;
+}
+
+// The lists' arrays in one int32 workspace, in Buf order, each 16-byte
+// aligned: offsets and sizes in words; returns the workspace's words.
+long long list_layout(int n_mod, int block, int nbins, int groups, long long* offsets,
+                      long long* sizes) {
+  const long long n = static_cast<long long>(groups) * nbins, b = block;
+  const long long cap = b * nbins * (n_mod < groups ? n_mod : groups);
+  const long long q = chunks_of(static_cast<int>(n));
+  const long long s[kNumBufs] = {
+      b + 1, cap, n + 1, cap, cap, b, b, b + 1, b, b, 1, b, n, b * q + 1, n,
+      tiles_of(n) + tiles_of(b * q), n, n, 2, 1, b * q};
+  long long total = 0;
+  for (int k = 0; k < kNumBufs; ++k) {
+    offsets[k] = total;
+    sizes[k] = s[k];
+    total += (s[k] + 3) / 4 * 4;
+  }
+  return total;
+}
+
+Lists make_lists(void* workspace, int n_mod, int block, int nbins, int groups) {
+  long long offsets[kNumBufs], sizes[kNumBufs];
+  list_layout(n_mod, block, nbins, groups, offsets, sizes);
+  Lists L;
+  for (int b = 0; b < kNumBufs; ++b) L.a[b] = static_cast<int*>(workspace) + offsets[b];
+  L.q = chunks_of(groups * nbins);
+  return L;
 }
 
 // Scratch of the per-user sums: sums (nseg_max, r) f32, arrive (r chunks,
@@ -1102,32 +1155,32 @@ cudaError_t dispatch_matvec(const Cand& c, const Lists& L, const void* y, int r,
 
 extern "C" {
 
-// Sizes (int32 words) of the lists' arrays in Buf order, for a block of
-// n_mod planes; returns q, the column chunks of the user-column sort.
-int mused_cand_lists_sizes(int n_mod, int block, int nbins, int groups, long long* sizes) {
-  const long long n = static_cast<long long>(groups) * nbins, b = block;
-  const long long cap = b * nbins * (n_mod < groups ? n_mod : groups);
-  const int q = chunks_of(static_cast<int>(n));
-  const long long tiles_ch = tiles_of(n) + tiles_of(b * q), tiles_r = tiles_of(b);
-  const long long s[kNumBufs] = {
-      b + 1, cap, n + 1, cap, cap, b, b, b + 1, b, b, 1, b, n, b * q + 1, n,
-      tiles_ch > tiles_r ? tiles_ch : tiles_r, n, n, 2, 1, b * q};
-  for (int k = 0; k < kNumBufs; ++k) sizes[k] = s[k];
-  return q;
+// The names of the lists' arrays, comma-separated, in workspace order.
+const char* mused_cand_list_names() { return kListNames; }
+
+// The lists' workspace for a block of n_mod planes: each array's offset and
+// size (int32 words, in mused_cand_list_names order), the workspace's
+// words, and q, the column chunks of the user-column sort.  Returns
+// cudaErrorInvalidValue for a block the list kernels do not take (cand_ok).
+int mused_cand_lists_layout(int n_mod, int block, int nbins, int groups, long long* offsets,
+                            long long* sizes, long long* words, int* q) {
+  if (!cand_ok(n_mod, block, nbins, groups)) return static_cast<int>(cudaErrorInvalidValue);
+  *words = list_layout(n_mod, block, nbins, groups, offsets, sizes);
+  *q = chunks_of(groups * nbins);
+  return 0;
 }
 
 // The lists of one candidate block (see the header note): slabs (n_mod,
 // block, nbins) int8; uid_rows (block,) int32 or null; uid_cols (groups,
-// nbins) int32; bufs the kNumBufs arrays sized by mused_cand_lists_sizes.
+// nbins) int32; workspace of mused_cand_lists_layout's words.
 int mused_cand_lists(const void* slabs, const void* uid_rows, const void* uid_cols, int n_mod,
-                     int block, int nbins, int groups, int start, int g0, void* const* bufs,
-                     int q, void* stream) {
-  if (!cand_ok(n_mod, block, nbins, groups) || q != chunks_of(groups * nbins) ||
-      static_cast<long long>(block) * q >= INT_MAX)
-    return static_cast<int>(cudaErrorInvalidValue);
+                     int block, int nbins, int groups, int start, int g0, void* workspace,
+                     void* stream) {
+  if (!cand_ok(n_mod, block, nbins, groups)) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Cand c = make_cand(slabs, uid_rows, uid_cols, n_mod, block, nbins, groups, start, g0);
-  const Lists L = make_lists(bufs, q);
+  const Lists L = make_lists(workspace, n_mod, block, nbins, groups);
+  const int q = L.q;
   const bool user = uid_rows != nullptr;
   const int n = groups * nbins;
   const int row_ctas = (block + kWarps - 1) / kWarps;
@@ -1140,23 +1193,10 @@ int mused_cand_lists(const void* slabs, const void* uid_rows, const void* uid_co
   const int rank_ctas = user ? (block + kThreads / 4 - 1) / (kThreads / 4) : 0;
   lists_count_kernel<<<row_ctas + rank_ctas, kThreads, 0, s>>>(c, L, row_ctas);
   if (!launched()) return static_cast<int>(e);
-
-  Scans rows{};
-  rows.s[0] = Scan{L.a[kRowCnt], L.a[kRowPtr], block, L.a[kTiles]};
-  rows.ntiles[0] = tiles_of(block);
-  scan_reduce_kernel<<<rows.ntiles[0], kThreads, 0, s>>>(rows, 1);
+  rows_scan_kernel<<<user ? 2 : 1, kThreads, 0, s>>>(c, L);
   if (!launched()) return static_cast<int>(e);
-  scan_apply_kernel<<<rows.ntiles[0] + (user ? 1 : 0), kThreads, 0, s>>>(rows, 1, c, L, user);
-  if (!launched()) return static_cast<int>(e);
-
   const int colu_ctas = user ? (n + kThreads - 1) / kThreads : 0;
   lists_fill_kernel<<<row_ctas + colu_ctas, kThreads, 0, s>>>(c, L, row_ctas);
-  if (!launched()) return static_cast<int>(e);
-  const long long cap = static_cast<long long>(block) * nbins * (n_mod < groups ? n_mod : groups);
-  const int entry_ctas = static_cast<int>(
-      (cap + kThreads - 1) / kThreads < 8LL * sm_count() ? (cap + kThreads - 1) / kThreads
-                                                         : 8LL * sm_count());
-  entries_kernel<false><<<entry_ctas, kThreads, 0, s>>>(c, L);
   if (!launched()) return static_cast<int>(e);
 
   Scans cols{};                        // column counts, and the user-column chunk counts
@@ -1166,14 +1206,18 @@ int mused_cand_lists(const void* slabs, const void* uid_rows, const void* uid_co
   cols.ntiles[1] = user ? tiles_of(static_cast<long long>(block) * q) : 0;
   scan_reduce_kernel<<<cols.ntiles[0] + cols.ntiles[1], kThreads, 0, s>>>(cols, 2);
   if (!launched()) return static_cast<int>(e);
-  scan_apply_kernel<<<cols.ntiles[0] + cols.ntiles[1], kThreads, 0, s>>>(cols, 2, c, L, 0);
+  scan_apply_kernel<<<cols.ntiles[0] + cols.ntiles[1], kThreads, 0, s>>>(cols, 2);
   if (!launched()) return static_cast<int>(e);
-  entries_kernel<true><<<entry_ctas, kThreads, 0, s>>>(c, L);
+  const long long cap = static_cast<long long>(block) * nbins * (n_mod < groups ? n_mod : groups);
+  const int entry_ctas = static_cast<int>(
+      (cap + kThreads - 1) / kThreads < 8LL * sm_count() ? (cap + kThreads - 1) / kThreads
+                                                         : 8LL * sm_count());
+  bucket_kernel<<<entry_ctas, kThreads, 0, s>>>(c, L);
   if (!launched()) return static_cast<int>(e);
 
   const int sort_ctas = (n + kWarps - 1) / kWarps;
   const size_t bitmap_bytes = static_cast<size_t>(kWarps) * ((block + 31) / 32) * sizeof(unsigned);
-  lists_sort_kernel<<<sort_ctas, kThreads, bitmap_bytes, s>>>(c, L, sort_ctas, Scans{});
+  lists_sort_kernel<<<sort_ctas, kThreads, bitmap_bytes, s>>>(c, L);
   if (!launched() || !user) return static_cast<int>(e);
 
   const size_t smem = (static_cast<size_t>(block) + kQCols) * sizeof(int);
@@ -1200,13 +1244,13 @@ long long mused_cand_scratch_words(int k4, int n_mod, int block, int nbins, int 
 // mused_cand_scratch_words(1, ...) f32 words.
 int mused_cand_matvec_t(const void* slabs, const void* uid_rows, const void* uid_cols,
                         int n_mod, int block, int nbins, int groups, int start, int g0,
-                        void* const* bufs, int q, const void* x_t, int r, void* out_t,
-                        void* scratch, void* stream) {
+                        void* workspace, const void* x_t, int r, void* out_t, void* scratch,
+                        void* stream) {
   if (!cand_ok(n_mod, block, nbins, groups) || r <= 0 || scratch == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Cand c = make_cand(slabs, uid_rows, uid_cols, n_mod, block, nbins, groups, start, g0);
-  const Lists L = make_lists(bufs, q);
+  const Lists L = make_lists(workspace, n_mod, block, nbins, groups);
   const int rp = rp8(r);
   __nv_bfloat16* xr = static_cast<__nv_bfloat16*>(scratch);
   transpose_kernel<<<dim3((block + 31) / 32, (rp + 31) / 32), kThreads, 0, s>>>(
@@ -1238,18 +1282,18 @@ int mused_cand_matvec_t(const void* slabs, const void* uid_rows, const void* uid
 // K5.  y (groups * nbins, r) bf16; out (block, r) f32; scratch of
 // mused_cand_scratch_words(0, ...) f32 words when uid_rows is set.
 int mused_cand_matvec(const void* slabs, const void* uid_rows, const void* uid_cols, int n_mod,
-                      int block, int nbins, int groups, int start, int g0, void* const* bufs,
-                      int q, const void* y, int r, void* out, void* scratch, void* stream) {
+                      int block, int nbins, int groups, int start, int g0, void* workspace,
+                      const void* y, int r, void* out, void* scratch, void* stream) {
   if (!cand_ok(n_mod, block, nbins, groups) || r <= 0 || (uid_rows && !scratch))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Cand c = make_cand(slabs, uid_rows, uid_cols, n_mod, block, nbins, groups, start, g0);
-  const Lists L = make_lists(bufs, q);
+  const Lists L = make_lists(workspace, n_mod, block, nbins, groups);
   const int n = groups * nbins;
   const float* vsum = nullptr;
   if (uid_rows) {
     // V[u] = sum of y's rows over user u's columns (ptr hoff[u * q])
-    const cudaError_t e = launch_segsum(L.a[kHOff], q, L.a[kNu], block, L.a[kUCols],
+    const cudaError_t e = launch_segsum(L.a[kHOff], L.q, L.a[kNu], block, L.a[kUCols],
                                         L.a[kColUser], n, kSegChunk, y, r, 1, r, scratch, s);
     if (e != cudaSuccess) return static_cast<int>(e);
     vsum = static_cast<const float*>(scratch);

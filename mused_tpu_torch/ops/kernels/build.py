@@ -111,14 +111,16 @@ def _configure(lib) -> None:
     lib.mused_binned_candidates_pair.restype = i
     lib.mused_binned_candidates_pair_splits.argtypes = [i] * 3
     lib.mused_binned_candidates_pair_splits.restype = i
-    lib.mused_cand_lists_sizes.argtypes = [i] * 4 + [p]
-    lib.mused_cand_lists_sizes.restype = i
-    lib.mused_cand_lists.argtypes = [p, p, p] + [i] * 6 + [p, i, p]
+    lib.mused_cand_list_names.argtypes = []
+    lib.mused_cand_list_names.restype = ctypes.c_char_p
+    lib.mused_cand_lists_layout.argtypes = [i] * 4 + [p] * 4
+    lib.mused_cand_lists_layout.restype = i
+    lib.mused_cand_lists.argtypes = [p, p, p] + [i] * 6 + [p, p]
     lib.mused_cand_lists.restype = i
     lib.mused_cand_scratch_words.argtypes = [i] * 7
     lib.mused_cand_scratch_words.restype = ctypes.c_longlong
     for fn in (lib.mused_cand_matvec_t, lib.mused_cand_matvec):
-        fn.argtypes = [p, p, p] + [i] * 6 + [p, i, p, i, p, p, p]
+        fn.argtypes = [p, p, p] + [i] * 6 + [p, p, i, p, p, p]
         fn.restype = i
     lib.mused_cuda_error_string.argtypes = [i]
     lib.mused_cuda_error_string.restype = ctypes.c_char_p

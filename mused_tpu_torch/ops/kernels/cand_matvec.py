@@ -49,28 +49,23 @@ def reset_launches() -> None:
     launches_t = launches = launches_lists = 0
 
 
-# The arrays of a block's lists, in the order of the CUDA source's Buf enum
-# (int32; "edges" is one 64-bit count).  colcnt, edges, nhubs and hist stay
-# last.
-LIST_ARRAYS = ("rowptr", "rowcols", "colptr", "colrows", "coltmp", "rowcnt", "row_user",
-               "userptr", "userrows", "uids", "nu", "suid", "col_user", "hoff", "ucols",
-               "tiles", "hubs", "colcnt", "edges", "nhubs", "hist")
-
-
 class CandLists(NamedTuple):
-    """The lists of one candidate block on the card, in one int32 workspace:
-    each row's kept columns (slot order; entries the username term counts
-    left out), each column's rows (ascending), the block's distinct uids
-    with each user's rows and columns, and the exact edge count."""
+    """The lists of one candidate block on the card, in one int32 workspace
+    laid out by the CUDA source (``mused_cand_lists_layout``): each row's
+    kept columns (slot order; entries the username term counts left out),
+    each column's rows (ascending), the block's distinct uids with each
+    user's rows and columns, and the exact edge count.  ``source`` is what
+    they were built from; the products refuse a block that differs."""
 
     workspace: torch.Tensor
-    offsets: tuple
+    names: tuple                         # the arrays, in workspace order
+    offsets: tuple                       # int32 words
     sizes: tuple
     q: int                               # column chunks of the user-column sort
-    pointers: ctypes.Array               # the arrays' addresses, in LIST_ARRAYS order
+    source: tuple                        # _lists_source of the block
 
     def array(self, name: str) -> torch.Tensor:
-        k = LIST_ARRAYS.index(name)
+        k = self.names.index(name)
         return self.workspace[self.offsets[k]:self.offsets[k] + self.sizes[k]]
 
     @property
@@ -83,8 +78,9 @@ class CandBlock(NamedTuple):
     """Candidate-form fused adjacency rows [start, start+block) of an
     implicit (n, n) fused kNN adjacency, n = groups * nbins.  ``g0`` is the
     global id of local group 0 (0 on one device).  ``lists``, when set, are
-    this block's candidate lists (:func:`with_lists`): replace any other
-    field and they must be dropped."""
+    this block's candidate lists (:func:`with_lists`); they hold the
+    tensors and offsets they were built from, and every product raises on
+    a block whose fields differ (replace a field with ``lists=None``)."""
 
     slabs: torch.Tensor                 # (M, block, nbins) int8: local grp or -1
     uid_rows: torch.Tensor | None       # (block, 1) int32, -1 where invalid
@@ -173,10 +169,10 @@ def _exclusive(counts: torch.Tensor) -> torch.Tensor:
 
 
 def lists_reference(cand: CandBlock) -> dict:
-    """Plain version of the list kernels: int64 tensors named as in
-    :data:`LIST_ARRAYS` (``ucolptr`` for the per-user column offsets the
-    kernel keeps in ``hoff``; the user tables only with usernames) and the
-    exact ``edges`` (a Python int).
+    """Plain version of the list kernels: int64 tensors named as the
+    workspace's arrays (:meth:`CandLists.array`; ``ucolptr`` for the
+    per-user column offsets the kernel keeps in ``hoff``; the user tables
+    only with usernames) and the exact ``edges`` (a Python int).
 
     A row's list holds the local column of every (slot, group) some plane
     keeps, once (the first plane to hold it), in (slot, plane) order, less
@@ -254,6 +250,9 @@ def _check_cand(cand: CandBlock, operand: torch.Tensor | None = None,
                             f"{tuple(operand.shape)}")
         tensors.append(operand)
     if cand.lists is not None:
+        if not _lists_match(cand):
+            raise ValueError("the block's lists were built from other slabs, uids, start or "
+                             "g0: replace a field with lists=None")
         tensors.append(cand.lists.workspace)
     if any(t.device != s.device for t in tensors):
         raise ValueError(f"slabs, uids, lists and {name or 'operands'} must share a device")
@@ -263,15 +262,24 @@ def _check_cand(cand: CandBlock, operand: torch.Tensor | None = None,
         raise ValueError(f"cand_matvec runs on cuda or cpu tensors, not {s.device}")
 
 
+def _lists_source(cand: CandBlock) -> tuple:
+    return cand.slabs, cand.uid_rows, cand.uid_cols, int(cand.start), int(cand.g0)
+
+
+def _lists_match(cand: CandBlock) -> bool:
+    """The block's lists were built from its own tensors (the same objects:
+    the lists keep them alive, so no other tensor can take their memory)
+    and offsets."""
+    slabs, uid_rows, uid_cols, start, g0 = cand.lists.source
+    return (slabs is cand.slabs and uid_rows is cand.uid_rows and uid_cols is cand.uid_cols
+            and start == int(cand.start) and g0 == int(cand.g0))
+
+
 def _cand_args(cand: CandBlock):
     uid_rows = None if cand.uid_rows is None else cand.uid_rows.data_ptr()
     return (cand.slabs.data_ptr(), uid_rows, cand.uid_cols.data_ptr(),
             cand.slabs.shape[0], cand.block, cand.nbins, cand.groups, int(cand.start),
             int(cand.g0))
-
-
-MAX_LIST_BLOCK = 32768      # the list kernels rank a block's rows pairwise
-MAX_PLANES = 32
 
 
 def build_lists(cand: CandBlock) -> CandLists:
@@ -283,29 +291,27 @@ def build_lists(cand: CandBlock) -> CandLists:
     if cand.slabs.device.type != "cuda":
         raise ValueError("the candidate lists are the kernels' operand: build them for "
                          "CUDA tensors (the CPU runs the plain products)")
-    if cand.block > MAX_LIST_BLOCK or cand.slabs.shape[0] > MAX_PLANES:
-        raise ValueError(f"the list kernels take blocks of at most {MAX_LIST_BLOCK} rows "
-                         f"and {MAX_PLANES} planes, got {tuple(cand.slabs.shape)}")
     lib = build.load()
-    sizes = (ctypes.c_longlong * len(LIST_ARRAYS))()
-    q = lib.mused_cand_lists_sizes(cand.slabs.shape[0], cand.block, cand.nbins,
-                                   cand.groups, sizes)
-    offsets, total = [], 0
-    for size in sizes:
-        offsets.append(total)
-        total += -(-size // 4) * 4          # 16-byte aligned arrays
+    names = tuple(lib.mused_cand_list_names().decode().split(","))
+    offsets = (ctypes.c_longlong * len(names))()
+    sizes = (ctypes.c_longlong * len(names))()
+    words, q = ctypes.c_longlong(), ctypes.c_int()
+    what = (f"cand_lists block={cand.block} nbins={cand.nbins} groups={cand.groups} "
+            f"planes={cand.slabs.shape[0]}")
+    build.check(lib.mused_cand_lists_layout(cand.slabs.shape[0], cand.block, cand.nbins,
+                                            cand.groups, offsets, sizes, ctypes.byref(words),
+                                            ctypes.byref(q)),
+                what + " (a shape the list kernels do not take)")
     dev = cand.slabs.device
-    workspace = torch.empty((total,), dtype=torch.int32, device=dev)
-    base = workspace.data_ptr()
-    pointers = (ctypes.c_void_p * len(LIST_ARRAYS))(*[base + 4 * o for o in offsets])
+    workspace = torch.empty((words.value,), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        code = lib.mused_cand_lists(*_cand_args(cand), pointers, q, stream)
-    build.check(code, f"cand_lists block={cand.block} nbins={cand.nbins} "
-                      f"groups={cand.groups} planes={cand.slabs.shape[0]}")
+        code = lib.mused_cand_lists(*_cand_args(cand), workspace.data_ptr(), stream)
+    build.check(code, what)
     global launches_lists
     launches_lists += 1
-    return CandLists(workspace, tuple(offsets), tuple(sizes), q, pointers)
+    return CandLists(workspace, names, tuple(offsets), tuple(sizes), q.value,
+                     _lists_source(cand))
 
 
 def with_lists(cand: CandBlock) -> CandBlock:
@@ -328,7 +334,7 @@ def _launch(fn, cand: CandBlock, operand: torch.Tensor, r: int, out: torch.Tenso
     scratch = torch.empty((words,), dtype=torch.float32, device=dev) if words else None
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        code = fn(*_cand_args(cand), lists.pointers, lists.q, operand.data_ptr(), r,
+        code = fn(*_cand_args(cand), lists.workspace.data_ptr(), operand.data_ptr(), r,
                   out.data_ptr(), None if scratch is None else scratch.data_ptr(), stream)
     build.check(code, f"{what} block={cand.block} nbins={cand.nbins} "
                       f"groups={cand.groups} r={r}")

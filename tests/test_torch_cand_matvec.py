@@ -250,3 +250,33 @@ def test_lists_are_for_the_card():
     x = torch.ones((8, tc.block), dtype=torch.bfloat16)
     tcm.matvec_t(tc, x)
     assert tcm.launches_lists == before
+
+
+# a field of the block replaced after its lists were built
+STALE = {"slabs": lambda c: c.slabs.clone(), "uid_rows": lambda c: None,
+         "uid_cols": lambda c: c.uid_cols.clone(), "start": lambda c: c.start + 1,
+         "g0": lambda c: c.g0 + 1}
+
+
+@pytest.mark.parametrize("field", sorted(STALE))
+def test_products_refuse_the_lists_of_another_block(field):
+    """A block's lists record the tensors and offsets they were built from.
+    A block that replaced one of them and kept the lists raises in both
+    products (lists built with uids leave out the entries the username term
+    counts, so without uids they would sum wrong); the block they were
+    built from runs.  On the CPU the lists are a stand-in: the check runs
+    before any product."""
+    tc = torch_cand(tcm, cand_case("self_inside"))
+    lists = tcm.CandLists(torch.zeros(4, dtype=torch.int32), (), (), (), 1,
+                          tcm._lists_source(tc))
+    own = tc._replace(lists=lists)
+    x = torch.ones((8, tc.block), dtype=torch.bfloat16)
+    y = torch.ones((tc.groups * tc.nbins, 8), dtype=torch.bfloat16)
+    assert torch.equal(tcm.matvec_t(own, x)[0], tcm.matvec_t(tc, x)[0])
+    assert torch.equal(tcm.matvec(own, y), tcm.matvec(tc, y))
+    stale = own._replace(**{field: STALE[field](tc)})
+    with pytest.raises(ValueError, match="lists were built"):
+        tcm.matvec_t(stale, x)
+    with pytest.raises(ValueError, match="lists were built"):
+        tcm.matvec(stale, y)
+    assert tcm.with_lists(stale._replace(lists=None)).lists is None   # CPU: no lists

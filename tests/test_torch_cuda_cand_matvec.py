@@ -15,6 +15,7 @@ edges whose column has the row's uid, the self pair inside and outside the
 block, g0 != 0, one user owning most of the window, empty slabs with valid
 uids, nbins % 16 != 0 (40), no usernames; and the huge window's real block
 (2048 x 1536, 64 groups, four planes, about 300 kept entries per row).
+A block that replaced a field and kept its lists must raise.
 """
 import numpy as np
 import pytest
@@ -155,7 +156,7 @@ def test_two_launches_give_the_same_bits(with_user, r, cuda):
     lists = cm.with_lists(cand).lists
     e = int(lists.array("colptr")[-1])
     for name in ("rowcols", "colrows"):
-        k = cm.LIST_ARRAYS.index(name)
+        k = lists.names.index(name)
         a, b = (w[lists.offsets[k]:lists.offsets[k] + e] for w, *_ in runs)
         assert torch.equal(a, b), name
     for a, b in zip(runs[0][1:], runs[1][1:]):
@@ -163,3 +164,29 @@ def test_two_launches_give_the_same_bits(with_user, r, cuda):
     want_t, _ = cm.matvec_t_reference(cand, x_t)
     scale = want_t.abs().max().item()
     assert (runs[0][1] - want_t).abs().max().item() <= 1e-6 * scale
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("field", ["slabs", "uid_rows", "uid_cols", "start", "g0"])
+def test_stale_lists_raise(field, cuda):
+    """A block that replaced a field and kept its lists raises in K4 and K5
+    and launches nothing; dropping the lists builds them anew, equal to the
+    plain products."""
+    cand = cm.with_lists(torch_cand(cm, cand_case("uid_on_slab_edges"), cuda))
+    other = {"slabs": cand.slabs.clone(), "uid_rows": None, "uid_cols": cand.uid_cols.clone(),
+             "start": cand.start + 1, "g0": cand.g0 + 1}[field]
+    stale = cand._replace(**{field: other})
+    x_t = _ints((66, cand.block), 8, cuda)
+    y = _ints((cand.groups * cand.nbins, 66), 9, cuda)
+    before = (cm.launches_t, cm.launches, cm.launches_lists)
+    with pytest.raises(ValueError, match="lists were built"):
+        cm.matvec_t(stale, x_t)
+    with pytest.raises(ValueError, match="lists were built"):
+        cm.matvec(stale, y)
+    assert (cm.launches_t, cm.launches, cm.launches_lists) == before
+    fresh = cm.with_lists(stale._replace(lists=None))
+    out_t, edges = cm.matvec_t(fresh, x_t)
+    want_t, want_edges = cm.matvec_t_reference(fresh, x_t)
+    torch.cuda.synchronize()
+    assert torch.equal(out_t, want_t) and edges.item() == want_edges.item()
+    assert torch.equal(cm.matvec(fresh, y), cm.matvec_reference(fresh, y))
