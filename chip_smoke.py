@@ -29,9 +29,15 @@ Phases (any failure exits non-zero; no phase is skipped):
       adjacencies agree on >= 99.9% of edges;
   (e) the huge-window kernels K2-K5 against their plain versions on the
       first 2048-row block of the first window of a separate seeded
-      196,608-record stream (window 98,304, nbins 1536): K2 per metric
-      (location chord3, time l1, tags jaccard, text dot, and chord on a
-      128-wide random generic panel), K3 against two K2 launches and the
+      196,608-record stream (window 98,304, nbins 1536): the postings build
+      of the window's tags and text from their token ids (equal to the
+      window's postings; ms and its bytes bound); K2 per metric (location
+      chord3, time l1, tags jaccard and text dot on the postings route as the
+      main path runs them, bit-equal to the postings plain version too, then
+      tags and text again on the tensor-core route on the same block, text
+      on integer values bit-equal on both, and chord on a 128-wide random
+      generic panel), each row naming its route, with tags + text per block
+      on both routes; K3 against two K2 launches and the
       plain version, the list kernels on that block's real candidate block
       (every array the products read equal to the plain lists, the exact
       edge count), K4 / K5 over those lists at the fold's live widths (K4
@@ -39,7 +45,11 @@ Phases (any failure exits non-zero; no phase is skipped):
       128 and 256, K5 128), exact on integers, within the probe tolerances
       below and bit-identical over two launches; times of each kernel and
       its plain version, its bound (max(operations / peak of their type,
-      bytes / HBM rate), with the formula's inputs; K4 / K5 count 2 r
+      bytes / HBM rate), with the formula's inputs; K2 on the postings
+      route counts 2 operations per postings entry its rows meet at the f32
+      rate and the bytes of its rows, the postings and table rows of the
+      features met, the statistics and the outputs, the dense count beside
+      as ``bound_dense_ms``; K4 / K5 count 2 r
       operations per edge of the block and the bytes of their operand,
       output and the list arrays they read (the slabs once, in the list
       build's bound), the dense 2 r block n with the slabs beside as
@@ -49,14 +59,23 @@ Phases (any failure exits non-zero; no phase is skipped):
       K2 dot / jaccard the bare cuBLAS product's time as a yardstick, and
       for the coordinate metrics (K2 chord3 / l1, K3) both their
       instruction bound and the older FMA-rate bound (tolerances at the
-      constants below); with ``--parent DIR`` also the earlier tree's K4 /
-      K5 on the same block and operands in a subprocess, in turns
-      (earlier, this, earlier), integers bit-equal;
+      constants below); with ``--parent DIR`` also the earlier tree's K2
+      (tags, text) and K3 (tags + text) on the same panels and its K4 / K5
+      on the same block and operands, in a subprocess, in turns (earlier,
+      this, earlier), its K2 bit-equal to this tree's tensor-core route and
+      its K4 / K5 integers bit-equal;
   (f) ``api.process_streaming_data`` on the card over that stream at
       window 98,304: SWFDMC with the candidate-native fold (exactly 96 K2,
       48 K3, 96 K4, 48 K5 and 48 list builds per window) and sSVDMC on the binned
-      blocked SVD (576 K2 and 288 K3 per window); 2 native hasher calls per
-      window; metrics in [0, 1];
+      blocked SVD (576 K2 and 288 K3 per window), every K2 on the postings
+      route; 2 native hasher calls per window; metrics in [0, 1]; one more
+      SWFDMC window's host syncs by call site under
+      ``torch.cuda.set_sync_debug_mode("warn")``, none in
+      ``ops/kernels/blocked_select`` (the postings build, the K2 / K3
+      wrappers); with ``--parent DIR`` paired trials, each tree in a process
+      of its own in turns (earlier, this, this, earlier): (f)'s windows/s
+      for SWFDMC and sSVDMC and i1's SVDMC_batch seconds, NMI and F1 within
+      0.01 of the earlier tree's;
   (g) on 3 blocks of the first huge window, the kernel route's candidate
       rows agree with the plain route's fused rows on >= 99.9% of edges,
       and the candidate fold's sq_frobenius equals the dense binned fold's;
@@ -99,8 +118,12 @@ Phases (any failure exits non-zero; no phase is skipped):
          equal this tree's;
       i3 sSpectral and DBSCAN_centr over (f)'s stream at window 98,304
          (768 / 576 K2 and 384 / 288 K3 per window);
-      i4 K2 (tags, text) and K3 on the batch columns' last block (n =
-         151,552, nbins 4096) held to (e)'s rules; K1 at n = 8,192, 16,384 and
+      i4 K2 (tags, text; postings route, then the tensor-core route, and
+         with ``--parent DIR`` the earlier tree's K2 in turns), K3 tags +
+         text on the postings route (bit-equal to two K2 launches, beside
+         the tensor-core pair and the earlier tree's) and K3 location + time
+         on the batch columns' last block (n = 151,552, nbins 4096) held to
+         (e)'s rules; K1 at n = 8,192, 16,384 and
          32,768 on the stream's first n records' four main-path calls, plus
          Euclidean and dot on small-integer rows (exact products, so held
          bit-equal), held to (b)'s rules: ms, bound, share of bound,
@@ -113,13 +136,16 @@ Phases (any failure exits non-zero; no phase is skipped):
          partition on 16 separated blobs;
   (j) slice 4a, the column-sharded layouts:
       j1 K3 on tags jaccard + text dot (the column-sharded sweep's pair) on
-         (e)'s first block: bit-equal to two K2 launches and held to (e)'s
-         rules against the plain version; its ms beside the two K2
-         launches' and the sum of their bounds;
+         (e)'s first block, on the postings route: bit-equal to two K2
+         launches on it and held to (e)'s rules against the plain version;
+         its ms beside the two K2 launches', the tensor-core pair's and (with
+         ``--parent``) the earlier tree's, its bound on the nonzero rule and
+         the dense one;
       j2 on emulated 2- and 4-way column splits of that window, a shard's
          columns against a row block of another shard (shard-local start
          before and past the shard, row_stats pre-sliced): K2 on every
-         metric and K3 on both standard pairs held to (e)'s rules, K4 / K5
+         metric and K3 on both standard pairs held to (e)'s rules, tags and
+         text on the postings route with the shard's own postings, K4 / K5
          on the shard's candidate block with its g0, exact on integers;
       j3 the column-sharded entry points on the card at world size 1 (an
          NCCL group of one, mesh (1, 1)) on (f)'s first window: fused rows
@@ -217,6 +243,7 @@ import io
 import json
 import linecache
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -333,6 +360,47 @@ def k2_bound(metric: str, n: int, block: int, nbins: int, k: int, esize: int) ->
     if metric in bs.MMA_METRICS:
         return bound(2.0 * block * n * k, "int8" if metric == "jaccard" else "bf16", nbytes)
     return coord_bound([(metric, k)], n, block, nbins)
+
+
+def postings_met(post: bs.Postings, rows: torch.Tensor) -> dict:
+    """What the postings route's work depends on, for this block: the
+    postings entries its row-terms meet (each row term meets its feature's
+    whole postings list), the row-terms, and the distinct features met."""
+    df = (post.table[:, -1] - post.table[:, 0]).long()
+    per_feature = torch.count_nonzero(rows != 0, dim=0).long()
+    met = per_feature > 0
+    return {"entries_met": int((per_feature * df).sum()),
+            "row_terms": int(per_feature.sum()), "features_met": int(met.sum()),
+            "postings_entries_of_features_met": int(df[met].sum()),
+            "postings_entries": int(post.entries)}
+
+
+def k2_postings_bound(metric: str, post: bs.Postings, rows: torch.Tensor, nbins: int) -> dict:
+    """One K2 call on the postings route, counted on the nonzero rule: 2
+    operations (an f32 multiply-add) per postings entry that the block's
+    row-terms meet, at the f32 peak; bytes: the rows, the postings entries
+    and table rows of the features met (each read once), column validity,
+    the hoisted statistics (jaccard) and the (block, nbins) values and
+    groups written."""
+    n, (block, k) = post.n, rows.shape
+    met = postings_met(post, rows)
+    steps = post.table.shape[1]
+    nbytes = (block * k * rows.element_size()
+              + met["postings_entries_of_features_met"] * (4 + post.vals.element_size())
+              + met["features_met"] * steps * 4 + n + block * nbins * 5)
+    if metric in bs.STAT_METRICS:
+        nbytes += (n + block) * 4
+    out = bound(2.0 * met["entries_met"], "fp32", nbytes)
+    out.update(met)
+    return out
+
+
+def postings_build_bound(n: int, k: int, ids: torch.Tensor, post: bs.Postings) -> dict:
+    """One postings build, bytes-bound: the token ids and the panel values
+    at them read, the entries (column, value) and the table written."""
+    nbytes = (ids.numel() * (ids.element_size() + post.vals.element_size())
+              + post.cols.numel() * (4 + post.vals.element_size()) + post.table.numel() * 4)
+    return bound(0.0, "fp32", nbytes)
 
 
 def coord_bound(items: list, n: int, block: int, nbins: int) -> dict:
@@ -551,11 +619,14 @@ def huge_cfg(approach: str = "SWFDMC", n_records: int = HUGE_RECORDS) -> Pipelin
                           n_clusters_override=2)
 
 
-def huge_columns(mods, device) -> ba.Columns:
-    """Column panels of the huge stream's first window, as the engine builds them."""
+def huge_columns(mods, device, with_features: bool = False):
+    """Column panels of the huge stream's first window, as the engine builds them
+    (and its device features: the token ids, with ``with_features``)."""
     engine = streaming.StreamingEngine(huge_cfg(), device)
     host = engine.featurize([m[:HUGE_WINDOW] for m in mods], streaming.STANDARD_TYPES)
-    return engine.columns(host, to_device(host, device), streaming.STANDARD_TYPES)
+    feats = to_device(host, device)
+    cols = engine.columns(host, feats, streaming.STANDARD_TYPES)
+    return (cols, feats) if with_features else cols
 
 
 def reset_counts() -> None:
@@ -566,7 +637,15 @@ def reset_counts() -> None:
 
 def huge_counts() -> dict:
     return {"K2": bs.launches, "K3": bs.pair_launches, "K4": cm.launches_t,
-            "K5": cm.launches, "lists": cm.launches_lists}
+            "K5": cm.launches, "lists": cm.launches_lists,
+            "K2_postings": bs.postings_launches, "K3_postings": bs.postings_pair_launches}
+
+
+def with_routes(want: dict, k3_postings: int = 0) -> dict:
+    """``want`` with the postings route's counts: every K2 call of a standard
+    stream's huge path is tags or text, on the postings route; K3 pairs tags +
+    text on it only in the column-sharded sweep (``k3_postings``)."""
+    return {**want, "K2_postings": want["K2"], "K3_postings": k3_postings}
 
 
 def gemm_yardstick(metric: str, cols: torch.Tensor, rows: torch.Tensor) -> dict:
@@ -613,41 +692,82 @@ def plain_rules(metric: str, got, want, row_valid, k: int) -> dict:
 
 
 def k2_check(name: str, metric: str, x, valid, row_sums, k: int, *, start: int,
-             block: int, nbins: int, per_window: dict, tag: str = "e") -> dict:
+             block: int, nbins: int, per_window: dict, tag: str = "e",
+             postings: bs.Postings | None = None) -> dict:
     """K2 on rows [start, start + block) of the panel ``x`` against its plain
     version: bit-equal for jaccard / l1 / chord3 and integer-valued dot,
-    within the tolerances above for dot / chord; times, bound, splits."""
+    within the tolerances above for dot / chord; times, bound, splits.  With
+    ``postings`` on the postings route: also bit-equal to the postings plain
+    version (the kernel's summation order), its bound counted on the nonzero
+    rule, the dense count beside as ``bound_dense_ms``."""
     x = x.contiguous()
     n = x.shape[0]
     rows = slice(start, start + block)
 
-    def run(fn):
+    def run(fn, **kw):
         return fn(x, x[rows], valid, start, metric=metric, nbins=nbins, block=block,
-                  row_sums=row_sums)
+                  row_sums=row_sums, **kw)
+
+    def kernel():
+        return run(bs.binned_candidates, postings=postings)
 
     before = bs.launches
-    got, want = run(bs.binned_candidates), run(bs.binned_candidates_plain)
+    got, want = kernel(), run(bs.binned_candidates_plain)
     torch.cuda.synchronize()
     rules = plain_rules(metric, got, want, valid[rows], k)
-    row = {"case": name, "metric": metric, "n": n, "block": block, "start": start,
-           "nbins": nbins, "groups": n // nbins, "K": x.shape[1],
+    route = bs.route(metric, postings)
+    row = {"case": name, "metric": metric, "route": route, "n": n, "block": block,
+           "start": start, "nbins": nbins, "groups": n // nbins, "K": x.shape[1],
            "dtype": str(x.dtype).replace("torch.", ""), "launched": bs.launches - before,
-           "splits": bs.kernel_splits(n, block, nbins, metric),
+           "splits": 1 if route == "postings" else bs.kernel_splits(n, block, nbins, metric),
            **{key: v for key, v in rules.items() if key not in ("metric", "ok")},
-           "ms": cuda_ms(lambda: run(bs.binned_candidates), reps=5, warmup=1),
+           "ms": cuda_ms(kernel, reps=5, warmup=1),
            "plain_ms": cuda_ms(lambda: run(bs.binned_candidates_plain), reps=3, warmup=1),
            "launches_per_window": per_window}
-    with_bound(row, k2_bound(metric, n, block, nbins, x.shape[1], x.element_size()))
+    dense = k2_bound(metric, n, block, nbins, x.shape[1], x.element_size())
+    if postings is not None:
+        same = bs.binned_candidates_postings_plain(postings, x[rows], valid, start,
+                                                   metric=metric, nbins=nbins, block=block,
+                                                   row_sums=row_sums)
+        row["bit_equal_to_postings_plain"] = bool(torch.equal(got[0], same[0])
+                                                  and torch.equal(got[1], same[1]))
+        with_bound(row, k2_postings_bound(metric, postings, x[rows], nbins))
+        row["bound_dense_ms"] = dense["bound_ms"]
+        row["share_of_dense_bound"] = dense["bound_ms"] / row["ms"]
+    else:
+        with_bound(row, dense)
     if metric in bs.COORD_METRICS:
         row["share_of_fma_rate_bound"] = row["bound_fma_rate_ms"] / row["ms"]
-    if metric in ("dot", "jaccard") and name != "text_integer_valued":
+    if (metric in ("dot", "jaccard") and postings is None
+            and not name.startswith("text_integer_valued")):
         row.update(gemm_yardstick(metric, x, x[rows]))
     print(f"[{tag}] K2", json.dumps(row), flush=True)
     # integer-valued dot operands sum exactly in any order: bit-equal there
-    ok = row["bit_equal"] if name == "text_integer_valued" else rules["ok"]
+    ok = row["bit_equal"] if name.startswith("text_integer_valued") else rules["ok"]
+    ok = ok and row.get("bit_equal_to_postings_plain", True)
     if not (ok and row["launched"] == 1):
         raise AssertionError(f"K2 disagrees with its plain version: {row}")
     return row
+
+
+def revalued(post: bs.Postings, panel: torch.Tensor) -> bs.Postings:
+    """``post`` with its values read from ``panel``, a panel of the same
+    nonzero pattern (each entry's feature found from the table)."""
+    e = torch.arange(post.cols.numel(), device=panel.device)
+    feat = torch.searchsorted(post.table[:, -1].contiguous(), e.to(torch.int32), right=True)
+    vals = panel[post.cols.long(), feat.clamp(max=post.k - 1)]
+    return post._replace(vals=torch.where(feat < post.k, vals, torch.zeros_like(vals)))
+
+
+def sum_rows(rows: list, what: str) -> dict:
+    """ms, bound (nonzero rule where it applies) and the dense bound of calls
+    made together, with their share."""
+    out = {"ms": sum(r["ms"] for r in rows), "plain_ms": sum(r["plain_ms"] for r in rows),
+           "bound_ms": sum(r["bound_ms"] for r in rows),
+           "bound_dense_ms": sum(r.get("bound_dense_ms", r["bound_ms"]) for r in rows),
+           "routes": [r["route"] for r in rows], "timed": what}
+    out["share_of_bound"] = out["bound_ms"] / out["ms"]
+    return out
 
 
 def k3_check(xyz, lv, tim, tv, *, start: int, block: int, nbins: int, per_window: dict,
@@ -684,34 +804,67 @@ def k3_check(xyz, lv, tim, tv, *, start: int, block: int, nbins: int, per_window
     return row
 
 
-def phase_e(cols: ba.Columns, device, parent: str | None = None, profile: bool = False) -> dict:
+def phase_e(cols: ba.Columns, device, parent: str | None = None, profile: bool = False,
+            feats: tuple | None = None) -> dict:
     print(f"[e] card: {nvidia_smi_line()}", flush=True)
     n, block, start, nbins = cols.n, HUGE_BLOCK, 0, HUGE_NBINS
     if bs.default_nbins(n, k_max=3 * K_BASIS) != nbins:
         raise AssertionError(f"default_nbins({n}) != {nbins}")
     by_kind = dict(zip(cols.kinds, zip(cols.tensors, cols.valids)))
+    by_post = dict(zip(cols.kinds, cols.postings_of()))
     (xyz, lv), (tim, tv) = by_kind["location_xyz"], by_kind["time"]
     ((tags, sums), tagv), (text, textv) = by_kind["tags"], by_kind["text_bf16"]
+    ptags, ptext = by_post["tags"], by_post["text_bf16"]
     gen = torch.Generator(device=device).manual_seed(SEED)
     generic = ba.generic_columns([torch.randn((n, 128), generator=gen, device=device)],
                                  ("default",), device)
     (dft, sq), dv = generic.tensors[0], generic.valids[0]
-    text_int = (torch.randint(-3, 4, tuple(text.shape), generator=gen, device=device)
-                / 4).to(torch.bfloat16)
+    # integer-valued text on text's nonzero pattern: sums exact in any order
+    text_int = torch.where(text != 0, (torch.randint(1, 8, tuple(text.shape), generator=gen,
+                                                     device=device) / 4).to(torch.bfloat16),
+                           torch.zeros((), dtype=torch.bfloat16, device=device))
+    ptext_int = revalued(ptext, text_int)
     per_window = {"tags": BLOCKS_PER_WINDOW, "text": BLOCKS_PER_WINDOW}
     out = {"K2": {}}
-    for name, metric, x, valid, row_sums, k in [
-            ("location", "chord3", xyz, lv, None, K_BASIS),
-            ("time", "l1", tim, tv, None, 3 * K_BASIS),
-            ("tags", "jaccard", tags, tagv, sums, K_BASIS),
-            ("text", "dot", text, textv, None, K_BASIS),
-            ("text_integer_valued", "dot", text_int, textv, None, K_BASIS),
-            ("generic_default", "chord", dft, dv, sq, K_BASIS - 1)]:
+    if feats is not None:
+        out["postings_build"] = postings_build_check(feats, tags, text, ptags, ptext)
+    earlier = []
+    if parent:
+        saved = save_k2(tags, tagv, sums, text, textv, start, block, nbins)
+        earlier.append(earlier_k2(parent, saved))
+    for name, metric, x, valid, row_sums, k, post in [
+            ("location", "chord3", xyz, lv, None, K_BASIS, None),
+            ("time", "l1", tim, tv, None, 3 * K_BASIS, None),
+            ("tags", "jaccard", tags, tagv, sums, K_BASIS, ptags),
+            ("text", "dot", text, textv, None, K_BASIS, ptext),
+            ("text_integer_valued", "dot", text_int, textv, None, K_BASIS, ptext_int),
+            ("tags_dense", "jaccard", tags, tagv, sums, K_BASIS, None),
+            ("text_dense", "dot", text, textv, None, K_BASIS, None),
+            ("text_integer_valued_dense", "dot", text_int, textv, None, K_BASIS, None),
+            ("generic_default", "chord", dft, dv, sq, K_BASIS - 1, None)]:
         out["K2"][name] = k2_check(
             name, metric, x, valid, row_sums, k, start=start, block=block, nbins=nbins,
             per_window={"SWFDMC": per_window.get(name, 0),
-                        "sSVDMC": SSVD_SWEEPS * per_window.get(name, 0)})
-    del text_int
+                        "sSVDMC": SSVD_SWEEPS * per_window.get(name, 0)}, postings=post)
+    del text_int, ptext_int
+    k2 = out["K2"]
+    out["K2_per_block"] = {
+        "postings": sum_rows([k2["tags"], k2["text"]], "tags + text, postings route"),
+        "dense": sum_rows([k2["tags_dense"], k2["text_dense"]],
+                          "tags + text, tensor-core route")}
+    if parent:
+        earlier.append(earlier_k2(parent, saved))
+        shutil.rmtree(os.path.dirname(saved))
+        rows = slice(start, start + block)
+        dense_out = {"tags": bs.binned_candidates(tags, tags[rows], tagv, start,
+                                                  metric="jaccard", nbins=nbins, block=block,
+                                                  row_sums=sums),
+                     "text": bs.binned_candidates(text, text[rows], textv, start,
+                                                  metric="dot", nbins=nbins, block=block)}
+        out["K2_per_block"]["earlier_tree"] = k2_against_earlier(
+            earlier, {"tags": k2["tags_dense"], "text": k2["text_dense"]},
+            {"tags": k2["tags"], "text": k2["text"]}, dense_out)
+    print("[e] K2 per block", json.dumps(out["K2_per_block"]), flush=True)
     out["K3"] = k3_check(xyz, lv, tim, tv, start=start, block=block, nbins=nbins,
                          per_window={"SWFDMC": BLOCKS_PER_WINDOW,
                                      "sSVDMC": SSVD_SWEEPS * BLOCKS_PER_WINDOW})
@@ -887,6 +1040,110 @@ def sparse_yardstick(dense: torch.Tensor):
     return time_it
 
 
+EARLIER_K2 = """
+import json, sys, torch
+from mused_tpu_torch.ops.kernels import blocked_select as bs
+d = torch.load(sys.argv[1])
+dev = torch.device("cuda")
+start, block, nbins = d["start"], d["block"], d["nbins"]
+tags, tagv, sums = (t.to(dev) for t in d["tags"])
+text, textv = (t.to(dev) for t in d["text"])
+rows = slice(start, start + block)
+def ms(fn, reps=5):
+    fn()
+    torch.cuda.synchronize()
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(reps):
+        fn()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / reps
+calls = {
+    "tags": lambda: bs.binned_candidates(tags, tags[rows], tagv, start, metric="jaccard",
+                                         nbins=nbins, block=block, row_sums=sums),
+    "text": lambda: bs.binned_candidates(text, text[rows], textv, start, metric="dot",
+                                         nbins=nbins, block=block),
+    "tags+text": lambda: bs.binned_candidates_pair(
+        tags, text, tags[rows], text[rows], tagv, textv, start, metricA="jaccard",
+        metricB="dot", nbins=nbins, block=block, row_sumsA=sums)}
+outs = {k: tuple(t.cpu() for t in fn()) for k, fn in calls.items()}
+times = {k: ms(fn) for k, fn in calls.items()}
+torch.save(outs, sys.argv[2])
+print("[earlier-k2]", json.dumps(times), flush=True)
+"""
+
+
+def save_k2(tags, tagv, sums, text, textv, start: int, block: int, nbins: int) -> str:
+    """The tags and text panels of a K2 check in a file an earlier tree can read."""
+    path = os.path.join(tempfile.mkdtemp(prefix="chip_smoke_k2_"), "k2.pt")
+    torch.save({"start": start, "block": block, "nbins": nbins,
+                "tags": (tags.cpu(), tagv.cpu(), sums.cpu()),
+                "text": (text.cpu(), textv.cpu())}, path)
+    return path
+
+
+def earlier_k2(tree: str, saved: str) -> dict:
+    """K2 (tags, text) and K3 (tags + text) of the tree unpacked at ``tree``
+    (its own kernels, built there) on the saved panels: ms and outputs."""
+    torch.cuda.empty_cache()
+    tree = os.path.abspath(tree)
+    outs = saved + f".{len(os.listdir(os.path.dirname(saved)))}.out"
+    proc = subprocess.run([sys.executable, "-c", EARLIER_K2, saved, outs], cwd=tree,
+                          env={**os.environ, "PYTHONPATH": tree}, capture_output=True,
+                          text=True, timeout=900)
+    rows = [ln for ln in proc.stdout.splitlines() if ln.startswith("[earlier-k2] ")]
+    if proc.returncode != 0 or not rows:
+        raise AssertionError(f"the tree at {tree} failed ({proc.returncode}):\n"
+                             f"{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
+    return {"ms": json.loads(rows[-1][len("[earlier-k2] "):]), "outputs": torch.load(outs)}
+
+
+def k2_against_earlier(earlier: list, dense: dict, postings: dict,
+                       dense_out: dict | None = None) -> dict:
+    """The earlier tree's K2 / K3 ms (timed before and after this tree's)
+    beside this tree's dense and postings routes; the earlier outputs equal
+    to this tree's dense route's (the same tensor-core kernel) bit for bit."""
+    out = {"earlier_ms": {k: [e["ms"][k] for e in earlier] for k in earlier[0]["ms"]},
+           "dense_ms": {k: r["ms"] for k, r in dense.items()},
+           "postings_ms": {k: r["ms"] for k, r in postings.items()}}
+    out["earlier_per_block_ms"] = [e["ms"]["tags"] + e["ms"]["text"] for e in earlier]
+    out["postings_per_block_ms"] = sum(out["postings_ms"].values())
+    out["dense_per_block_ms"] = sum(out["dense_ms"].values())
+    if dense_out is not None:
+        out["earlier_equals_dense_route"] = all(
+            torch.equal(a.cpu(), b.cpu()) for key in ("tags", "text")
+            for a, b in zip(earlier[0]["outputs"][key], dense_out[key]))
+        if not out["earlier_equals_dense_route"]:
+            raise AssertionError(f"the earlier tree's K2 differs from the dense route: {out}")
+    return out
+
+
+def postings_build_check(feats: tuple, tags, text, ptags, ptext) -> dict:
+    """The postings build of the window's tags and text, as the column
+    builders run it (from the token ids): equal to the window's own postings,
+    ms, bound (bytes)."""
+    tags_ids, text_ids = feats[3], feats[4]
+    out = {}
+    for name, panel, ids, want in (("tags", tags, tags_ids, ptags),
+                                   ("text", text, text_ids, ptext)):
+        got = bs.build_postings(panel, ids)
+        row = {"n": panel.shape[0], "K": panel.shape[1], "token_width": ids.shape[1],
+               "capacity": got.cols.numel(), "entries": int(got.entries),
+               "equal": all(torch.equal(a, b) for a, b in zip(got[:3], want[:3])),
+               "ms": cuda_ms(lambda p=panel, i=ids: bs.build_postings(p, i), reps=5,
+                             warmup=1)}
+        with_bound(row, postings_build_bound(panel.shape[0], panel.shape[1], ids, got))
+        out[name] = row
+    out["ms"] = out["tags"]["ms"] + out["text"]["ms"]
+    out["bound_ms"] = out["tags"]["bound_ms"] + out["text"]["bound_ms"]
+    out["share_of_bound"] = out["bound_ms"] / out["ms"]
+    print("[e] postings build", json.dumps(out), flush=True)
+    if not (out["tags"]["equal"] and out["text"]["equal"]):
+        raise AssertionError(f"the postings build differs from the window's: {out}")
+    return out
+
+
 EARLIER_PRODUCTS = """
 import json, sys, torch
 from mused_tpu_torch.ops.kernels import cand_matvec as cm
@@ -984,11 +1241,11 @@ def phase_f(mods, mtypes, labels, device, approach: str, n_records: int,
     counts = huge_counts()
     blocks = HUGE_WINDOW // HUGE_BLOCK
     sweeps = SPECTRAL_SWEEPS if approach == "sSpectral" else SSVD_SWEEPS
-    per_window = ({"K2": 2 * blocks, "K3": blocks, "K4": 2 * blocks, "K5": blocks,
-                   "lists": blocks}
-                  if approach == "SWFDMC" else
-                  {"K2": 2 * sweeps * blocks, "K3": sweeps * blocks, "K4": 0, "K5": 0,
-                   "lists": 0})
+    per_window = with_routes({"K2": 2 * blocks, "K3": blocks, "K4": 2 * blocks,
+                              "K5": blocks, "lists": blocks}
+                             if approach == "SWFDMC" else
+                             {"K2": 2 * sweeps * blocks, "K3": sweeps * blocks, "K4": 0,
+                              "K5": 0, "lists": 0})
     out = {"approach": approach, "records": n_records, "windows": windows,
            "launches": counts, "k1_launches": ak.launches,
            "native_hasher_calls": native.calls - hashed, "seconds": secs,
@@ -1006,6 +1263,83 @@ def phase_f(mods, mtypes, labels, device, approach: str, n_records: int,
     metric_vals = [out[k] for k in ("nmi", "nmi_e", "f1", "f1_aligned")]
     if not all(np.isfinite(v) and 0.0 <= v <= 1.0 for v in metric_vals):
         raise AssertionError(f"metrics out of range: {metric_vals}")
+    return out
+
+
+def postings_syncs(mods, mtypes, labels, device) -> dict:
+    """Host synchronizations of one huge SWFDMC window by call site, under
+    ``torch.cuda.set_sync_debug_mode("warn")``: none may come from the
+    postings build or the K2 / K3 wrappers (``ops/kernels/blocked_select``)."""
+    with contextlib.redirect_stdout(io.StringIO()):
+        out = sync_count(lambda: phase_f(mods, mtypes, labels, device, "SWFDMC", HUGE_WINDOW,
+                                         tag="f syncs"), 1)
+    out["blocked_select_sites"] = [x for x in out["sites"]
+                                   if "ops/kernels/blocked_select.py" in x["site"]]
+    print("[f] host syncs of one huge SWFDMC window", json.dumps(out), flush=True)
+    if out["blocked_select_sites"]:
+        raise AssertionError(f"the postings build or K2 / K3 wait on the host: {out}")
+    return out
+
+
+# phase f's huge windows and i1's blocked SVDMC_batch call in a tree, run from
+# its root (that tree's chip_smoke, modules and kernels): paired trials
+TRIAL = """
+import json, sys, torch
+import chip_smoke as cs
+cs.streaming.configure_precision()
+device = torch.device("cuda")
+cs.build.load()
+hmods, hmtypes, hlabels = cs.make_stream(cs.HUGE_RECORDS, noise_rate=cs.NOISE_RATE,
+                                         binary=True, sort_by_uploaded=True, seed=cs.SEED)
+out = {}
+for approach in ("SWFDMC", "sSVDMC"):
+    r = cs.phase_f(hmods, hmtypes, hlabels, device, approach, cs.HUGE_RECORDS, tag="trial f")
+    out[approach] = {k: r[k] for k in ("seconds", "windows", "windows_per_s", "nmi", "f1")}
+del hmods, hmtypes, hlabels
+torch.cuda.empty_cache()
+mods, mtypes, labels = cs.make_stream(cs.N_RECORDS, noise_rate=cs.NOISE_RATE, binary=True,
+                                      sort_by_uploaded=True, seed=cs.SEED)
+r = cs.batch_run(mods, mtypes, labels, "SVDMC_batch", cs.N_RECORDS, tag="trial i1")
+out["SVDMC_batch"] = {k: r[k] for k in ("seconds", "rows_per_s", "nmi", "f1")}
+print("[trial]", json.dumps(out), flush=True)
+"""
+
+
+def paired_trials(parent: str) -> dict:
+    """Phase f's huge windows (SWFDMC, sSVDMC: windows/s) and i1's blocked
+    SVDMC_batch call (seconds), each tree in a process of its own, in turns
+    (earlier, this, this, earlier) and spaced a few seconds apart; NMI and F1
+    within 0.01 of the earlier tree's."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    trials = []
+    for which, tree in (("earlier", parent), ("this", here), ("this", here),
+                        ("earlier", parent)):
+        torch.cuda.empty_cache()
+        time.sleep(5)
+        tree = os.path.abspath(tree)
+        proc = subprocess.run([sys.executable, "-c", TRIAL], cwd=tree,
+                              env={**os.environ, "PYTHONPATH": tree}, capture_output=True,
+                              text=True, timeout=900)
+        rows = [ln for ln in proc.stdout.splitlines() if ln.startswith("[trial] ")]
+        if proc.returncode != 0 or not rows:
+            raise AssertionError(f"the trial in {tree} failed ({proc.returncode}):\n"
+                                 f"{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
+        trials.append({"tree": which, **json.loads(rows[-1][len("[trial] "):])})
+    out = {"order": [t["tree"] for t in trials], "trials": trials}
+    for key, metric in (("SWFDMC", "windows_per_s"), ("sSVDMC", "windows_per_s"),
+                        ("SVDMC_batch", "seconds")):
+        out[key] = {tree: [t[key][metric] for t in trials if t["tree"] == tree]
+                    for tree in ("earlier", "this")}
+        out[key]["metric"] = metric
+        for q in ("nmi", "f1"):
+            old = [t[key][q] for t in trials if t["tree"] == "earlier"]
+            new = [t[key][q] for t in trials if t["tree"] == "this"]
+            out[key][f"{q}_max_diff"] = max(abs(a - b) for a in old for b in new)
+    print("[f] paired trials against the earlier tree", json.dumps(out), flush=True)
+    bad = {k: v for k, v in out.items() if isinstance(v, dict) and
+           max(v.get("nmi_max_diff", 0), v.get("f1_max_diff", 0)) > 0.01}
+    if bad:
+        raise AssertionError(f"NMI / F1 moved by more than 0.01 from the earlier tree's: {bad}")
     return out
 
 
@@ -1308,9 +1642,9 @@ def phase_h5(hmods) -> dict:
     out["background_rows"] = int(sum(r.background for r in res))
     print("[h5]", json.dumps(out), flush=True)
     want = {k: v * out["windows"] for k, v in
-            {"K2": 2 * BLOCKS_PER_WINDOW, "K3": BLOCKS_PER_WINDOW,
-             "K4": 2 * BLOCKS_PER_WINDOW, "K5": BLOCKS_PER_WINDOW,
-             "lists": BLOCKS_PER_WINDOW}.items()}
+            with_routes({"K2": 2 * BLOCKS_PER_WINDOW, "K3": BLOCKS_PER_WINDOW,
+                         "K4": 2 * BLOCKS_PER_WINDOW, "K5": BLOCKS_PER_WINDOW,
+                         "lists": BLOCKS_PER_WINDOW}).items()}
     if out["windows"] != 2 or out["huge_launches"] != want or out["k1_launches"]:
         raise AssertionError(f"h5: launches {out['huge_launches']} (K1 "
                              f"{out['k1_launches']}) for {out['windows']} windows, "
@@ -1347,9 +1681,10 @@ def batch_run(mods, mtypes, labels, approach: str, n_rows: int, tag: str) -> dic
     blocked = n_rows > batch.MAX_DENSE_ROWS
     blocks = -(-n_rows // batch.BLOCK_ROWS)
     sweeps = SPECTRAL_SWEEPS if approach == "Spectral_batch" else SSVD_SWEEPS
-    want = ({"K1": 0, "K2": 2 * sweeps * blocks, "K3": sweeps * blocks, "K4": 0, "K5": 0,
-             "lists": 0}
-            if blocked else {"K1": 4, "K2": 0, "K3": 0, "K4": 0, "K5": 0, "lists": 0})
+    want = with_routes({"K1": 0, "K2": 2 * sweeps * blocks, "K3": sweeps * blocks, "K4": 0,
+                        "K5": 0, "lists": 0}
+                       if blocked else {"K1": 4, "K2": 0, "K3": 0, "K4": 0, "K5": 0,
+                                        "lists": 0})
     reset_counts()
     hashed = native.calls
     torch.cuda.reset_peak_memory_stats()
@@ -1536,9 +1871,11 @@ def profile_k1(mods, device) -> list:
     return out
 
 
-def phase_i4(mods, mtypes, device) -> dict:
-    """K2 / K3 at the batch subset's shapes, K1 at the dense batch's, and the
-    blocked DBSCAN / HDBSCAN against their dense counterparts."""
+def phase_i4(mods, mtypes, device, parent: str | None = None) -> dict:
+    """K2 / K3 at the batch subset's shapes (K2 on the postings route, the
+    dense route and, with ``parent``, the earlier tree's K2 on the same
+    block), K1 at the dense batch's, and the blocked DBSCAN / HDBSCAN against
+    their dense counterparts."""
     out = {}
     cfg = batch_cfg("SVDMC_batch", N_RECORDS)
     cols, block = batch._blocked_columns([m[:N_RECORDS] for m in mods], mtypes, cfg, device)
@@ -1547,18 +1884,49 @@ def phase_i4(mods, mtypes, device) -> dict:
         raise AssertionError(f"batch columns: n={n}, nbins={nbins}")
     start = n - block                     # the last block: 1,552 padding rows
     by_kind = dict(zip(cols.kinds, zip(cols.tensors, cols.valids)))
+    by_post = dict(zip(cols.kinds, cols.postings_of()))
     (xyz, lv), (tim, tv) = by_kind["location_xyz"], by_kind["time"]
     ((tags, sums), tagv), (text, textv) = by_kind["tags"], by_kind["text_bf16"]
     blocks = n // block
     per = {"SVDMC_batch": SSVD_SWEEPS * blocks, "Spectral_batch": SPECTRAL_SWEEPS * blocks}
+    earlier = []
+    if parent:
+        saved = save_k2(tags, tagv, sums, text, textv, start, block, nbins)
+        earlier.append(earlier_k2(parent, saved))
     out["K2"] = {name: k2_check(name, metric, x, valid, row_sums, K_BASIS, start=start,
-                                block=block, nbins=nbins, per_window=per, tag="i4")
-                 for name, metric, x, valid, row_sums in [
-                     ("tags", "jaccard", tags, tagv, sums),
-                     ("text", "dot", text, textv, None)]}
+                                block=block, nbins=nbins, per_window=per, tag="i4",
+                                postings=post)
+                 for name, metric, x, valid, row_sums, post in [
+                     ("tags", "jaccard", tags, tagv, sums, by_post["tags"]),
+                     ("text", "dot", text, textv, None, by_post["text_bf16"])]}
+    out["K2_dense"] = {name: k2_check(name, metric, x, valid, row_sums, K_BASIS, start=start,
+                                      block=block, nbins=nbins, per_window={}, tag="i4")
+                       for name, metric, x, valid, row_sums in [
+                           ("tags_dense", "jaccard", tags, tagv, sums),
+                           ("text_dense", "dot", text, textv, None)]}
+    out["K2_per_block"] = {
+        "postings": sum_rows(list(out["K2"].values()), "tags + text, postings route"),
+        "dense": sum_rows(list(out["K2_dense"].values()), "tags + text, tensor-core route")}
+    if parent:
+        earlier.append(earlier_k2(parent, saved))
+        shutil.rmtree(os.path.dirname(saved))
+        rows = slice(start, start + block)
+        dense_out = {"tags": bs.binned_candidates(tags, tags[rows], tagv, start,
+                                                  metric="jaccard", nbins=nbins, block=block,
+                                                  row_sums=sums),
+                     "text": bs.binned_candidates(text, text[rows], textv, start,
+                                                  metric="dot", nbins=nbins, block=block)}
+        out["K2_per_block"]["earlier_tree"] = k2_against_earlier(
+            earlier, {"tags": out["K2_dense"]["tags_dense"],
+                      "text": out["K2_dense"]["text_dense"]}, out["K2"], dense_out)
+    print("[i4] K2 per block", json.dumps(out["K2_per_block"]), flush=True)
+    out["K3_tags_text"] = tags_text_pair(
+        tags, tagv, sums, text, textv, by_post["tags"], by_post["text_bf16"], start=start,
+        block=block, nbins=nbins,
+        earlier=out["K2_per_block"].get("earlier_tree", {}).get("earlier_ms"))
     out["K3"] = k3_check(xyz, lv, tim, tv, start=start, block=block, nbins=nbins,
                          per_window=per, tag="i4")
-    del cols, xyz, tim, tags, sums, text, by_kind
+    del cols, xyz, tim, tags, sums, text, by_kind, by_post
     torch.cuda.empty_cache()
 
     engine = streaming.StreamingEngine(batch_cfg("SVDMC_batch", BATCH_DENSE_ROWS), device)
@@ -1592,6 +1960,47 @@ def phase_i4(mods, mtypes, device) -> dict:
 
     out["hdbscan"] = hdbscan_check(x[:CHECK_HDBSCAN_ROWS], device)
     return out
+
+
+def tags_text_pair(tags, tagv, sums, text, textv, ptags, ptext, *, start: int, block: int,
+                   nbins: int, earlier: dict | None = None, tag: str = "i4") -> dict:
+    """K3 on tags jaccard + text dot at this shape on the postings route:
+    bit-equal to two K2 launches on it; its ms beside theirs, the
+    tensor-core pair's and (``earlier``) the earlier tree's, its bound on
+    the nonzero rule and the dense one."""
+    rows = slice(start, start + block)
+    kw = dict(nbins=nbins, block=block)
+
+    def pair(postings=True):
+        return bs.binned_candidates_pair(tags, text, tags[rows], text[rows], tagv, textv,
+                                         start, metricA="jaccard", metricB="dot",
+                                         row_sumsA=sums, postingsA=ptags if postings else None,
+                                         postingsB=ptext if postings else None, **kw)
+
+    def two_k2():
+        return (*bs.binned_candidates(tags, tags[rows], tagv, start, metric="jaccard",
+                                      row_sums=sums, postings=ptags, **kw),
+                *bs.binned_candidates(text, text[rows], textv, start, metric="dot",
+                                      postings=ptext, **kw))
+
+    got, singles = pair(), two_k2()
+    torch.cuda.synchronize()
+    n = tags.shape[0]
+    row = {"case": "tags+text", "route": "postings", "n": n, "nbins": nbins, "start": start,
+           "bit_equal_to_two_k2": all(torch.equal(a, b) for a, b in zip(got, singles)),
+           "ms": cuda_ms(pair, reps=5, warmup=1), "two_k2_ms": cuda_ms(two_k2, reps=5, warmup=1),
+           "tensor_core_pair_ms": cuda_ms(lambda: pair(False), reps=5, warmup=1),
+           "earlier_tree_ms": earlier and earlier["tags+text"],
+           "bound_ms": (k2_postings_bound("jaccard", ptags, tags[rows], nbins)["bound_ms"]
+                        + k2_postings_bound("dot", ptext, text[rows], nbins)["bound_ms"]),
+           "bound_dense_ms": (
+               k2_bound("jaccard", n, block, nbins, tags.shape[1], 1)["bound_ms"]
+               + k2_bound("dot", n, block, nbins, text.shape[1], 2)["bound_ms"])}
+    row["share_of_bound"] = row["bound_ms"] / row["ms"]
+    print(f"[{tag}] K3", json.dumps(row), flush=True)
+    if not row["bit_equal_to_two_k2"]:
+        raise AssertionError(f"{tag}: K3 tags + text differs from two K2 launches: {row}")
+    return row
 
 
 def same_partition(a, b) -> bool:
@@ -1688,73 +2097,86 @@ def huge_operands(cols: ba.Columns, device) -> dict:
             "generic_default": ("chord", dft, dv, sq, K_BASIS - 1)}
 
 
-def phase_j1(ops: dict, per_window: dict) -> dict:
+def phase_j1(ops: dict, posts: dict, per_window: dict, earlier: dict | None = None) -> dict:
     """K3 on tags jaccard + text dot (the column-sharded sweep's pair) on the
-    first block: bit-equal to two K2 launches, held to (e)'s rules against
-    the plain version; its ms beside the two K2 launches' and their bound."""
+    first block, on the postings route: bit-equal to two K2 launches on it,
+    held to (e)'s rules against the plain version; its ms beside the two K2
+    launches', the tensor-core pair's on the same block and (``earlier``,
+    from phase e) the earlier tree's K3; bound on the nonzero rule, the
+    dense count beside."""
     block, nbins, start = HUGE_BLOCK, HUGE_NBINS, 0
     _, tags, tagv, sums, _ = ops["tags"]
     _, text, textv, _, _ = ops["text"]
+    ptags, ptext = posts["tags"], posts["text"]
     n = tags.shape[0]
     rows = slice(start, start + block)
     kw = dict(nbins=nbins, block=block)
 
-    def pair():
+    def pair(postings=True):
         return bs.binned_candidates_pair(tags, text, tags[rows], text[rows], tagv, textv,
                                          start, metricA="jaccard", metricB="dot",
-                                         row_sumsA=sums, **kw)
+                                         row_sumsA=sums, postingsA=ptags if postings else None,
+                                         postingsB=ptext if postings else None, **kw)
 
-    def two(fn):
-        return (*fn(tags, tags[rows], tagv, start, metric="jaccard", row_sums=sums, **kw),
-                *fn(text, text[rows], textv, start, metric="dot", **kw))
+    def two(fn, **pk):
+        return (*fn(tags, tags[rows], tagv, start, metric="jaccard", row_sums=sums,
+                    **pk.get("a", {}), **kw),
+                *fn(text, text[rows], textv, start, metric="dot", **pk.get("b", {}), **kw))
 
-    before = bs.pair_launches
-    got, singles, plain = pair(), two(bs.binned_candidates), two(bs.binned_candidates_plain)
+    def two_k2():
+        return two(bs.binned_candidates, a={"postings": ptags}, b={"postings": ptext})
+
+    before = (bs.pair_launches, bs.postings_pair_launches)
+    got, singles, plain = pair(), two_k2(), two(bs.binned_candidates_plain)
     torch.cuda.synchronize()
     rules = [plain_rules("jaccard", got[:2], plain[:2], tagv[rows], K_BASIS),
              plain_rules("dot", got[2:], plain[2:], textv[rows], K_BASIS)]
-    bounds = [k2_bound("jaccard", n, block, nbins, tags.shape[1], tags.element_size()),
-              k2_bound("dot", n, block, nbins, text.shape[1], text.element_size())]
+    bounds = [k2_postings_bound("jaccard", ptags, tags[rows], nbins),
+              k2_postings_bound("dot", ptext, text[rows], nbins)]
+    dense = [k2_bound("jaccard", n, block, nbins, tags.shape[1], tags.element_size()),
+             k2_bound("dot", n, block, nbins, text.shape[1], text.element_size())]
     t_ops = sum(b["ops"] / b["peak_ops_per_s"] * 1e3 for b in bounds)
     t_bytes = sum(b["bytes"] / b["bytes_per_s"] * 1e3 for b in bounds)
-    row = {"case": "tags+text", "route": bs.pair_route("jaccard", "dot"), "n": n,
-           "block": block, "nbins": nbins, "launched": bs.pair_launches - before,
-           "splits": bs.pair_splits(n, block, nbins),
+    row = {"case": "tags+text", "route": bs.pair_route("jaccard", "dot", postings=True),
+           "n": n, "block": block, "nbins": nbins,
+           "launched": bs.pair_launches - before[0],
+           "launched_postings": bs.postings_pair_launches - before[1],
            "bit_equal_to_two_k2": all(torch.equal(a, b) for a, b in zip(got, singles)),
            "plain_rules": rules,
            "max_abs_err": max(r["max_abs_err"] for r in rules),
            "ms": cuda_ms(pair, reps=5, warmup=1),
-           "two_k2_ms": cuda_ms(lambda: two(bs.binned_candidates), reps=5, warmup=1),
+           "two_k2_ms": cuda_ms(two_k2, reps=5, warmup=1),
+           "tensor_core_pair_ms": cuda_ms(lambda: pair(False), reps=5, warmup=1),
            "plain_ms": cuda_ms(lambda: two(bs.binned_candidates_plain), reps=3, warmup=1),
            "bound_ms": sum(b["bound_ms"] for b in bounds),
            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-           "bound": "the sum of the two K2 bounds (k2_bound)", "library_ms": None,
-           "launches_per_window": per_window}
+           "bound": "the sum of the two K2 postings bounds (k2_postings_bound)",
+           "bound_dense_ms": sum(b["bound_ms"] for b in dense),
+           "entries_met": [b["entries_met"] for b in bounds],
+           "library_ms": None, "launches_per_window": per_window}
     row["share_of_bound"] = row["bound_ms"] / row["ms"]
-    # the same tile program with both halves of one metric: whether mixing
-    # the metrics in one grid is what costs
+    row["share_of_dense_bound"] = row["bound_dense_ms"] / row["ms"]
+    if earlier:
+        row["earlier_tree_ms"] = earlier["earlier_ms"]["tags+text"]
+    # the tensor-core pair with both halves of one metric, against two K2s
     row["same_metric_pairs"] = {}
-    for m, x, v, sums in (("dot", text, textv, None), ("jaccard", tags, tagv, sums)):
-        def same_pair(m=m, x=x, v=v, sums=sums):
+    for m, x, v, sums_ in (("dot", text, textv, None), ("jaccard", tags, tagv, sums)):
+        def same_pair(m=m, x=x, v=v, sums_=sums_):
             return bs.binned_candidates_pair(x, x, x[rows], x[rows], v, v, start, metricA=m,
-                                             metricB=m, row_sumsA=sums, row_sumsB=sums, **kw)
+                                             metricB=m, row_sumsA=sums_, row_sumsB=sums_, **kw)
 
-        def same_two(m=m, x=x, v=v, sums=sums):
-            one = bs.binned_candidates(x, x[rows], v, start, metric=m, row_sums=sums, **kw)
+        def same_two(m=m, x=x, v=v, sums_=sums_):
+            one = bs.binned_candidates(x, x[rows], v, start, metric=m, row_sums=sums_, **kw)
             return (*one, *bs.binned_candidates(x, x[rows], v, start, metric=m,
-                                                row_sums=sums, **kw))
+                                                row_sums=sums_, **kw))
 
         equal = all(torch.equal(a, b) for a, b in zip(same_pair(), same_two()))
         row["same_metric_pairs"][f"{m}+{m}"] = {
             "bit_equal_to_two_k2": equal, "ms": cuda_ms(same_pair, reps=5, warmup=1),
             "two_k2_ms": cuda_ms(same_two, reps=5, warmup=1)}
-    # one K2 launch over twice the rows: whether the doubled grid is what costs
-    row["k2_dot_twice_the_rows_ms"] = cuda_ms(
-        lambda: bs.binned_candidates(text, text[:2 * block], textv, 0, metric="dot",
-                                     nbins=nbins, block=2 * block), reps=5, warmup=1)
     print("[j1] K3", json.dumps(row), flush=True)
     if not (row["bit_equal_to_two_k2"] and all(r["ok"] for r in rules)
-            and row["launched"] == 1
+            and row["launched"] == row["launched_postings"] == 1
             and all(p["bit_equal_to_two_k2"] for p in row["same_metric_pairs"].values())):
         raise AssertionError(f"j1: K3 jaccard + dot disagrees: {row}")
     return row
@@ -1771,11 +2193,14 @@ def shard_cases(n: int) -> list:
     return out
 
 
-def phase_j2(ops: dict, uid: torch.Tensor, uid_valid: torch.Tensor, device) -> list:
+def phase_j2(ops: dict, uid: torch.Tensor, uid_valid: torch.Tensor, device,
+             token_ids: dict) -> list:
     """K2 on every metric, K3 on both standard pairs and K4 / K5 with the
     shard's offset g0, on a column shard of the huge window and a row block
     of another shard (shard-local start, row_stats pre-sliced), against the
-    plain versions."""
+    plain versions; tags and text on the postings route, with the shard's
+    own postings (built from its rows' token ids, as the column-sharded
+    sweep builds them)."""
     block, nbins = HUGE_BLOCK, HUGE_NBINS
     n = uid.shape[0]
     results = []
@@ -1791,15 +2216,18 @@ def phase_j2(ops: dict, uid: torch.Tensor, uid_valid: torch.Tensor, device) -> l
                     None if sums is None else sums[cs_],
                     None if sums is None else sums[rows].contiguous(), k)
 
+        posts = {name: bs.build_postings(ops[name][1][cs_], ids[cs_])
+                 for name, ids in token_ids.items()}
         cands = {}
         for name in ops:
             metric, cx, rx, cv, rv, sc, sr, k = shard(name)
             kw = dict(metric=metric, nbins=nbins, block=block, row_sums=sc, row_stats=sr)
             before = bs.launches
-            got = bs.binned_candidates(cx, rx, cv, start, **kw)
+            got = bs.binned_candidates(cx, rx, cv, start, postings=posts.get(name), **kw)
             want = bs.binned_candidates_plain(cx, rx, cv, start, **kw)
             torch.cuda.synchronize()
-            chk = {"kernel": "K2", "case": name, "launched": bs.launches - before,
+            chk = {"kernel": "K2", "case": name, "route": bs.route(metric, posts.get(name)),
+                   "launched": bs.launches - before,
                    **plain_rules(metric, got, want, rv, k)}
             case["checks"].append(chk)
             cands[name] = (got, rv, k)
@@ -1810,7 +2238,8 @@ def phase_j2(ops: dict, uid: torch.Tensor, uid_valid: torch.Tensor, device) -> l
             got = bs.binned_candidates_pair(ca, cb, ra, rb, cva, cvb, start, metricA=ma,
                                             metricB=mb, nbins=nbins, block=block,
                                             row_sumsA=sca, row_statsA=sra, row_sumsB=scb,
-                                            row_statsB=srb)
+                                            row_statsB=srb, postingsA=posts.get(a),
+                                            postingsB=posts.get(b))
             torch.cuda.synchronize()
             for half, (m, rv, k, single) in enumerate(((ma, rva, ka, cands[a][0]),
                                                        (mb, rvb, kb, cands[b][0]))):
@@ -1820,6 +2249,7 @@ def phase_j2(ops: dict, uid: torch.Tensor, uid_valid: torch.Tensor, device) -> l
                                                   row_sums=(sca, scb)[half],
                                                   row_stats=(sra, srb)[half])
                 chk = {"kernel": "K3", "case": f"{a}+{b}", "half": half,
+                       "route": bs.pair_route(ma, mb, postings=a in posts),
                        "launched": bs.pair_launches - before,
                        "equal_to_k2": all(torch.equal(x, y) for x, y in zip(pair_out, single)),
                        **plain_rules(m, pair_out, want, rv, k)}
@@ -1926,11 +2356,12 @@ def phase_j3(hmods, cols: ba.Columns, device, single_seconds: dict) -> dict:
     out["single_device_seconds_per_window"] = single_seconds
     print("[j3]", json.dumps(out), flush=True)
     blocks = n // block
-    want = {"fd": {"K2": 0, "K3": 2 * blocks, "K4": 2 * blocks, "K5": blocks,
-                   "lists": blocks},
-            "svd": {"K2": 0, "K3": 2 * SSVD_SWEEPS * blocks, "K4": 0, "K5": 0, "lists": 0},
-            "spectral": {"K2": 0, "K3": 2 * SPECTRAL_SWEEPS * blocks, "K4": 0, "K5": 0,
-                         "lists": 0}}
+    want = {"fd": with_routes({"K2": 0, "K3": 2 * blocks, "K4": 2 * blocks, "K5": blocks,
+                               "lists": blocks}, blocks),
+            "svd": with_routes({"K2": 0, "K3": 2 * SSVD_SWEEPS * blocks, "K4": 0, "K5": 0,
+                                "lists": 0}, SSVD_SWEEPS * blocks),
+            "spectral": with_routes({"K2": 0, "K3": 2 * SPECTRAL_SWEEPS * blocks, "K4": 0,
+                                     "K5": 0, "lists": 0}, SPECTRAL_SWEEPS * blocks)}
     if not all(rows_equal):
         raise AssertionError(f"j3: column-sharded fused rows differ: {rows_equal}")
     for name, w in want.items():
@@ -2446,12 +2877,13 @@ def phase_l2(hmods, hmtypes, hlabels, cols: ba.Columns, device, mesh, single_sec
     out = {"card": smi, "world_size": 1, "window": HUGE_WINDOW, "runs": {},
            "single_device_seconds_per_window": single_seconds}
     blocks = BLOCKS_PER_WINDOW
-    want = {"SWFDMC": {"K2": 2 * blocks, "K3": blocks, "K4": 2 * blocks, "K5": blocks,
-                       "lists": blocks},
-            "sSVDMC": {"K2": 2 * SSVD_SWEEPS * blocks, "K3": SSVD_SWEEPS * blocks,
-                       "K4": 0, "K5": 0, "lists": 0},
-            "sSpectral": {"K2": 2 * SPECTRAL_SWEEPS * blocks, "K3": SPECTRAL_SWEEPS * blocks,
-                          "K4": 0, "K5": 0, "lists": 0}}
+    want = {"SWFDMC": with_routes({"K2": 2 * blocks, "K3": blocks, "K4": 2 * blocks,
+                                   "K5": blocks, "lists": blocks}),
+            "sSVDMC": with_routes({"K2": 2 * SSVD_SWEEPS * blocks, "K3": SSVD_SWEEPS * blocks,
+                                   "K4": 0, "K5": 0, "lists": 0}),
+            "sSpectral": with_routes({"K2": 2 * SPECTRAL_SWEEPS * blocks,
+                                      "K3": SPECTRAL_SWEEPS * blocks, "K4": 0, "K5": 0,
+                                      "lists": 0})}
     for approach in L2_APPROACHES:
         cfg = huge_cfg(approach, HUGE_WINDOW)
         engine = row_engine(cfg, mesh, device)
@@ -2921,15 +3353,14 @@ def main() -> int:
         phase_d(mods, mtypes, device)
         seconds["d"] = time.perf_counter() - t0
 
-    kernels_e, huge_runs, huge_launches = {}, [], {"K2": 0, "K3": 0, "K4": 0, "K5": 0,
-                                                   "lists": 0}
+    kernels_e, huge_runs, huge_launches = {}, [], dict.fromkeys(huge_counts(), 0)
     single_seconds = {}           # single-device seconds per huge window (f, i3)
     if phases & set("efghijl"):
         t0 = time.perf_counter()
         hmods, hmtypes, hlabels = make_stream(HUGE_RECORDS, noise_rate=NOISE_RATE,
                                               binary=True, sort_by_uploaded=True,
                                               seed=SEED)
-        cols = huge_columns(hmods, device)
+        cols, hfeats = huge_columns(hmods, device, with_features=True)
         torch.cuda.synchronize()
         print(f"[e] huge stream: {len(hlabels)} records, {int(hlabels.sum())} event rows; "
               f"first window's columns {cols.kinds}, {time.perf_counter() - t0:.1f} s",
@@ -2937,7 +3368,7 @@ def main() -> int:
         seconds["huge_stream"] = time.perf_counter() - t0
     if "e" in phases:
         t0 = time.perf_counter()
-        kernels_e = phase_e(cols, device, args.parent, args.profile)
+        kernels_e = phase_e(cols, device, args.parent, args.profile, hfeats)
         seconds["e"] = time.perf_counter() - t0
     if "f" in phases:
         t0 = time.perf_counter()
@@ -2947,6 +3378,9 @@ def main() -> int:
             single_seconds[approach] = huge_runs[-1]["seconds"] / huge_runs[-1]["windows"]
             for k, v in huge_runs[-1]["launches"].items():
                 huge_launches[k] += v
+        postings_syncs(hmods, hmtypes, hlabels, device)
+        if args.parent:
+            paired_trials(args.parent)
         seconds["f"] = time.perf_counter() - t0
     if "g" in phases:
         t0 = time.perf_counter()
@@ -2964,7 +3398,7 @@ def main() -> int:
     kernels_i, i2_against, k1_earlier = {}, None, None
     if "i" in phases:
         t0 = time.perf_counter()
-        cols = None                 # the huge window's panels: the batch needs the room
+        cols = hfeats = None        # the huge window's panels: the batch needs the room
         torch.cuda.empty_cache()
         phase_i1(mods, mtypes, labels)
         seconds["i1"] = time.perf_counter() - t0
@@ -2981,7 +3415,7 @@ def main() -> int:
         seconds["i3"] = time.perf_counter() - t1
         t1 = time.perf_counter()
         torch.cuda.empty_cache()
-        kernels_i = phase_i4(mods, mtypes, device)
+        kernels_i = phase_i4(mods, mtypes, device, args.parent)
         if i2_against:
             k1_earlier = k1_against({WINDOW: rows_b, **kernels_i["K1_by_rows"]},
                                     i2_against["k1"])
@@ -2991,17 +3425,20 @@ def main() -> int:
     if "j" in phases:
         t0 = time.perf_counter()
         if cols is None:            # phase (i) dropped the huge window's panels
-            cols = huge_columns(hmods, device)
+            cols, hfeats = huge_columns(hmods, device, with_features=True)
         ops = huge_operands(cols, device)
         by_kind = dict(zip(cols.kinds, zip(cols.tensors, cols.valids)))
+        by_post = dict(zip(cols.kinds, cols.postings_of()))
         uid, uid_valid = by_kind["username"]
         blocks = BLOCKS_PER_WINDOW
-        kernels_j["K3"] = phase_j1(ops, {"colsharded SWFDMC": blocks,
-                                         "colsharded sSVDMC": SSVD_SWEEPS * blocks,
-                                         "colsharded sSpectral": SPECTRAL_SWEEPS * blocks})
+        kernels_j["K3"] = phase_j1(
+            ops, {"tags": by_post["tags"], "text": by_post["text_bf16"]},
+            {"colsharded SWFDMC": blocks, "colsharded sSVDMC": SSVD_SWEEPS * blocks,
+             "colsharded sSpectral": SPECTRAL_SWEEPS * blocks},
+            kernels_e.get("K2_per_block", {}).get("earlier_tree"))
         seconds["j1"] = time.perf_counter() - t0
         t1 = time.perf_counter()
-        phase_j2(ops, uid, uid_valid, device)
+        phase_j2(ops, uid, uid_valid, device, {"tags": hfeats[3], "text": hfeats[4]})
         seconds["j2"] = time.perf_counter() - t1
         del ops, by_kind, uid, uid_valid
         t1 = time.perf_counter()
@@ -3140,21 +3577,33 @@ def main() -> int:
         "source": "mused_tpu_torch/csrc/blocked_select.cu",
         "replaces": "mused_tpu/ops/pallas/blocked_select.py:169",
         "launches": huge_launches["K2"],
+        "launches_by_route": {"postings": huge_launches["K2_postings"],
+                              "other": huge_launches["K2"] - huge_launches["K2_postings"]},
         "max_abs_err": max(r["max_abs_err"] for r in k2_main),
-        **timed(k2_main, "one 2048-row block's two main-path calls (tags, text)"),
-        "per_metric": {name: {"ms": r["ms"], "plain_ms": r["plain_ms"],
-                              "bound_ms": r["bound_ms"], "splits": r["splits"],
-                              "gemm_ms": r.get("gemm_ms")}
+        **timed(k2_main, "one 2048-row block's two main-path calls (tags, text) on the "
+                         "postings route; bound on the nonzero rule"),
+        "bound_dense_ms": sum(r["bound_dense_ms"] for r in k2_main),
+        "per_metric": {name: {"route": r["route"], "ms": r["ms"], "plain_ms": r["plain_ms"],
+                              "bound_ms": r["bound_ms"],
+                              "bound_dense_ms": r.get("bound_dense_ms", r["bound_ms"]),
+                              "splits": r["splits"], "gemm_ms": r.get("gemm_ms")}
                        for name, r in k2.items()},
+        "per_block": kernels_e["K2_per_block"],
+        "postings_build": {k: kernels_e["postings_build"][k]
+                           for k in ("ms", "bound_ms", "share_of_bound")},
         "e2e_windows_per_s": wps,
-        "at_batch_subset": timed(list(kernels_i["K2"].values()),
-                                 f"one block's two calls (tags, text) at n = "
-                                 f"{BATCH_PADDED_ROWS}, nbins = {BATCH_NBINS} (phase i4)"),
+        "at_batch_subset": {**timed(list(kernels_i["K2"].values()),
+                                    f"one block's two calls (tags, text) at n = "
+                                    f"{BATCH_PADDED_ROWS}, nbins = {BATCH_NBINS} (phase i4), "
+                                    f"postings route"),
+                            "per_block": kernels_i["K2_per_block"]},
     }, {
         "name": "binned_candidates_pair", "route": "cuda",
         "source": "mused_tpu_torch/csrc/blocked_select.cu",
         "replaces": "mused_tpu/ops/pallas/blocked_select.py:305",
         "launches": huge_launches["K3"],
+        "launches_by_route": {"postings": huge_launches["K3_postings"],
+                              "other": huge_launches["K3"] - huge_launches["K3_postings"]},
         "max_abs_err": max(0.0, kernels_j["K3"]["max_abs_err"]),
         **timed([kernels_e["K3"]], "one block's call (location chord3 + time l1)"),
         "bound_fma_rate_ms": kernels_e["K3"]["bound_fma_rate_ms"],
@@ -3162,12 +3611,14 @@ def main() -> int:
             "chord3+l1": {"route": "coordinate", "ms": kernels_e["K3"]["ms"],
                           "plain_ms": kernels_e["K3"]["plain_ms"],
                           "bound_ms": kernels_e["K3"]["bound_ms"]},
-            "jaccard+dot": {k: kernels_j["K3"][k] for k in
-                            ("route", "ms", "two_k2_ms", "plain_ms", "bound_ms", "bound_by",
-                             "share_of_bound", "splits", "max_abs_err")}},
-        "at_batch_subset": timed([kernels_i["K3"]], f"one block's call at n = "
-                                                    f"{BATCH_PADDED_ROWS}, nbins = "
-                                                    f"{BATCH_NBINS} (phase i4)"),
+            "jaccard+dot": {k: kernels_j["K3"].get(k) for k in
+                            ("route", "ms", "two_k2_ms", "tensor_core_pair_ms",
+                             "earlier_tree_ms", "plain_ms", "bound_ms", "bound_by",
+                             "share_of_bound", "bound_dense_ms", "max_abs_err")}},
+        "at_batch_subset": {**timed([kernels_i["K3"]], f"one block's call at n = "
+                                                       f"{BATCH_PADDED_ROWS}, nbins = "
+                                                       f"{BATCH_NBINS} (phase i4)"),
+                            "tags+text": kernels_i["K3_tags_text"]},
     }, {
         "name": "matvec_t", "route": "cuda",
         "source": "mused_tpu_torch/csrc/cand_matvec.cu",

@@ -58,7 +58,34 @@
 //     s_r (block,) need not be a slice of the column panel, and `start` (the
 //     rows' global index, read only by the self-column test) may be negative
 //     or past n, as it is for a row block that lives on another column
-//     shard.
+//     shard;
+//   * the postings route (dot on text, jaccard on tags, whose rows hold 1-5
+//     nonzeros of 4096 / 2048 features): the caller hands the column
+//     panel's postings (each feature's columns in ascending order with
+//     their values, and a table of each feature's first entry at every
+//     128-column step).  A CTA owns one row and walks all groups in steps of
+//     whole groups (up to 8192 columns): its 8 warps split the step's
+//     columns, each adding the row's nonzero features' postings into an f32
+//     accumulator in shared memory, one feature after another in ascending
+//     order (__syncwarp between them, no atomics: the same bits on every
+//     launch; a bf16 or int8 product is exact, so each step rounds once).
+//     Then every thread folds its two-slot pairs with K2's epilogue (the
+//     self column cleared in the staged validity, jaccard's divisions only
+//     where tokens meet, in a second pass that batches their s_c loads).
+//     Pairs that share no feature keep similarity 0 and fill the bins they
+//     win, since the epilogue visits every pair.  A CTA owns whole groups,
+//     so there are no partials to merge.  K3's pair is one launch of the same
+//     per-row program, grid z picking the half.  Its work is the dense pass
+//     over n columns per row plus one multiply-add per postings entry that
+//     the row's features meet (text on the synthetic stream: 166 M per
+//     2048-row block, 0.83 n per row; tags 3.7 M).  The worst case is rows
+//     of many common features: up to the token cap of 96 features, each in
+//     every column, 96 n entries per row, added one at a time on CUDA cores
+//     where the tensor-core route's work is fixed.  From this kernel's rate
+//     on the synthetic stream (an estimate, not measured at that density),
+//     past about 20 n entries per row the tensor-core route is faster.  The
+//     rows' terms are read from the dense rows (128 at a time in shared
+//     memory; a longer row re-reads them per step).
 //
 // What bounds it on an H100: at the huge-window shape (n = 98,304,
 // block = 2048, nbins = 1536) text is 1.65 TFLOP of bf16 tensor-core work
@@ -73,7 +100,13 @@
 // 11 FP32 instructions of chord3 (3 sub, 3 mul, 2 add, and the compare and
 // two selects of the running argmin) and 6 of l1 (2 sub, 1 add, 3 for the
 // argmin), 3.4 G at the huge-window shape: 0.10 ms at the H100's 33.5 T
-// FP32 instructions/s.
+// FP32 instructions/s.  The postings route, counted on the nonzeros: 2
+// operations per postings entry met (0.33 G for text's block, 5 us at the
+// 67 TFLOP/s f32 rate) and the bytes of the rows, the postings and table rows
+// of the features met, the statistics and the outputs (about 35 MB, 0.01
+// ms); what holds it back is latency: per row 12-13 steps, each waiting on
+// L2 for the table and entries and on two barriers, and the dense epilogue's
+// 2 x n shared-memory accesses per row.
 #include <cuda.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -873,6 +906,417 @@ binned_simple_kernel(const __grid_constant__ SimpleHalf a,
   }
 }
 
+// ---------------------------------------------------------------------------
+// postings kernel (dot on text, jaccard on tags: panels of a few nonzeros)
+// ---------------------------------------------------------------------------
+
+constexpr int kPostThreads = 256;
+constexpr int kPostWarps = kPostThreads / 32;
+constexpr int kPostUnit = 128;          // columns per step of the postings table
+constexpr int kPostTerms = 128;         // a row's terms held in shared memory at once
+constexpr int kPostStepCols = 8192;     // accumulator columns per step (whole groups)
+constexpr int kPostMaxBins = 16384;
+constexpr int kPostMisc = 16;           // ints: the warps' counts, the resume feature
+constexpr int kPostAhead = 8;           // row tiles loaded ahead by the term extraction
+constexpr int kPostChunk = 4;           // entries in flight per lane while adding a term
+constexpr int kPostStageWords = kPostStepCols / 4 / kPostThreads;   // validity words a thread stages
+
+// One half of the postings route: the dense row block (the row side), the
+// column panel's postings (table (k, units + 1): the first entry of feature t
+// at a column >= u * 128; cols / vals: the entries by feature, then column),
+// column validity, the hoisted statistics (jaccard) and the outputs.
+struct PostHalf {
+  const void* rows;        // (block, k): bf16 for dot, int8 for jaccard
+  const int* table;
+  const int* pcols;
+  const void* pvals;       // the panel's type
+  const uint8_t* colv;
+  const float* s_r;
+  const float* s_c;
+  float* vals;
+  int8_t* grp;
+  int k;
+  int metric;
+};
+
+template <int METRIC>
+using PostElem = std::conditional_t<METRIC == kJaccard, int8_t, uint16_t>;
+
+__device__ __forceinline__ float post_value(uint16_t bits) {   // bf16 -> f32, exact
+  return __uint_as_float(static_cast<uint32_t>(bits) << 16);
+}
+__device__ __forceinline__ float post_value(int8_t v) { return static_cast<float>(v); }
+
+size_t post_smem_bytes(int nbins) {
+  const int gstep = nbins >= kPostStepCols ? 1 : kPostStepCols / nbins;
+  return static_cast<size_t>(nbins) * 4 + static_cast<size_t>(gstep) * nbins * 4 +
+         kPostTerms * 8 + kPostMisc * 4 + ((nbins + 15) / 16) * 16 +
+         ((static_cast<size_t>(gstep) * nbins + 15) / 16) * 16 +
+         static_cast<size_t>(gstep) * ((nbins + 511) / 512) * kPostThreads * 2;   // the list
+}
+
+// The row's nonzero features at or after f0, in ascending order, into
+// term_f / term_v (at most kPostTerms); `next` is the first nonzero feature
+// left out (k when none).  Block-wide: every thread calls it.
+template <int METRIC>
+__device__ void post_extract(const PostElem<METRIC>* row, int k, int f0, int* term_f,
+                             float* term_v, int* misc, int& nt, int& next) {
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  __syncthreads();                      // the previous list is consumed
+  if (tid == 0) misc[kPostWarps] = k;
+  __syncthreads();
+  // a rolling window of kPostAhead tiles' loads in flight
+  float ahead[kPostAhead];
+#pragma unroll
+  for (int j = 0; j < kPostAhead; ++j) {
+    const int f = f0 + j * kPostThreads + tid;
+    ahead[j] = f < k ? post_value(row[f]) : 0.f;
+  }
+  int total = 0;
+  for (int t0 = f0; t0 < k; t0 += kPostThreads) {
+    const int f = t0 + tid;
+    const float v = ahead[0];
+#pragma unroll
+    for (int j = 0; j + 1 < kPostAhead; ++j) ahead[j] = ahead[j + 1];
+    const int fa = f + kPostAhead * kPostThreads;
+    ahead[kPostAhead - 1] = fa < k ? post_value(row[fa]) : 0.f;
+    const bool nz = v != 0.f;
+    const unsigned m = __ballot_sync(0xFFFFFFFFu, nz);
+    if (lane == 0) misc[warp] = __popc(m);
+    __syncthreads();
+    int pos = total + __popc(m & ((1u << lane) - 1u)), tile = 0;
+#pragma unroll
+    for (int w = 0; w < kPostWarps; ++w) {
+      const int c = misc[w];
+      if (w < warp) pos += c;
+      tile += c;
+    }
+    if (nz && pos < kPostTerms) {
+      term_f[pos] = f;
+      term_v[pos] = v;
+    } else if (nz && pos == kPostTerms) {
+      misc[kPostWarps] = f;
+    }
+    total += tile;
+    __syncthreads();                    // misc[0 .. warps) is rewritten by the next tile
+    if (total > kPostTerms) break;
+  }
+  nt = min(total, kPostTerms);
+  next = misc[kPostWarps];
+}
+
+// kPostChunk entries of a term for one lane (e, e + 32, ...), as column
+// offsets and values; c = -1 past the term's end.  All loads are issued
+// before any is used, so a lane keeps kPostChunk in flight.
+struct PostChunk {
+  int c[kPostChunk];
+  float p[kPostChunk];
+};
+
+template <int METRIC>
+__device__ __forceinline__ PostChunk post_load(const int* __restrict__ pcols,
+                                               const PostElem<METRIC>* __restrict__ pvals,
+                                               int e, int e_end, int cbase) {
+  PostChunk q;
+#pragma unroll
+  for (int u = 0; u < kPostChunk; ++u) {
+    const int i = e + 32 * u;
+    q.c[u] = i < e_end ? pcols[i] - cbase : -1;
+    q.p[u] = i < e_end ? post_value(pvals[i]) : 0.f;
+  }
+  return q;
+}
+
+__device__ __forceinline__ void post_add(float* acc, const PostChunk& q, float rv) {
+#pragma unroll
+  for (int u = 0; u < kPostChunk; ++u)
+    if (q.c[u] >= 0) acc[q.c[u]] = fmaf(rv, q.p[u], acc[q.c[u]]);
+}
+
+// Lane l's term (i0 + l) of the list: its entries in table steps [ua, ub).
+__device__ __forceinline__ void post_range(const PostHalf& h, const int* term_f, int nt, int i0,
+                                           int ua, int ub, int units, int& lo, int& hi) {
+  const int i = i0 + (threadIdx.x & 31);
+  if (i < nt) {
+    const int* tr = h.table + static_cast<size_t>(term_f[i]) * (units + 1);
+    lo = tr[ua];
+    hi = tr[ub];
+  }
+}
+
+// One warp adds the row's terms over its column range, whole table steps
+// [ua, ub): per term the entries lo..hi of the table, kPostChunk per lane at a
+// time, into the f32 accumulator (column c at acc[c - cbase]).  Terms go in
+// ascending order with __syncwarp between them: a term's entries hold
+// distinct columns, so no two lanes touch one address at once, and every
+// (row, column) sum runs in the same order on every launch.  A product of
+// two bf16 (or int8) values is exact in f32, so fmaf rounds once, as
+// acc + r * v does.  The chunks of consecutive terms form one stream, each
+// loaded before the one ahead of it is added; the first 32 terms' table
+// entries (lo0, hi0) come loaded, a step ahead.
+template <int METRIC>
+__device__ void post_accumulate(const PostHalf& h, const int* term_f, const float* term_v,
+                                int nt, int ua, int ub, int units, int cbase, float* acc,
+                                int lo0, int hi0) {
+  const int lane = threadIdx.x & 31;
+  const int* __restrict__ pcols = h.pcols;
+  const PostElem<METRIC>* __restrict__ pvals = static_cast<const PostElem<METRIC>*>(h.pvals);
+  for (int i0 = 0; i0 < nt; i0 += 32) {
+    int lo = lo0, hi = hi0;   // the first 32 terms' entries come loaded (lane = term)
+    if (i0 > 0) {
+      lo = hi = 0;
+      post_range(h, term_f, nt, i0, ua, ub, units, lo, hi);
+    }
+    const int m = min(32, nt - i0);
+    int j = 0, base = __shfl_sync(0xFFFFFFFFu, lo, 0), end = __shfl_sync(0xFFFFFFFFu, hi, 0);
+    PostChunk cur = post_load<METRIC>(pcols, pvals, base + lane, end, cbase);
+    for (;;) {   // base, end and j are warp-uniform
+      int jn = j, bn = base + 32 * kPostChunk, en = end;
+      if (bn >= end && ++jn < m) {            // this term is done: the next one's first chunk
+        bn = __shfl_sync(0xFFFFFFFFu, lo, jn);
+        en = __shfl_sync(0xFFFFFFFFu, hi, jn);
+      }
+      const bool more = jn < m;
+      const PostChunk next = post_load<METRIC>(pcols, pvals, bn + lane, more ? en : 0, cbase);
+      post_add(acc, cur, term_v[i0 + j]);
+      if (!more) break;
+      if (jn != j) __syncwarp();              // a term's adds land before the next term's
+      j = jn;
+      base = bn;
+      end = en;
+      cur = next;
+    }
+    __syncwarp();
+  }
+}
+
+// A CTA owns one row of the block and walks every group in ascending order,
+// a step of whole groups (up to kPostStepCols columns) at a time: its warps
+// split the step's table steps, add the row's terms into the step's f32
+// accumulator, then every thread folds its slots' columns into the running
+// (value, group) best with K2's epilogue (the -1e30 mask, the self column,
+// jaccard from the hoisted statistics, strict > in ascending groups).  A row
+// of more than kPostTerms nonzero features takes its terms in windows of
+// kPostTerms, in order, re-read per step.
+template <int METRIC>
+__device__ void post_row(const PostHalf& h, int n, int nbins, int start, int r,
+                         uint8_t* smem) {
+  const int tid = threadIdx.x, warp = tid >> 5;
+  const int groups = n / nbins, units = n / kPostUnit, gunits = nbins / kPostUnit;
+  const int gstep = nbins >= kPostStepCols ? 1 : kPostStepCols / nbins;
+  float* best = reinterpret_cast<float*>(smem);
+  float* acc = best + nbins;
+  int* term_f = reinterpret_cast<int*>(acc + static_cast<size_t>(gstep) * nbins);
+  float* term_v = reinterpret_cast<float*>(term_f + kPostTerms);
+  int* misc = reinterpret_cast<int*>(term_v + kPostTerms);
+  uint8_t* bgrp = reinterpret_cast<uint8_t*>(misc + kPostMisc);
+  uint8_t* cv_s = bgrp + ((nbins + 15) / 16) * 16;   // the step's column validity
+  // jaccard's listed pairs: per thread, up to its (nbins / 512 rounded up) x
+  // gstep float2 pairs of the step whose tokens meet, at stride kPostThreads
+  uint16_t* plist = reinterpret_cast<uint16_t*>(cv_s + ((gstep * nbins + 15) / 16) * 16);
+  const uint8_t* __restrict__ colv = h.colv;
+  const float* __restrict__ s_c = h.s_c;
+
+  for (int x = tid; x < nbins; x += kPostThreads) {
+    best[x] = kNeg;
+    bgrp[x] = 0;
+  }
+  for (int x = tid; x < gstep * nbins; x += kPostThreads) acc[x] = 0.f;
+  const PostElem<METRIC>* row =
+      static_cast<const PostElem<METRIC>*>(h.rows) + static_cast<size_t>(r) * h.k;
+  const float sr = METRIC == kJaccard ? h.s_r[r] : 0.f;
+  const int grow = start + r;
+
+  int nt = 0, next = h.k;
+  post_extract<METRIC>(row, h.k, 0, term_f, term_v, misc, nt, next);
+  const bool whole = next >= h.k;       // the row's terms all fit: read once
+  // this warp's share of a step's table steps
+  auto range = [&](int gfirst, int& lo_step, int& hi_step) {
+    const int u0 = gfirst * gunits, us = (min(groups, gfirst + gstep) - gfirst) * gunits;
+    lo_step = u0 + us * warp / kPostWarps;
+    hi_step = u0 + us * (warp + 1) / kPostWarps;
+  };
+  int ua, ub, lo = 0, hi = 0;
+  range(0, ua, ub);
+  if (whole) post_range(h, term_f, nt, 0, ua, ub, units, lo, hi);
+  const bool words = (reinterpret_cast<uintptr_t>(colv) & 3u) == 0;
+
+  for (int g0 = 0; g0 < groups; g0 += gstep) {
+    const int g1 = min(groups, g0 + gstep);
+    const int cbase = g0 * nbins, ncols = (g1 - g0) * nbins;
+    range(g0, ua, ub);
+    // the next step's table entries, loaded while this step runs
+    int lo_n = 0, hi_n = 0;
+    if (whole && g1 < groups) {
+      int ua_n, ub_n;
+      range(g1, ua_n, ub_n);
+      post_range(h, term_f, nt, 0, ua_n, ub_n, units, lo_n, hi_n);
+    }
+    // the step's column validity, the row's own column cleared, staged in
+    // shared memory for the epilogue: loaded into registers here, stored
+    // after the accumulation, so the loads overlap it (the last step's
+    // readers passed the barrier that ended it)
+    const int self = grow - cbase;
+    uint32_t cvw[kPostStageWords];
+    const bool in_regs = words && ncols <= kPostStepCols;
+    if (in_regs) {
+      const uint32_t* src = reinterpret_cast<const uint32_t*>(colv + cbase);
+#pragma unroll
+      for (int j = 0; j < kPostStageWords; ++j) {
+        const int w = tid + j * kPostThreads;
+        cvw[j] = w < ncols / 4 ? src[w] : 0u;
+      }
+    } else {
+      for (int x = tid; x < ncols; x += kPostThreads)
+        cv_s[x] = x == self ? 0 : colv[cbase + x];
+    }
+    for (int f = 0;;) {
+      if (!whole) {
+        post_extract<METRIC>(row, h.k, f, term_f, term_v, misc, nt, next);
+        lo = hi = 0;
+        post_range(h, term_f, nt, 0, ua, ub, units, lo, hi);
+      }
+      if (ua < ub)
+        post_accumulate<METRIC>(h, term_f, term_v, nt, ua, ub, units, cbase, acc, lo, hi);
+      if (whole || next >= h.k) break;
+      f = next;
+    }
+    if (in_regs) {
+      uint32_t* dst = reinterpret_cast<uint32_t*>(cv_s);
+#pragma unroll
+      for (int j = 0; j < kPostStageWords; ++j) {
+        const int w = tid + j * kPostThreads;
+        if (w < ncols / 4)
+          dst[w] = w == (self >> 2) && self >= 0 ? cvw[j] & ~(0xFFu << (8 * (self & 3))) : cvw[j];
+      }
+    }
+    __syncthreads();
+    // epilogue, two slots per thread: each slot is one thread's for the whole
+    // row, so best needs no sync.  Jaccard in two passes: the pairs whose
+    // tokens meet (acc != 0) wait in this thread's list, so the warp loads
+    // their column sums s_c once, after the zero pairs are folded; their
+    // similarities are never 0, so the order of the passes changes no bin,
+    // and each slot's listed pairs keep ascending groups.
+    int listed = 0;
+    for (int x = 2 * tid; x < nbins; x += 2 * kPostThreads) {
+      float2 b = *reinterpret_cast<const float2*>(best + x);
+      const uint32_t bg2 = *reinterpret_cast<const uint16_t*>(bgrp + x);
+      int bg0 = static_cast<int>(bg2 & 0xFFu), bg1 = static_cast<int>(bg2 >> 8);
+      for (int g = g0; g < g1; ++g) {
+        const int ai = (g - g0) * nbins + x;
+        const float2 a = *reinterpret_cast<const float2*>(acc + ai);
+        const uint32_t v = *reinterpret_cast<const uint16_t*>(cv_s + ai);
+        float s0 = a.x, s1 = a.y;
+        if constexpr (METRIC == kJaccard) {
+          if (a.x != 0.f || a.y != 0.f) {
+            plist[listed++ * kPostThreads + tid] = static_cast<uint16_t>(ai);
+            s0 = a.x != 0.f ? kNeg : 0.f;   // the listed halves wait for pass two
+            s1 = a.y != 0.f ? kNeg : 0.f;
+          } else {
+            *reinterpret_cast<float2*>(acc + ai) = make_float2(0.f, 0.f);
+          }
+        } else {
+          *reinterpret_cast<float2*>(acc + ai) = make_float2(0.f, 0.f);
+        }
+        if ((v & 0xFFu) == 0) s0 = kNeg;
+        if ((v >> 8) == 0) s1 = kNeg;
+        if (s0 > b.x) {
+          b.x = s0;
+          bg0 = g;
+        }
+        if (s1 > b.y) {
+          b.y = s1;
+          bg1 = g;
+        }
+      }
+      *reinterpret_cast<float2*>(best + x) = b;
+      *reinterpret_cast<uint16_t*>(bgrp + x) = static_cast<uint16_t>(bg0 | (bg1 << 8));
+    }
+    if constexpr (METRIC == kJaccard) {   // pass two: inter / (s_r + s_c - inter)
+      for (int i0 = 0; i0 < listed; i0 += 4) {
+        int ai4[4];
+        float2 sc4[4];
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {     // four pairs' column sums in flight
+          ai4[u] = plist[min(i0 + u, listed - 1) * kPostThreads + tid];
+          const int c = cbase + ai4[u];
+          sc4[u] = make_float2(s_c[c], s_c[c + 1]);
+        }
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          if (i0 + u >= listed) break;
+          const int ai = ai4[u];
+          const int g = g0 + ai / nbins, x = ai - (g - g0) * nbins;
+          const float2 a = *reinterpret_cast<const float2*>(acc + ai);
+          *reinterpret_cast<float2*>(acc + ai) = make_float2(0.f, 0.f);
+          const uint32_t v = *reinterpret_cast<const uint16_t*>(cv_s + ai);
+          float2 b = *reinterpret_cast<const float2*>(best + x);
+          const uint32_t bg2 = *reinterpret_cast<const uint16_t*>(bgrp + x);
+          int bg0 = static_cast<int>(bg2 & 0xFFu), bg1 = static_cast<int>(bg2 >> 8);
+          if (a.x != 0.f && (v & 0xFFu) != 0) {
+            const float s0 =
+                __fdiv_rn(a.x, fmaxf(__fsub_rn(__fadd_rn(sr, sc4[u].x), a.x), 1e-9f));
+            if (s0 > b.x) {
+              b.x = s0;
+              bg0 = g;
+            }
+          }
+          if (a.y != 0.f && (v >> 8) != 0) {
+            const float s1 =
+                __fdiv_rn(a.y, fmaxf(__fsub_rn(__fadd_rn(sr, sc4[u].y), a.y), 1e-9f));
+            if (s1 > b.y) {
+              b.y = s1;
+              bg1 = g;
+            }
+          }
+          *reinterpret_cast<float2*>(best + x) = b;
+          *reinterpret_cast<uint16_t*>(bgrp + x) = static_cast<uint16_t>(bg0 | (bg1 << 8));
+        }
+      }
+    }
+    __syncthreads();
+    lo = lo_n;
+    hi = hi_n;
+  }
+  for (int x = tid; x < nbins; x += kPostThreads) {
+    const size_t o = static_cast<size_t>(r) * nbins + x;
+    h.vals[o] = best[x];
+    h.grp[o] = static_cast<int8_t>(bgrp[x]);
+  }
+}
+
+// K2 (grid z = 1) and K3 (grid z = 2: z picks the half) on the postings
+// route: grid (block rows, 1, halves), so each K3 output is its K2 launch's.
+__global__ void __launch_bounds__(kPostThreads, 4)
+binned_postings_kernel(const __grid_constant__ PostHalf a, const __grid_constant__ PostHalf b,
+                       int n, int nbins, int start) {
+  extern __shared__ __align__(16) uint8_t post_smem[];
+  const PostHalf& h = blockIdx.z ? b : a;
+  const int r = static_cast<int>(blockIdx.x);
+  if (h.metric == kJaccard)
+    post_row<kJaccard>(h, n, nbins, start, r, post_smem);
+  else
+    post_row<kDot>(h, n, nbins, start, r, post_smem);
+}
+
+cudaError_t launch_postings(const PostHalf& a, const PostHalf& b, int halves, int n, int block,
+                            int nbins, int start, cudaStream_t stream) {
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      binned_postings_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(post_smem_bytes(kPostMaxBins)));
+  if (attr != cudaSuccess) return attr;
+  const dim3 grid(block, 1, halves);
+  binned_postings_kernel<<<grid, kPostThreads, post_smem_bytes(nbins), stream>>>(a, b, n, nbins,
+                                                                               start);
+  return cudaGetLastError();
+}
+
+bool postings_shape_ok(int n, int block, int nbins, int metric, int k) {
+  return n > 0 && block > 0 && k > 0 && n % kPostUnit == 0 && nbins % kPostUnit == 0 &&
+         nbins <= kPostMaxBins && n % nbins == 0 && n / nbins <= 127 &&
+         (metric == kDot || metric == kJaccard);
+}
+
 using EncodeTiledFn = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
                                    const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
                                    const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
@@ -1175,6 +1619,50 @@ int mused_binned_candidates_pair(const void* cols_a, const void* rows_a, const v
                      static_cast<const float*>(s_r_b), static_cast<const float*>(s_c_b),
                      static_cast<float*>(vals_b), static_cast<int8_t*>(grp_b), k_b, metric_b};
   return static_cast<int>(launch_simple(a, b, n, block, nbins, start, s));
+}
+
+// K2 on the postings route (dot, jaccard): rows (block, k) bf16 / int8, the
+// column panel's postings (table (k, n / 128 + 1) int32, cols int32, vals of
+// the panel's type), colv (n,) bytes 0/1, s_r (block,) / s_c (n,) f32 for
+// jaccard; n and nbins multiples of 128, nbins <= 16384.  Writes K2's
+// outputs.  Returns cudaGetLastError() after the launch.
+int mused_binned_postings(const void* rows, const void* table, const void* pcols,
+                          const void* pvals, const void* colv, const void* s_r, const void* s_c,
+                          void* vals, void* grp, int n, int block, int k, int nbins, int start,
+                          int metric, void* stream) {
+  if (!postings_shape_ok(n, block, nbins, metric, k))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const PostHalf a{rows, static_cast<const int*>(table), static_cast<const int*>(pcols), pvals,
+                   static_cast<const uint8_t*>(colv), static_cast<const float*>(s_r),
+                   static_cast<const float*>(s_c), static_cast<float*>(vals),
+                   static_cast<int8_t*>(grp), k, metric};
+  return static_cast<int>(
+      launch_postings(a, a, 1, n, block, nbins, start, static_cast<cudaStream_t>(stream)));
+}
+
+// K3 on the postings route: two halves of K2's postings operands over the same
+// rows of one n, in one launch; each output equals its K2 launch's.
+int mused_binned_postings_pair(const void* rows_a, const void* table_a, const void* pcols_a,
+                               const void* pvals_a, const void* colv_a, const void* s_r_a,
+                               const void* s_c_a, int k_a, int metric_a, const void* rows_b,
+                               const void* table_b, const void* pcols_b, const void* pvals_b,
+                               const void* colv_b, const void* s_r_b, const void* s_c_b,
+                               int k_b, int metric_b, void* vals_a, void* grp_a, void* vals_b,
+                               void* grp_b, int n, int block, int nbins, int start,
+                               void* stream) {
+  if (!postings_shape_ok(n, block, nbins, metric_a, k_a) ||
+      !postings_shape_ok(n, block, nbins, metric_b, k_b))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const PostHalf a{rows_a, static_cast<const int*>(table_a), static_cast<const int*>(pcols_a),
+                   pvals_a, static_cast<const uint8_t*>(colv_a),
+                   static_cast<const float*>(s_r_a), static_cast<const float*>(s_c_a),
+                   static_cast<float*>(vals_a), static_cast<int8_t*>(grp_a), k_a, metric_a};
+  const PostHalf b{rows_b, static_cast<const int*>(table_b), static_cast<const int*>(pcols_b),
+                   pvals_b, static_cast<const uint8_t*>(colv_b),
+                   static_cast<const float*>(s_r_b), static_cast<const float*>(s_c_b),
+                   static_cast<float*>(vals_b), static_cast<int8_t*>(grp_b), k_b, metric_b};
+  return static_cast<int>(
+      launch_postings(a, b, 2, n, block, nbins, start, static_cast<cudaStream_t>(stream)));
 }
 
 }  // extern "C"

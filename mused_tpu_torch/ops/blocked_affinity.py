@@ -23,6 +23,12 @@ The binned route feeds either a dense (block, n) block
 (:func:`candidate_rowblock`) whose products run straight off int8 slabs
 (K4 / K5, ``ops/kernels/cand_matvec`` via ``fd.shrink_rr_cands``).
 
+The tags and text panels carry their postings (``Columns.postings``, built
+once per window by the column builders, or by :func:`hoist_columns` for a
+panel handed in): K2 / K3 then take the postings route wherever
+``blocked_select.takes_postings(nbins)``; the other kinds keep the dense
+tensor-core tiles.
+
 Column kinds are the ones the column builders emit: ``location_xyz``,
 ``time``, ``username``, ``tags`` (int8 counts + hoisted f32 row sums),
 ``text_bf16``, ``embedding_bf16`` (and the legacy ``embedding_split``, the
@@ -60,6 +66,11 @@ class Columns(NamedTuple):
     tensors: tuple             # (n, d) tensor, or (tensor, hoisted row stat)
     valids: tuple              # (n,) bool per modality
     idf: torch.Tensor | None   # (H_text,) for the text modality, else None
+    postings: tuple | None = None   # blocked_select.Postings per modality, or None
+
+    def postings_of(self) -> tuple:
+        """The postings per modality (None where a kind has none)."""
+        return self.postings or (None,) * len(self.kinds)
 
     @property
     def n(self) -> int:
@@ -78,14 +89,18 @@ def standard_columns(wf, features_cfg=None) -> Columns:
     whose fields are tensors on the target device.  Sparse tokens scatter to
     dense on the device.  Text is idf-scaled and L2-normalized here, once
     per window, then stored bf16; tags store int8 counts with their f32 row
-    sums (exact: counts are small integers)."""
+    sums (exact: counts are small integers).  Both carry their postings,
+    built from the token ids (capacity n x the token arrays' width; dense
+    features: n x the hash width)."""
     fc = features_cfg or FeatureConfig()
     loc, tim, uid = wf.location.float(), wf.times.float(), wf.user_ids.to(torch.int32)
     if isinstance(wf, SparseWindowFeatures):
         tags = affinity.counts_from_tokens(wf.tags_ids, None, fc.tags_hash_dim)
         text = affinity.counts_from_tokens(wf.text_ids, wf.text_cnt, fc.text_hash_dim)
+        tags_ids, text_ids = wf.tags_ids, wf.text_ids
     else:
         tags, text = wf.tags.float(), wf.text.float()
+        tags_ids = text_ids = None
     text_valid = torch.sum(text, dim=1) > 0
     n_docs = torch.clamp(torch.sum(text_valid.float()), min=1.0)
     df = torch.sum((text > 0) & text_valid[:, None], dim=0).float()
@@ -93,14 +108,16 @@ def standard_columns(wf, features_cfg=None) -> Columns:
     text = text * idf[None, :]
     text = text / torch.clamp(torch.linalg.norm(text, dim=1, keepdim=True), min=1e-12)
     loc_valid = torch.all(torch.isfinite(loc), dim=1)
+    tags8, text16 = tags.to(torch.int8), text.to(torch.bfloat16)
     return Columns(
         kinds=("location_xyz", "time", "username", "tags", "text_bf16"),
-        tensors=(_unit_xyz(loc, loc_valid), tim, uid,
-                 (tags.to(torch.int8), torch.sum(tags, dim=1)),
-                 text.to(torch.bfloat16)),
+        tensors=(_unit_xyz(loc, loc_valid), tim, uid, (tags8, torch.sum(tags, dim=1)),
+                 text16),
         valids=(loc_valid, affinity.time_valid(tim), uid >= 0,
                 wf.tags_valid.to(torch.bool), text_valid),
-        idf=idf)
+        idf=idf,
+        postings=(None, None, None, bs.build_postings(tags8, tags_ids),
+                  bs.build_postings(text16, text_ids)))
 
 
 def bf16_pack(x: torch.Tensor) -> torch.Tensor:
@@ -144,17 +161,30 @@ def generic_columns(mats, types, device) -> Columns:
                    idf=None)
 
 
+# kind -> the panel type whose postings the kind carries
+_POSTINGS_DTYPE = {"tags": torch.int8, "text_bf16": torch.bfloat16}
+
+
 def hoist_columns(cols: Columns) -> Columns:
     """Hoisted forms the sweeps assume: a raw ``location`` latlon panel
-    becomes unit xyz and untupled ``tags`` gain their row sums, once per
-    sweep rather than once per block."""
+    becomes unit xyz, untupled ``tags`` gain their row sums, and int8 tags /
+    bf16 text panels on a CUDA device without postings gain them (from the
+    dense panel: capacity n x K), once per sweep rather than once per block.
+    A CPU panel gets none: there the kernels' plain versions run, which read
+    no postings."""
     kinds, tensors = list(cols.kinds), list(cols.tensors)
+    postings = list(cols.postings_of())
     for i, (k, t, v) in enumerate(zip(kinds, tensors, cols.valids)):
         if k == "location":
             kinds[i], tensors[i] = "location_xyz", _unit_xyz(t.float(), v)
         elif k == "tags" and not isinstance(t, tuple):
             tensors[i] = (t, torch.sum(t.float(), dim=1))
-    return cols._replace(kinds=tuple(kinds), tensors=tuple(tensors))
+        panel = tensors[i][0] if isinstance(tensors[i], tuple) else tensors[i]
+        if (postings[i] is None and panel.dtype == _POSTINGS_DTYPE.get(kinds[i])
+                and panel.ndim == 2 and panel.device.type == "cuda"):
+            postings[i] = bs.build_postings(panel)
+    return cols._replace(kinds=tuple(kinds), tensors=tuple(tensors),
+                         postings=tuple(postings))
 
 
 # ---------------------------------------------------------------------------
@@ -213,16 +243,23 @@ def _legacy_strip(kind: str, t: torch.Tensor, valid: torch.Tensor, rows: slice,
 
 
 def _modality_candidates(t, tr, valid, vr, k, metric, *, start: int, block: int,
-                         n: int, nbins: int, use_kernel: bool, row_sums=None):
-    """(keep, grp) binned candidates of one modality's row block (K2, or its
-    plain version when ``use_kernel`` is False), or None at k == 0 (the
-    modality contributes no edges)."""
+                         n: int, nbins: int, use_kernel: bool, row_sums=None,
+                         postings=None):
+    """(keep, grp) binned candidates of one modality's row block (K2, on the
+    postings route when the panel's ``postings`` are given and the bin count
+    takes them; or its plain version when ``use_kernel`` is False), or None
+    at k == 0 (the modality contributes no edges)."""
     k = max(0, min(k, n - 1))
     if k == 0:
         return None
-    select = bs.binned_candidates if use_kernel else bs.binned_candidates_plain
-    vals, grp = select(t.contiguous(), tr.contiguous(), valid, start, metric=metric,
-                       nbins=nbins, block=block, row_sums=row_sums)
+    t, tr = t.contiguous(), tr.contiguous()
+    if not use_kernel:
+        vals, grp = bs.binned_candidates_plain(t, tr, valid, start, metric=metric,
+                                               nbins=nbins, block=block, row_sums=row_sums)
+    else:
+        vals, grp = bs.binned_candidates(
+            t, tr, valid, start, metric=metric, nbins=nbins, block=block, row_sums=row_sums,
+            postings=postings if bs.takes_postings(nbins) else None)
     return bs.budgeted_keep(vals, vr, k), grp
 
 
@@ -277,7 +314,7 @@ def fused_rowblock(cols: Columns, start: int, block: int, k_basis: int,
     pair = (_pair_loc_time(cols, start, block, n, nbins, k_basis, use_kernel)
             if binned else {})
     cands, mats = [], []
-    for kind, t, valid in zip(cols.kinds, cols.tensors, cols.valids):
+    for kind, t, valid, post in zip(cols.kinds, cols.tensors, cols.valids, cols.postings_of()):
         vr = valid[rows]
         if kind == "username":
             not_self = (start + torch.arange(block, device=t.device))[:, None] \
@@ -298,7 +335,8 @@ def fused_rowblock(cols: Columns, start: int, block: int, k_basis: int,
         if binned and _binned_ok(kind, t):
             cands.append(_modality_candidates(t, t[rows], valid, vr, k, metric, start=start,
                                               block=block, n=n, nbins=nbins,
-                                              use_kernel=use_kernel, row_sums=stats))
+                                              use_kernel=use_kernel, row_sums=stats,
+                                              postings=post))
             continue
         s_r, s_c = (None, None) if stats is None else (stats[rows, None], stats[None, :])
         sim = bs.sim_strip(t, t[rows], metric, s_r, s_c)
@@ -355,7 +393,7 @@ def candidate_rowblock(cols: Columns, start: int, block: int, k_basis: int,
     rows = slice(start, start + block)
     pair = _pair_loc_time(cols, start, block, n, nbins, k_basis, use_kernel)
     slabs, uid_rows, uid_cols = [], None, None
-    for kind, t, valid in zip(cols.kinds, cols.tensors, cols.valids):
+    for kind, t, valid, post in zip(cols.kinds, cols.tensors, cols.valids, cols.postings_of()):
         if kind == "username":
             uid_rows, uid_cols = cm.mask_uids(t, valid, nbins, start, block)
             continue
@@ -369,7 +407,7 @@ def candidate_rowblock(cols: Columns, start: int, block: int, k_basis: int,
         t, stats = t if isinstance(t, tuple) else (t, None)
         res = _modality_candidates(t, t[rows], valid, valid[rows], k, metric, start=start,
                                    block=block, n=n, nbins=nbins, use_kernel=use_kernel,
-                                   row_sums=stats)
+                                   row_sums=stats, postings=post)
         if res is not None:
             slabs.append(cm.pack_slab(*res))
     device = cols.valids[0].device

@@ -33,12 +33,27 @@ metrics share the coordinate kernel's sweep, two tensor-core metrics run
 K2's tile program per half in one launch, and a mixed pair runs a simple
 kernel (:func:`pair_route`).
 
+The postings route.  The text and tags panels hold 1-5 nonzeros per row in
+4096 / 2048 features, so their dense products are almost all zeros.  A
+:class:`Postings` layout of the column panel (:func:`build_postings`: for
+each feature, the panel's columns that hold it, in ascending order, with
+their values) lets K2 add each row's similarity over its terms' postings
+instead.  A caller that hands K2 / K3 ``postings`` (dot and jaccard only,
+``nbins`` a multiple of 128, :func:`takes_postings`) gets that kernel; the
+route follows from the operands alone (:func:`route`).  The row side stays
+the dense ``rows``: the kernel reads each row's nonzero features from it.
+On CPU tensors the postings are checked against the panel's shape and the
+dense plain version runs.  :func:`binned_candidates_postings_plain` is the
+plain version of the postings route, in the kernel's summation order.
+
 ``binned_candidates`` / ``binned_candidates_pair`` launch the kernels for
 CUDA tensors and raise on anything they do not take; for tensors on the CPU
 they run :func:`binned_candidates_plain`, the same function in plain
 PyTorch (similarity strip, then :func:`binned_candidates_reference`).
 """
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
@@ -53,26 +68,124 @@ _DTYPE = {"dot": torch.bfloat16, "chord": torch.bfloat16, "jaccard": torch.int8,
           "chord3": torch.float32, "l1": torch.float32}
 _MIN_K = {"chord3": 3, "l1": 2}
 
-launches = 0        # K2 launches so far (plain-version calls not counted)
+POSTINGS_METRICS = ("dot", "jaccard")         # the postings route's metrics
+POSTINGS_UNIT = 128            # columns per step of a postings table
+POSTINGS_MAX_NBINS = 16_384    # the kernel keeps a row's nbins bins in shared memory
+
+launches = 0        # K2 launches so far, every route (plain-version calls not counted)
 pair_launches = 0   # K3 launches so far, every route
+postings_launches = 0        # of them, K2 launches on the postings route
+postings_pair_launches = 0   # and K3 launches on it
 
 
 def reset_launches() -> None:
-    global launches, pair_launches
-    launches = pair_launches = 0
+    global launches, pair_launches, postings_launches, postings_pair_launches
+    launches = pair_launches = postings_launches = postings_pair_launches = 0
 
 
-def pair_route(metricA: str, metricB: str) -> str:
-    """K3's kernel for a pair: "coordinate" (chord3 / l1 both), "mma" (two
-    tensor-core metrics) or "simple" (one of each)."""
+def route(metric: str, postings=None) -> str:
+    """K2's kernel for a metric: "postings" when the caller hands the column
+    panel's postings, else "coordinate" (chord3 / l1) or "mma" (the
+    tensor-core tiles)."""
+    if metric not in METRICS:
+        raise ValueError(f"unknown metric {metric!r}: expected one of {METRICS}")
+    if postings is not None:
+        return "postings"
+    return "coordinate" if metric in COORD_METRICS else "mma"
+
+
+def pair_route(metricA: str, metricB: str, postings: bool = False) -> str:
+    """K3's kernel for a pair: "postings" (both halves hand their postings),
+    "coordinate" (chord3 / l1 both), "mma" (two tensor-core metrics) or
+    "simple" (one of each)."""
     for m in (metricA, metricB):
         if m not in METRICS:
             raise ValueError(f"unknown metric {m!r}: expected one of {METRICS}")
+    if postings:
+        return "postings"
     if metricA in COORD_METRICS and metricB in COORD_METRICS:
         return "coordinate"
     if metricA in MMA_METRICS and metricB in MMA_METRICS:
         return "mma"
     return "simple"
+
+
+def takes_postings(nbins: int) -> bool:
+    """Whether the postings route takes this bin count: whole 128-column
+    steps of the postings table per group, and a row's bins in shared
+    memory.  Callers hand K2 / K3 postings only then."""
+    return 0 < nbins <= POSTINGS_MAX_NBINS and nbins % POSTINGS_UNIT == 0
+
+
+# ---------------------------------------------------------------------------
+# the postings layout of a sparse column panel
+# ---------------------------------------------------------------------------
+
+class Postings(NamedTuple):
+    """The postings of an (n, K) column panel: for each feature t, the
+    panel's columns that hold it, in ascending order, with their values.
+
+    ``cols`` / ``vals`` hold the entries sorted by (feature, column); their
+    capacity is fixed when the layout is built (the token arrays' size), and
+    the entries past ``table[-1, -1]`` are padding.  ``table[t, u]`` is the
+    index of feature t's first entry at a column >= u * POSTINGS_UNIT
+    (u = 0 .. ceil(n / POSTINGS_UNIT)), so feature t's entries in any range
+    of whole 128-column steps are one contiguous slice, found without a
+    search."""
+
+    table: torch.Tensor    # (K, ceil(n / 128) + 1) int32
+    cols: torch.Tensor     # (capacity,) int32: the column of each entry
+    vals: torch.Tensor     # (capacity,) the panel's type: the panel's value there
+    n: int
+
+    @property
+    def k(self) -> int:
+        return self.table.shape[0]
+
+    @property
+    def entries(self) -> torch.Tensor:
+        """(1,) int32 on the layout's device: the live entries (no host read)."""
+        return self.table[-1, -1:]
+
+
+def build_postings(panel: torch.Tensor, ids: torch.Tensor | None = None) -> Postings:
+    """The postings of ``panel`` (n, K), built with no host read.
+
+    ``ids`` (n, T) are each row's feature ids (-1 padding), a superset of its
+    nonzero features: the featurizer's token ids, so the capacity is n * T
+    (T is at most the token cap).  Without ``ids`` every feature of every row
+    is a candidate (capacity n * K).  Duplicate ids and features whose panel
+    value is 0 hold no entry.  Sorted by (feature, column) in one sort of
+    int64 keys; the table is one ``searchsorted``."""
+    if panel.ndim != 2:
+        raise ValueError(f"the panel must be 2-D, got {tuple(panel.shape)}")
+    n, k = panel.shape
+    dev = panel.device
+    if ids is None:
+        feats = torch.arange(k, device=dev).expand(n, k)
+    else:
+        if ids.ndim != 2 or ids.shape[0] != n:
+            raise ValueError(f"ids must be ({n}, T), got {tuple(ids.shape)}")
+        feats = torch.sort(torch.where(ids >= 0, ids.long(), k), dim=1).values
+        feats = torch.where(feats < k, feats, k)
+        dup = torch.zeros_like(feats, dtype=torch.bool)
+        dup[:, 1:] = feats[:, 1:] == feats[:, :-1]
+        feats = torch.where(dup, k, feats)
+    safe = torch.clamp(feats, max=k - 1)
+    live = (feats < k) & (panel.gather(1, safe) != 0)
+    rows = torch.arange(n, device=dev)[:, None]
+    keys = torch.where(live, feats * n + rows, k * n + rows).reshape(-1)
+    keys = torch.sort(keys).values
+    cols = torch.remainder(keys, n)
+    feat = torch.div(keys, n, rounding_mode="floor")
+    vals = panel[cols, torch.clamp(feat, max=k - 1)]
+    vals = torch.where(feat < k, vals, torch.zeros_like(vals))
+    steps = -(-n // POSTINGS_UNIT)
+    units = torch.clamp(torch.arange(steps + 1, device=dev) * POSTINGS_UNIT, max=n)
+    query = torch.arange(k, device=dev)[:, None] * n + units[None, :]
+    table = torch.searchsorted(keys, query).to(torch.int32)
+    return Postings(table=table.contiguous(), cols=cols.to(torch.int32).contiguous(),
+                    vals=vals.contiguous(), n=n)
 
 
 # ---------------------------------------------------------------------------
@@ -149,6 +262,44 @@ def binned_candidates_plain(cols, rows, col_valid, start: int, *, metric: str,
                                        col_valid, start, nbins)
 
 
+def postings_sim_strip(post: Postings, rows: torch.Tensor, metric: str, s_r=None,
+                       s_c=None) -> torch.Tensor:
+    """(block, n) f32 similarity of ``rows`` against the panel through its
+    postings, in the postings kernel's order: each row adds its nonzero
+    features' products in ascending feature order, one rounding per step (a
+    bf16 or int8 product is exact in f32, so ``acc + r * v`` is the kernel's
+    ``fmaf``).  Pairs that share no feature stay 0."""
+    block = rows.shape[0]
+    rv = rows.float()
+    acc = torch.zeros((block, post.n), dtype=torch.float32, device=rows.device)
+    table = post.table.long()
+    for f in torch.nonzero(torch.any(rv != 0, dim=0)).flatten().tolist():
+        lo, hi = int(table[f, 0]), int(table[f, -1])
+        if lo == hi:
+            continue
+        c = post.cols[lo:hi].long()
+        r = torch.nonzero(rv[:, f] != 0).flatten()
+        acc[r[:, None], c[None, :]] += rv[r, f][:, None] * post.vals[lo:hi].float()[None, :]
+    if metric == "dot":
+        return acc
+    if metric == "jaccard":
+        return acc / torch.clamp(s_r + s_c - acc, min=1e-9)
+    raise ValueError(f"the postings route takes {POSTINGS_METRICS}, not {metric!r}")
+
+
+def binned_candidates_postings_plain(post: Postings, rows, col_valid, start: int, *,
+                                     metric: str, nbins: int, block: int, row_sums=None,
+                                     row_stats=None):
+    """Plain PyTorch version of K2's postings route: the similarity strip
+    through the postings (:func:`postings_sim_strip`), then the reference
+    binning.  Bit-equal to the kernel; to :func:`binned_candidates_plain`
+    within f32 reassociation for dot (bit-equal on integer-valued operands)
+    and bit-equal for jaccard."""
+    s_r, s_c = _row_stats(metric, row_sums, start, block, row_stats)
+    return binned_candidates_reference(postings_sim_strip(post, rows, metric, s_r, s_c),
+                                       col_valid, start, nbins)
+
+
 # ---------------------------------------------------------------------------
 # kernel wrappers
 # ---------------------------------------------------------------------------
@@ -186,6 +337,27 @@ def _check(cols, rows, col_valid, metric, nbins, block, row_sums, row_stats=None
         raise ValueError("cols, rows, col_valid and row statistics must share a device")
 
 
+def _check_postings(post, cols: torch.Tensor, metric: str, nbins: int) -> None:
+    """The postings route takes ``post`` for this panel, metric and nbins."""
+    if not isinstance(post, Postings):
+        raise TypeError(f"postings must be a Postings layout, got {type(post).__name__}")
+    if metric not in POSTINGS_METRICS:
+        raise ValueError(f"the postings route takes {POSTINGS_METRICS}, not {metric!r}")
+    if not takes_postings(nbins):
+        raise ValueError(f"the postings route takes nbins a multiple of {POSTINGS_UNIT} up "
+                         f"to {POSTINGS_MAX_NBINS}, got {nbins} (check takes_postings)")
+    n, k = cols.shape
+    steps = -(-n // POSTINGS_UNIT)
+    if (post.n != n or post.table.shape != (k, steps + 1) or post.table.dtype != torch.int32
+            or post.cols.dtype != torch.int32 or post.vals.dtype != cols.dtype
+            or post.cols.shape != post.vals.shape or post.cols.ndim != 1):
+        raise ValueError(f"postings of an ({post.n}, {post.k}) {post.vals.dtype} panel "
+                         f"(table {tuple(post.table.shape)}) do not fit the ({n}, {k}) "
+                         f"{cols.dtype} panel")
+    if any(t.device != cols.device for t in (post.table, post.cols, post.vals)):
+        raise ValueError("the postings and the panel must share a device")
+
+
 def _check_cuda(tensors, metric: str) -> None:
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("the kernel takes contiguous tensors")
@@ -210,10 +382,20 @@ def _ptr(t: torch.Tensor | None):
     return None if t is None else t.data_ptr()
 
 
+def _postings_half(post: Postings, rows, col_valid, s_r, s_c, metric: str) -> list:
+    """The postings kernel's operands of one half, in the C entry point's
+    order (rows, table, cols, vals, colv, s_r, s_c), checked contiguous."""
+    tensors = [rows, post.table, post.cols, post.vals, col_valid]
+    if not all(t.is_contiguous() for t in tensors + [x for x in (s_r, s_c) if x is not None]):
+        raise ValueError("the postings kernel takes contiguous tensors")
+    return [t.data_ptr() for t in tensors] + [_ptr(s_r), _ptr(s_c)]
+
+
 def binned_candidates(cols: torch.Tensor, rows: torch.Tensor, col_valid: torch.Tensor,
                       start: int, *, metric: str, nbins: int, block: int,
                       row_sums: torch.Tensor | None = None,
-                      row_stats: torch.Tensor | None = None):
+                      row_stats: torch.Tensor | None = None,
+                      postings: Postings | None = None):
     """Stride-binned kNN candidates of ``rows`` against the column panel (K2).
 
     cols: (n, K) column panel; rows: (block, K); col_valid: (n,) bool;
@@ -222,10 +404,14 @@ def binned_candidates(cols: torch.Tensor, rows: torch.Tensor, col_valid: torch.T
     chord (token sums, squared norms); ``row_stats`` the rows' own (block,),
     else sliced from ``row_sums`` (then the rows must be the panel's slice
     [start, start+block)).  Returns (vals (block, nbins) f32, grp (block,
-    nbins) int8); column = grp * nbins + slot.  CUDA tensors run the kernel,
-    CPU tensors the plain version."""
+    nbins) int8); column = grp * nbins + slot.  ``postings`` (the panel's
+    :class:`Postings`, dot / jaccard, :func:`takes_postings`) select the
+    postings route.  CUDA tensors run the kernel, CPU tensors the plain
+    version."""
     start = int(start)
     _check(cols, rows, col_valid, metric, nbins, block, row_sums, row_stats)
+    if postings is not None:
+        _check_postings(postings, cols, metric, nbins)
     if cols.device.type == "cpu":
         return binned_candidates_plain(cols, rows, col_valid, start, metric=metric,
                                        nbins=nbins, block=block, row_sums=row_sums,
@@ -233,10 +419,13 @@ def binned_candidates(cols: torch.Tensor, rows: torch.Tensor, col_valid: torch.T
     if cols.device.type != "cuda":
         raise ValueError(f"binned_candidates runs on cuda or cpu tensors, not {cols.device}")
     s_r, s_c = _stats_for_kernel(metric, row_sums, row_stats, start, block)
-    _check_cuda([t for t in (cols, rows, col_valid, s_r, s_c) if t is not None], metric)
     n, k = cols.shape
     vals = torch.empty((block, nbins), dtype=torch.float32, device=cols.device)
     grp = torch.empty((block, nbins), dtype=torch.int8, device=cols.device)
+    if postings is not None:
+        return _launch_postings(postings, rows, col_valid, s_r, s_c, vals, grp, n, block, k,
+                                nbins, start, metric)
+    _check_cuda([t for t in (cols, rows, col_valid, s_r, s_c) if t is not None], metric)
     lib = build.load()
     with torch.cuda.device(cols.device):
         stream = torch.cuda.current_stream(cols.device).cuda_stream
@@ -248,6 +437,22 @@ def binned_candidates(cols: torch.Tensor, rows: torch.Tensor, col_valid: torch.T
                       f"nbins={nbins}")
     global launches
     launches += 1
+    return vals, grp
+
+
+def _launch_postings(post, rows, col_valid, s_r, s_c, vals, grp, n, block, k, nbins, start,
+                     metric):
+    half = _postings_half(post, rows, col_valid, s_r, s_c, metric)
+    lib = build.load()
+    with torch.cuda.device(rows.device):
+        stream = torch.cuda.current_stream(rows.device).cuda_stream
+        code = lib.mused_binned_postings(*half, vals.data_ptr(), grp.data_ptr(), n, block, k,
+                                         nbins, start, METRICS.index(metric), stream)
+    build.check(code, f"binned_candidates[{metric}, postings] n={n} block={block} K={k} "
+                      f"nbins={nbins}")
+    global launches, postings_launches
+    launches += 1
+    postings_launches += 1
     return vals, grp
 
 
@@ -267,14 +472,17 @@ def kernel_splits(n: int, block: int, nbins: int, metric: str) -> int:
 def binned_candidates_pair(colsA, colsB, rowsA, rowsB, colvA, colvB, start: int, *,
                            metricA: str, metricB: str, nbins: int, block: int,
                            row_sumsA=None, row_statsA=None, row_sumsB=None,
-                           row_statsB=None):
+                           row_statsB=None, postingsA=None, postingsB=None):
     """Candidates of TWO metrics over the same rows in one launch (K3): each
     half takes :func:`binned_candidates`' operands (``row_sums{A,B}``,
-    ``row_stats{A,B}``) and its output is identical to that call's.  The
-    single-device sweep pairs location chord3 + time l1; the column-sharded
-    sweep pairs consecutive modalities (tags jaccard + text dot on standard
-    streams).  Returns (valsA, grpA, valsB, grpB)."""
+    ``row_stats{A,B}``, ``postings{A,B}``) and its output is identical to
+    that call's.  The single-device sweep pairs location chord3 + time l1;
+    the column-sharded sweep pairs consecutive modalities (tags jaccard +
+    text dot on standard streams, both with their postings).  Both halves
+    hand postings, or neither.  Returns (valsA, grpA, valsB, grpB)."""
     start = int(start)
+    if (postingsA is None) != (postingsB is None):
+        raise ValueError("the pair's halves hand their postings both or neither")
     pair_route(metricA, metricB)          # raises on an unknown metric
     _check(colsA, rowsA, colvA, metricA, nbins, block, row_sumsA, row_statsA)
     _check(colsB, rowsB, colvB, metricB, nbins, block, row_sumsB, row_statsB)
@@ -282,6 +490,9 @@ def binned_candidates_pair(colsA, colsB, rowsA, rowsB, colvA, colvB, start: int,
         raise ValueError("the pair's panels need the same rows and device, got "
                          f"{tuple(colsA.shape)} on {colsA.device} and "
                          f"{tuple(colsB.shape)} on {colsB.device}")
+    if postingsA is not None:
+        _check_postings(postingsA, colsA, metricA, nbins)
+        _check_postings(postingsB, colsB, metricB, nbins)
     if colsA.device.type == "cpu":
         return (*binned_candidates_plain(colsA, rowsA, colvA, start, metric=metricA,
                                          nbins=nbins, block=block, row_sums=row_sumsA,
@@ -295,9 +506,13 @@ def binned_candidates_pair(colsA, colsB, rowsA, rowsB, colvA, colvB, start: int,
     dev = colsA.device
     srA, scA = _stats_for_kernel(metricA, row_sumsA, row_statsA, start, block)
     srB, scB = _stats_for_kernel(metricB, row_sumsB, row_statsB, start, block)
+    n = colsA.shape[0]
+    if postingsA is not None:
+        return _launch_postings_pair(postingsA, postingsB, rowsA, rowsB, colvA, colvB,
+                                     (srA, scA), (srB, scB), metricA, metricB, n, block,
+                                     nbins, start)
     _check_cuda([t for t in (colsA, rowsA, colvA, srA, scA) if t is not None], metricA)
     _check_cuda([t for t in (colsB, rowsB, colvB, srB, scB) if t is not None], metricB)
-    n = colsA.shape[0]
     outs = [torch.empty((block, nbins), dtype=dt, device=dev)
             for dt in (torch.float32, torch.int8, torch.float32, torch.int8)]
     lib = build.load()
@@ -313,6 +528,29 @@ def binned_candidates_pair(colsA, colsB, rowsA, rowsB, colvA, colvB, start: int,
                       f"block={block} nbins={nbins}")
     global pair_launches
     pair_launches += 1
+    return tuple(outs)
+
+
+def _launch_postings_pair(postA, postB, rowsA, rowsB, colvA, colvB, statsA, statsB,
+                          metricA, metricB, n, block, nbins, start):
+    """K3 on the postings route: one launch, grid z picks the half."""
+    dev = rowsA.device
+    outs = [torch.empty((block, nbins), dtype=dt, device=dev)
+            for dt in (torch.float32, torch.int8, torch.float32, torch.int8)]
+    halfA = _postings_half(postA, rowsA, colvA, *statsA, metricA)
+    halfB = _postings_half(postB, rowsB, colvB, *statsB, metricB)
+    lib = build.load()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        code = lib.mused_binned_postings_pair(
+            *halfA, rowsA.shape[1], METRICS.index(metricA), *halfB, rowsB.shape[1],
+            METRICS.index(metricB), *(o.data_ptr() for o in outs), n, block, nbins, start,
+            stream)
+    build.check(code, f"binned_candidates_pair[{metricA},{metricB}, postings] n={n} "
+                      f"block={block} nbins={nbins}")
+    global pair_launches, postings_pair_launches
+    pair_launches += 1
+    postings_pair_launches += 1
     return tuple(outs)
 
 

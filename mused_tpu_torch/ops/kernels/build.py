@@ -111,6 +111,10 @@ def _configure(lib) -> None:
     lib.mused_binned_candidates_pair.restype = i
     lib.mused_binned_candidates_pair_splits.argtypes = [i] * 3
     lib.mused_binned_candidates_pair_splits.restype = i
+    lib.mused_binned_postings.argtypes = [p] * 9 + [i] * 6 + [p]
+    lib.mused_binned_postings.restype = i
+    lib.mused_binned_postings_pair.argtypes = ([p] * 7 + [i, i]) * 2 + [p] * 4 + [i] * 4 + [p]
+    lib.mused_binned_postings_pair.restype = i
     lib.mused_cand_list_names.argtypes = []
     lib.mused_cand_list_names.restype = ctypes.c_char_p
     lib.mused_cand_lists_layout.argtypes = [i] * 4 + [p] * 4

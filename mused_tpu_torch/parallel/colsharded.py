@@ -11,9 +11,10 @@ every row block against its (block, n/p) column slice:
     row panel = broadcast of the owner rank's slice          O(block·K) bytes
     stride-binned kNN candidates over the local columns      K3 pairs / K2
       (consecutive modalities paired into one K3 launch on the card: tags
-       jaccard + text dot on standard streams; each modality's plain version
-       on the CPU) with the shard-local start and the row panel's own
-       statistics (``row_stats``)
+       jaccard + text dot on standard streams, on the postings route with
+       each shard's own postings; each modality's plain version on the
+       CPU) with the shard-local start and the row panel's own statistics
+       (``row_stats``)
     global candidate merge: max of the values, then min of the global group
       among the ranks that reach it (the single-device kernel's rule: the
       lowest group wins a tie)                                O(block·nbins)
@@ -200,11 +201,13 @@ def _adjacency_local(keeps, gwins, groups_local: int, nbins: int, axis: Axis):
 
 def _prep_local_modalities(feat_shards: tuple, types: tuple, k_basis: int, tags_dim: int,
                            text_dim: int, axis: Axis) -> list:
-    """This rank's modality descriptors [(metric, panel, valid, stats, k)]:
-    ``metric`` a K2 metric or "username" (equality, no kNN), ``stats`` the
-    (n/p,) row statistic of jaccard / chord, else None.  The same numbers
-    as the single-device column builders; the TF-IDF document frequencies
-    are the whole window's (reference matrix_operations.py:91-110)."""
+    """This rank's modality descriptors [(metric, panel, valid, stats, k,
+    postings)]: ``metric`` a K2 metric or "username" (equality, no kNN),
+    ``stats`` the (n/p,) row statistic of jaccard / chord, else None,
+    ``postings`` the local panel's (tags and text), else None.  The same
+    numbers as the single-device column builders; the TF-IDF document
+    frequencies are the whole window's (reference
+    matrix_operations.py:91-110)."""
     if types[0] == "standard_sparse":
         loc, tim, uid, tags_ids, text_ids, text_cnt, tags_valid = feat_shards
         tags = affinity.counts_from_tokens(tags_ids, None, tags_dim)
@@ -212,6 +215,7 @@ def _prep_local_modalities(feat_shards: tuple, types: tuple, k_basis: int, tags_
     elif tuple(types) == ("standard",):
         loc, tim, uid, tags, text, tags_valid = feat_shards
         tags, text = tags.float(), text.float()
+        tags_ids = text_ids = None
     else:
         return _prep_generic(feat_shards, types, k_basis)
     loc, tim, uid = loc.float(), tim.float(), uid.to(torch.int32)
@@ -224,13 +228,15 @@ def _prep_local_modalities(feat_shards: tuple, types: tuple, k_basis: int, tags_
     text = text * idf[None, :]
     text = text / torch.clamp(torch.linalg.norm(text, dim=1, keepdim=True), min=1e-12)
     tags_sums = torch.sum(tags, dim=1)           # f32, before the int8 cast
+    tags8 = bs.pad_features_128(tags.to(torch.int8))
+    text16 = bs.pad_features_128(text.to(torch.bfloat16))
     return [
-        ("chord3", ba._unit_xyz(loc, loc_valid), loc_valid, None, k_basis),
-        ("l1", tim, tim_valid, None, 3 * k_basis),
-        ("username", uid, uid >= 0, None, 0),
-        ("jaccard", bs.pad_features_128(tags.to(torch.int8)), tags_valid.to(torch.bool),
-         tags_sums, k_basis),
-        ("dot", bs.pad_features_128(text.to(torch.bfloat16)), text_valid, None, k_basis),
+        ("chord3", ba._unit_xyz(loc, loc_valid), loc_valid, None, k_basis, None),
+        ("l1", tim, tim_valid, None, 3 * k_basis, None),
+        ("username", uid, uid >= 0, None, 0, None),
+        ("jaccard", tags8, tags_valid.to(torch.bool), tags_sums, k_basis,
+         bs.build_postings(tags8, tags_ids)),
+        ("dot", text16, text_valid, None, k_basis, bs.build_postings(text16, text_ids)),
     ]
 
 
@@ -242,20 +248,20 @@ def _prep_generic(feat_shards: tuple, types: tuple, k_basis: int) -> list:
         x = x.float()
         if t == "location":
             valid = torch.all(torch.isfinite(x), dim=1)
-            mods.append(("chord3", ba._unit_xyz(x, valid), valid, None, k_basis))
+            mods.append(("chord3", ba._unit_xyz(x, valid), valid, None, k_basis, None))
         elif t == "time":
             valid = affinity.time_valid(x)
             mods.append(("l1", torch.where(valid[:, None], x, 0.0), valid, None,
-                         3 * k_basis))
+                         3 * k_basis, None))
         elif t == "embedding":
             unit, valid = affinity.normalized_embedding(x)
-            mods.append(("dot", ba.bf16_pack(unit), valid, None, k_basis))
+            mods.append(("dot", ba.bf16_pack(unit), valid, None, k_basis, None))
         else:       # default euclidean: k counts self (reference :112-119)
             valid = torch.all(torch.isfinite(x), dim=1)
             packed = ba.bf16_pack(torch.where(valid[:, None], x, 0.0))
             pf = packed.float()
             mods.append(("chord", packed, valid, torch.sum(pf * pf, dim=1),
-                         max(1, k_basis) - 1))
+                         max(1, k_basis) - 1, None))
     return mods
 
 
@@ -273,8 +279,8 @@ def _select_candidates_local(mods: list, start: int, block: int, n: int, nbins: 
     groups_local = n_local // nbins
     # the self-column test compares (start_adj + row) with the LOCAL column
     start_adj = start - axis.index * n_local
-    items, user = [], None
-    for metric, t, valid, stats, k in mods:
+    items, postings, user = [], [], None
+    for metric, t, valid, stats, k, post in mods:
         if metric == "username":
             user = (t, valid)
             continue
@@ -285,7 +291,9 @@ def _select_candidates_local(mods: list, start: int, block: int, n: int, nbins: 
         tr = _bcast_rows(t, start, block, axis)
         sr = _bcast_rows(stats, start, block, axis) if stats is not None else None
         items.append((metric, t, valid, stats, k_eff, vr, tr, sr))
-    raw = _raw_candidates(items, start_adj, nbins=nbins, block=block, use_kernel=use_kernel)
+        postings.append(post)
+    raw = _raw_candidates(items, start_adj, nbins=nbins, block=block, use_kernel=use_kernel,
+                          postings=postings)
     cands = []
     for (vals, grp), item in zip(raw, items):
         vmax, gwin = _merge_candidates(vals, grp, groups_local, axis)
@@ -294,12 +302,15 @@ def _select_candidates_local(mods: list, start: int, block: int, n: int, nbins: 
 
 
 def _raw_candidates(items: list, start_adj: int, *, nbins: int, block: int,
-                    use_kernel: bool) -> list:
+                    use_kernel: bool, postings: list | None = None) -> list:
     """Per-modality (vals, grp) of prepared items [(metric, cols, colv, stats,
     k_eff, vr, rows, row_stats)], no collectives.  ``use_kernel``: pair
-    consecutive modalities into one K3 launch (a leftover single takes K2);
-    else each modality's plain version."""
+    consecutive modalities into one K3 launch (a leftover single takes K2),
+    on the postings route where both halves have ``postings`` (per item, or
+    None) and the bin count takes them; else each modality's plain version."""
     raw = []
+    if postings is None or not bs.takes_postings(nbins):
+        postings = [None] * len(items)
     if not use_kernel:
         for m_, t_, v_, s_, _, _, tr_, sr_ in items:
             raw.append(bs.binned_candidates_plain(t_, tr_, v_, start_adj, metric=m_,
@@ -310,14 +321,19 @@ def _raw_candidates(items: list, start_adj: int, *, nbins: int, block: int,
         if i + 1 < len(items):
             ma, ta, va, sa, _, _, tra, sra = items[i]
             mb, tb, vb, sb, _, _, trb, srb = items[i + 1]
+            pa, pb = postings[i], postings[i + 1]
+            if pa is None or pb is None:        # both halves on one route
+                pa = pb = None
             vA, gA, vB, gB = bs.binned_candidates_pair(
                 ta, tb, tra, trb, va, vb, start_adj, metricA=ma, metricB=mb, nbins=nbins,
-                block=block, row_sumsA=sa, row_statsA=sra, row_sumsB=sb, row_statsB=srb)
+                block=block, row_sumsA=sa, row_statsA=sra, row_sumsB=sb, row_statsB=srb,
+                postingsA=pa, postingsB=pb)
             raw += [(vA, gA), (vB, gB)]
         else:
             m_, t_, v_, s_, _, _, tr_, sr_ = items[i]
             raw.append(bs.binned_candidates(t_, tr_, v_, start_adj, metric=m_, nbins=nbins,
-                                            block=block, row_sums=s_, row_stats=sr_))
+                                            block=block, row_sums=s_, row_stats=sr_,
+                                            postings=postings[i]))
     return raw
 
 

@@ -348,3 +348,188 @@ def test_k4_k5_self_columns_inside_the_block(with_user, cuda):
     torch.cuda.synchronize()
     assert torch.equal(out, want) and torch.equal(out_t, want_t)
     assert edges.item() == want_edges.item()
+
+
+# ---------------------------------------------------------------------------
+# the postings route (text dot, tags jaccard)
+# ---------------------------------------------------------------------------
+
+def _sparse_panel(metric, n, k, device, per_row=5, seed=11, integer=True):
+    """A panel of ``per_row`` nonzeros or fewer per row (some rows empty, one
+    row at 300 nonzeros: past the kernel's 128 terms held at once) and its
+    token ids; jaccard 0/1 counts, dot multiples of 1/4 (``integer``) or
+    random unit rows."""
+    g = torch.Generator().manual_seed(seed)
+    ids = torch.randint(0, k, (n, per_row), generator=g)
+    ids[torch.rand((n, per_row), generator=g) < 0.3] = -1
+    ids[::17] = -1                                    # empty rows
+    wide = torch.randperm(k, generator=g)[:300]
+    ids = torch.cat([ids, torch.full((n, 300 - per_row), -1, dtype=torch.long)], dim=1)
+    ids[5] = wide                                     # a row of 300 terms
+    x = torch.zeros((n, k))
+    live = ids >= 0
+    rows = torch.arange(n)[:, None].expand_as(ids)
+    if metric == "jaccard":
+        x[rows[live], ids[live]] = 1.0
+        x = x.to(torch.int8)
+        return x.to(device), ids.to(device), x.float().sum(1).to(device)
+    if integer:
+        x[rows[live], ids[live]] = (torch.randint(1, 8, (int(live.sum()),), generator=g) / 4)
+    else:
+        x[rows[live], ids[live]] = torch.rand(int(live.sum()), generator=g) + 0.05
+        x = x / x.norm(dim=1, keepdim=True).clamp(min=1e-12)
+    return x.to(torch.bfloat16).to(device), ids.to(device), None
+
+
+POSTINGS_SHAPES = [(1024, 256, 256, 256), (1536, 384, 200, 100), (2048, 2048, 128, 0)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", POSTINGS_SHAPES)
+@pytest.mark.parametrize("case", ["jaccard", "dot_integer", "dot_real"])
+def test_k2_postings_route_matches_plain(case, shape, cuda):
+    """Bit-equal to the postings plain version (the kernel's summation order)
+    always, and to the dense plain version for jaccard and integer-valued
+    dot; real dot within 1e-5 with >= 99.9% of groups and kept edges."""
+    n, nbins, block, start = shape
+    metric = "jaccard" if case == "jaccard" else "dot"
+    x, ids, sums = _sparse_panel(metric, n, 2048 if metric == "jaccard" else 4096, cuda,
+                                 integer=case != "dot_real")
+    post = bs.build_postings(x, ids)
+    valid = _valid(n, cuda)
+    rows = x[start:start + block]
+    kw = dict(metric=metric, nbins=nbins, block=block, row_sums=sums)
+    before = (bs.launches, bs.postings_launches)
+    got = bs.binned_candidates(x, rows, valid, start, postings=post, **kw)
+    again = bs.binned_candidates(x, rows, valid, start, postings=post, **kw)
+    same_order = bs.binned_candidates_postings_plain(post, rows, valid, start, **kw)
+    want = bs.binned_candidates_plain(x, rows, valid, start, **kw)
+    torch.cuda.synchronize()
+    assert (bs.launches, bs.postings_launches) == (before[0] + 2, before[1] + 2)
+    assert torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])
+    assert torch.equal(got[0], same_order[0]) and torch.equal(got[1], same_order[1])
+    if case != "dot_real":
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    else:
+        assert (got[0] - want[0]).abs().max().item() <= 1e-5
+        assert (got[1] == want[1]).float().mean().item() >= 0.999
+        rv = valid[start:start + block]
+        keep = [bs.budgeted_keep(v, rv, 5) for v in (got[0], want[0])]
+        agree = (keep[0] & keep[1]).sum() / (keep[0] | keep[1]).sum().clamp(min=1)
+        assert agree.item() >= 0.999
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("metric", ["dot", "jaccard"])
+def test_k2_postings_ties_keep_the_lowest_group(metric, cuda):
+    """Every group holds the same columns, so every slot ties across the
+    groups, which the kernel takes in steps of several groups: the lowest
+    group that is not masked (invalid or self) must win."""
+    n, nbins, block, start = 4096, 256, 256, 256
+    base, ids, sums = _sparse_panel(metric, nbins, 2048, cuda, seed=12)
+    x = base.repeat(n // nbins, 1).contiguous()
+    ids = ids.repeat(n // nbins, 1).contiguous()
+    sums = None if sums is None else sums.repeat(n // nbins).contiguous()
+    valid = torch.ones(n, dtype=torch.bool, device=cuda)
+    valid[::7] = False
+    post = bs.build_postings(x, ids)
+    rows = x[start:start + block]
+    kw = dict(metric=metric, nbins=nbins, block=block, row_sums=sums)
+    got = bs.binned_candidates(x, rows, valid, start, postings=post, **kw)
+    want = bs.binned_candidates_plain(x, rows, valid, start, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert (got[1] == 0).float().mean().item() > 0.5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("start", [-256, 1536])
+def test_k2_postings_shard_local_start_with_row_stats(start, cuda):
+    """Rows of another shard (not a slice of the panel) with their own
+    statistics, the start before this shard's columns or past them."""
+    n, nbins, block = 1024, 256, 256
+    x, ids, sums = _sparse_panel("jaccard", n + block, 2048, cuda, seed=13)
+    cols, rows = x[:n].contiguous(), x[n:].contiguous()
+    post = bs.build_postings(cols, ids[:n])
+    valid = _valid(n, cuda)
+    kw = dict(metric="jaccard", nbins=nbins, block=block, row_sums=sums[:n].contiguous(),
+              row_stats=sums[n:].contiguous())
+    got = bs.binned_candidates(cols, rows, valid, start, postings=post, **kw)
+    want = bs.binned_candidates_plain(cols, rows, valid, start, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", POSTINGS_SHAPES)
+def test_k3_postings_pair_equals_two_k2_launches(shape, cuda):
+    """Tags jaccard + text dot (the column-sharded pair) in one launch on the
+    postings route: each output bit-identical to its K2 launch."""
+    n, nbins, block, start = shape
+    tags, tids, sums = _sparse_panel("jaccard", n, 2048, cuda, seed=14)
+    text, xids, _ = _sparse_panel("dot", n, 4096, cuda, seed=15, integer=False)
+    pt, px = bs.build_postings(tags, tids), bs.build_postings(text, xids)
+    va, vb = _valid(n, cuda), _valid(n, cuda).roll(5)
+    rows = slice(start, start + block)
+    before = (bs.pair_launches, bs.postings_pair_launches)
+    pair = bs.binned_candidates_pair(tags, text, tags[rows], text[rows], va, vb, start,
+                                     metricA="jaccard", metricB="dot", nbins=nbins,
+                                     block=block, row_sumsA=sums, postingsA=pt, postingsB=px)
+    singles = (*bs.binned_candidates(tags, tags[rows], va, start, metric="jaccard",
+                                     nbins=nbins, block=block, row_sums=sums, postings=pt),
+               *bs.binned_candidates(text, text[rows], vb, start, metric="dot", nbins=nbins,
+                                     block=block, postings=px))
+    torch.cuda.synchronize()
+    assert (bs.pair_launches, bs.postings_pair_launches) == (before[0] + 1, before[1] + 1)
+    for p, s in zip(pair, singles):
+        assert torch.equal(p, s)
+
+
+@pytest.mark.cuda
+def test_k2_postings_route_against_the_dense_route_on_the_real_block(cuda):
+    """The first 2048-row block of a 98,304-row window of the synthetic
+    stream (the huge windows' shape, nbins 1536): the postings route keeps
+    >= 99.9% of the dense tensor-core route's edges, tags bit-equal."""
+    from mused_tpu_torch.data.ingest import to_device
+    from mused_tpu_torch.data.synthetic import make_stream
+    from mused_tpu_torch.engine import streaming
+    from mused_tpu_torch.utils.config import PipelineConfig
+    n, block, nbins, k = 98_304, 2048, 1536, 50
+    mods, _, _ = make_stream(n, noise_rate=0.95, binary=True, seed=0)
+    cfg = PipelineConfig(seed=0, subset_size=n, window_size=n, k_basis=k, approach="SWFDMC")
+    engine = streaming.StreamingEngine(cfg, cuda)
+    host = engine.featurize([m[:n] for m in mods], streaming.STANDARD_TYPES)
+    cols = engine.columns(host, to_device(host, cuda), streaming.STANDARD_TYPES)
+    by_kind = dict(zip(cols.kinds, zip(cols.tensors, cols.valids, cols.postings_of())))
+    for kind, metric in (("tags", "jaccard"), ("text_bf16", "dot")):
+        t, valid, post = by_kind[kind]
+        x, sums = t if isinstance(t, tuple) else (t, None)
+        kw = dict(metric=metric, nbins=nbins, block=block, row_sums=sums)
+        got = bs.binned_candidates(x, x[:block], valid, 0, postings=post, **kw)
+        dense = bs.binned_candidates(x, x[:block], valid, 0, **kw)
+        torch.cuda.synchronize()
+        keep = [bs.budgeted_keep(v, valid[:block], k) for v in (got[0], dense[0])]
+        agree = (keep[0] & keep[1]).sum() / (keep[0] | keep[1]).sum().clamp(min=1)
+        assert agree.item() >= 0.999, (kind, agree.item())
+        if metric == "jaccard":
+            assert torch.equal(got[0], dense[0]) and torch.equal(got[1], dense[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["unaligned_validity", "nbins_16384"])
+def test_k2_postings_staging_paths(case, cuda):
+    """The column validity staged byte by byte: a validity view at an odd
+    address, and a step of one group wider than 8192 columns."""
+    n, nbins, block, start = (2048, 512, 128, 640) if case == "unaligned_validity" else \
+        (32_768, 16_384, 64, 20_000)
+    x, ids, sums = _sparse_panel("jaccard", n, 2048, cuda, seed=16)
+    post = bs.build_postings(x, ids)
+    base = torch.rand(n + 1, generator=torch.Generator().manual_seed(3)) > 0.1
+    valid = base.to(cuda)[1:] if case == "unaligned_validity" else base[:n].to(cuda)
+    assert (valid.data_ptr() % 4 != 0) == (case == "unaligned_validity")
+    rows = x[start:start + block]
+    kw = dict(metric="jaccard", nbins=nbins, block=block, row_sums=sums)
+    got = bs.binned_candidates(x, rows, valid, start, postings=post, **kw)
+    want = bs.binned_candidates_plain(x, rows, valid, start, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
