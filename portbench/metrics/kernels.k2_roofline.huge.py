@@ -1,0 +1,1 @@
+from portbench.readers import k23_roofline as read  # noqa: F401
