@@ -6,7 +6,9 @@ GIL) while the device computes window w.  Each featurized numpy array
 becomes a torch tensor, pinned when the target is a CUDA device, and is
 copied with ``non_blocking=True``: the copy is enqueued on the device's
 stream and overlaps compute, and stream order makes it complete before any
-later kernel reads it.
+later kernel reads it.  While spans record (``utils/profiling``), the
+consumer's wait for a window is the span ``ingest.wait``, keyed by the
+window's position in the prefetcher's order.
 """
 from __future__ import annotations
 
@@ -17,6 +19,7 @@ import numpy as np
 import torch
 
 from mused_tpu_torch.data import features as feat
+from mused_tpu_torch.utils import profiling
 
 
 def to_device(arrays, device: torch.device) -> tuple:
@@ -62,7 +65,7 @@ class WindowPrefetcher:
         self._n = n_windows
         self._depth = max(1, depth)
         self._device = torch.device(device)
-        self._pool = cf.ThreadPoolExecutor(max_workers=1)
+        self._pool = cf.ThreadPoolExecutor(max_workers=1, thread_name_prefix="ingest")
 
     def _task(self, idx: int):
         feats = self._featurize(idx)
@@ -75,12 +78,14 @@ class WindowPrefetcher:
         while nxt < min(self._depth, self._n):
             pending.append(self._pool.submit(self._task, nxt))
             nxt += 1
-        for _ in range(self._n):
+        for pos in range(self._n):
             fut = pending.pop(0)
             if nxt < self._n:
                 pending.append(self._pool.submit(self._task, nxt))
                 nxt += 1
-            yield fut.result()
+            with profiling.span("ingest.wait", key=pos):
+                out = fut.result()
+            yield out
 
     def close(self):
         self._pool.shutdown(wait=True, cancel_futures=True)

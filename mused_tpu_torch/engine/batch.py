@@ -18,8 +18,17 @@ Randomness: one ``torch.Generator`` on the device seeded with ``seed``
 randomized SVD's test matrix or blocked spectral's probe first, then the
 k-means++ draws.  Spectral_batch runs no SVD on either path (the JAX
 package's dense path computes one that nothing reads).
+
+Spans (``utils/profiling``, while they record): the root ``batch.call``,
+keyed by the process's call number, with ``featurize`` (featurization and
+padding), ``engine.columns`` (copy, column panels and postings; device
+extent too), ``engine.reduce`` (the SVD; device extent too),
+``engine.cluster`` (clustering through the label pull) and
+``match.metrics`` (the metrics).
 """
 from __future__ import annotations
+
+import itertools
 
 import numpy as np
 import torch
@@ -33,10 +42,13 @@ from mused_tpu_torch.ops import dbscan, kmeans, reduction, spectral
 from mused_tpu_torch.ops.blocked_dbscan import dbscan_blocked
 from mused_tpu_torch.ops.kernels import blocked_select as bs
 from mused_tpu_torch.utils import metrics as metrics_mod
+from mused_tpu_torch.utils import profiling
 from mused_tpu_torch.utils.config import PipelineConfig
 
 MAX_DENSE_ROWS = 32_768  # dense (n, n) cap on one device (4.3 GB f32 at the cap)
 BLOCK_ROWS = 2_048       # rows per rebuilt block on the blocked path
+
+_calls = itertools.count()   # the key of each call's spans
 
 
 def batch_generator(seed: int, device) -> torch.Generator:
@@ -51,16 +63,21 @@ def _blocked_columns(data_modalities, modality_types, cfg: PipelineConfig, devic
     n = len(data_modalities[0])
     block = min(BLOCK_ROWS, n)
     pad = (-n) % block
-    if list(modality_types) == STANDARD_TYPES:
-        wf = feat.featurize_window(*data_modalities, cfg.features)
-        if pad:
-            wf = pad_window_features(wf, pad)
-        return ba.standard_columns(type(wf)._make(to_device(wf, device)), cfg.features), \
-            block
-    mats = [np.asarray(m, np.float32) for m in data_modalities]
-    if pad:
-        mats = [np.pad(m, ((0, pad), (0, 0)), constant_values=np.nan) for m in mats]
-    return ba.generic_columns(mats, tuple(modality_types), device), block
+    standard = list(modality_types) == STANDARD_TYPES
+    with profiling.span("featurize"):
+        if standard:
+            wf = feat.featurize_window(*data_modalities, cfg.features)
+            if pad:
+                wf = pad_window_features(wf, pad)
+        else:
+            mats = [np.asarray(m, np.float32) for m in data_modalities]
+            if pad:
+                mats = [np.pad(m, ((0, pad), (0, 0)), constant_values=np.nan) for m in mats]
+    with profiling.span("engine.columns", device=torch.device(device).type == "cuda"):
+        if standard:
+            return ba.standard_columns(type(wf)._make(to_device(wf, device)),
+                                       cfg.features), block
+        return ba.generic_columns(mats, tuple(modality_types), device), block
 
 
 def _blocked_reduce(data_modalities, modality_types, cfg: PipelineConfig,
@@ -69,9 +86,11 @@ def _blocked_reduce(data_modalities, modality_types, cfg: PipelineConfig,
     n = len(data_modalities[0])
     cols, block = _blocked_columns(data_modalities, modality_types, cfg, device)
     select, nbins = bs.resolve_select(cfg, cols.n, device)
-    return ba.blocked_svd_reduce(cols, generator, rank=cfg.reduced_dim, block=block,
-                                 k_basis=cfg.k_basis, approx_knn=cfg.huge_window_approx_knn,
-                                 select=select, nbins=nbins)[:n]
+    with profiling.span("engine.reduce", device=torch.device(device).type == "cuda"):
+        return ba.blocked_svd_reduce(cols, generator, rank=cfg.reduced_dim, block=block,
+                                     k_basis=cfg.k_basis,
+                                     approx_knn=cfg.huge_window_approx_knn,
+                                     select=select, nbins=nbins)[:n]
 
 
 def process_batch_data(results, data_modalities, modality_types, reduced_dim, k_basis,
@@ -84,62 +103,76 @@ def process_batch_data(results, data_modalities, modality_types, reduced_dim, k_
     DBSCAN_batch / HDBSCAN_batch with DBSCAN / HDBSCAN on the reduced rows,
     Spectral_batch with spectral clustering of the fused graph.  Appends
     the metrics to ``results`` and returns it."""
-    total_start = metrics_mod.now_ns()
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"device {device} requested but CUDA is not available")
-    configure_precision()      # the blocked sweeps' products stay true fp32
-    subset_size = len(data_modalities[0])
-    if cfg is None:
-        cfg = PipelineConfig(
-            seed=seed, subset_size=subset_size, noise_rate=noise_rate,
-            label_mode=label_mode, sorting=sorting, window_size=window_size,
-            reduced_dim=reduced_dim, k_basis=k_basis, approach=approach, eps=eps,
-            min_samples=min_samples, min_cluster_size=min_cluster_size)
-    # cfg is the single source of truth past this point, on both paths
-    reduced_dim, k_basis = cfg.reduced_dim, cfg.k_basis
-    eps, min_samples, min_cluster_size = cfg.eps, cfg.min_samples, cfg.min_cluster_size
-    k_max = max(int(n_clusters), 2)
-    gen = batch_generator(seed, device)
+    with profiling.span("batch.call", key=next(_calls)):
+        total_start = metrics_mod.now_ns()
+        device = torch.device(device)
+        if device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(f"device {device} requested but CUDA is not available")
+        configure_precision()      # the blocked sweeps' products stay true fp32
+        subset_size = len(data_modalities[0])
+        if cfg is None:
+            cfg = PipelineConfig(
+                seed=seed, subset_size=subset_size, noise_rate=noise_rate,
+                label_mode=label_mode, sorting=sorting, window_size=window_size,
+                reduced_dim=reduced_dim, k_basis=k_basis, approach=approach, eps=eps,
+                min_samples=min_samples, min_cluster_size=min_cluster_size)
+        # cfg is the single source of truth past this point, on both paths
+        reduced_dim, k_basis = cfg.reduced_dim, cfg.k_basis
+        k_max = max(int(n_clusters), 2)
+        gen = batch_generator(seed, device)
 
-    if subset_size > MAX_DENSE_ROWS or cfg.force_blocked_batch:
-        if approach == "Spectral_batch":     # the columns, no SVD
+        blocked = subset_size > MAX_DENSE_ROWS or cfg.force_blocked_batch
+        if blocked and approach == "Spectral_batch":     # the columns, no SVD
             cols, block = _blocked_columns(data_modalities, modality_types, cfg, device)
             select, nbins = bs.resolve_select(cfg, cols.n, device)
-            labels = bspec.spectral_clustering_blocked(
-                cols, int(n_clusters), gen, k_max=k_max, block=block, k_basis=k_basis,
-                n_real=subset_size, approx_knn=cfg.huge_window_approx_knn,
-                select=select, nbins=nbins)
-        else:
+            with profiling.span("engine.cluster"):
+                labels = _host(bspec.spectral_clustering_blocked(
+                    cols, int(n_clusters), gen, k_max=k_max, block=block, k_basis=k_basis,
+                    n_real=subset_size, approx_knn=cfg.huge_window_approx_knn,
+                    select=select, nbins=nbins))
+        elif blocked:
             reduced = _blocked_reduce(data_modalities, modality_types, cfg, gen, device)
-            if approach == "DBSCAN_batch":
-                labels = dbscan_blocked(reduced, eps=eps, min_samples=min_samples)
-            elif approach == "HDBSCAN_batch":     # Borůvka on a card, host Prim off it
-                labels = dbscan.hdbscan(reduced, min_cluster_size=min_cluster_size,
-                                        min_samples=min_samples)
-            else:
-                labels, _ = kmeans.kmeans(reduced, int(n_clusters), gen, k_max=k_max)
-    else:
-        # the streaming engine's featurize + fuse on the whole subset
-        helper = StreamingEngine(cfg.replace(window_size=max(subset_size, 2),
-                                             force_blocked_window=False), device)
-        fused = helper.fused_adjacency(data_modalities, modality_types)
-        if approach == "Spectral_batch":     # the fused graph, no SVD
-            labels = spectral.spectral_clustering(fused, int(n_clusters), gen, k_max=k_max)
+            with profiling.span("engine.cluster"):
+                labels = _host(_cluster_reduced(reduced, approach, n_clusters, gen, k_max,
+                                                cfg, blocked=True))
         else:
-            reduced = reduction.svd_reduce(fused, reduced_dim, gen)
-            del fused
-            if approach == "DBSCAN_batch":
-                labels = dbscan.dbscan(reduced, eps=eps, min_samples=min_samples)
-            elif approach == "HDBSCAN_batch":
-                labels = dbscan.hdbscan(reduced, min_cluster_size=min_cluster_size,
-                                        min_samples=min_samples)
+            # the streaming engine's featurize + fuse on the whole subset
+            helper = StreamingEngine(cfg.replace(window_size=max(subset_size, 2),
+                                                 force_blocked_window=False), device)
+            fused = helper.fused_adjacency(data_modalities, modality_types)
+            if approach == "Spectral_batch":     # the fused graph, no SVD
+                with profiling.span("engine.cluster"):
+                    labels = _host(spectral.spectral_clustering(fused, int(n_clusters), gen,
+                                                                k_max=k_max))
             else:
-                labels, _ = kmeans.kmeans(reduced, int(n_clusters), gen, k_max=k_max)
-    if isinstance(labels, torch.Tensor):
-        labels = labels.cpu().numpy()
-    total_end = metrics_mod.now_ns()
-    return metrics_mod.compute_all_metrics(
-        results, subset_size, noise_rate, label_mode, sorting, reduced_dim, k_basis,
-        window_size, np.asarray(labels), np.asarray(complete_true_labels), total_end,
-        total_start)
+                with profiling.span("engine.reduce", device=device.type == "cuda"):
+                    reduced = reduction.svd_reduce(fused, reduced_dim, gen)
+                del fused
+                with profiling.span("engine.cluster"):
+                    labels = _host(_cluster_reduced(reduced, approach, n_clusters, gen,
+                                                    k_max, cfg, blocked=False))
+        total_end = metrics_mod.now_ns()
+        with profiling.span("match.metrics"):
+            return metrics_mod.compute_all_metrics(
+                results, subset_size, noise_rate, label_mode, sorting, reduced_dim, k_basis,
+                window_size, np.asarray(labels), np.asarray(complete_true_labels),
+                total_end, total_start)
+
+
+def _cluster_reduced(reduced, approach, n_clusters, gen, k_max: int, cfg: PipelineConfig,
+                     *, blocked: bool):
+    """Labels of the reduced rows: DBSCAN (blocked on the blocked path),
+    HDBSCAN (Borůvka on a card, host Prim off it) or k-means."""
+    if approach == "DBSCAN_batch":
+        return (dbscan_blocked if blocked else dbscan.dbscan)(
+            reduced, eps=cfg.eps, min_samples=cfg.min_samples)
+    if approach == "HDBSCAN_batch":
+        return dbscan.hdbscan(reduced, min_cluster_size=cfg.min_cluster_size,
+                              min_samples=cfg.min_samples)
+    labels, _ = kmeans.kmeans(reduced, int(n_clusters), gen, k_max=k_max)
+    return labels
+
+
+def _host(labels):
+    """Labels on the host (the pull waits for the device)."""
+    return labels.cpu().numpy() if isinstance(labels, torch.Tensor) else labels

@@ -62,6 +62,12 @@ DBSCAN_centr runs the blocked SVD, blocked DBSCAN (``ops/blocked_dbscan``)
 and its own centroid matching.  A huge window runs to completion inside its
 dispatch.
 
+Spans (``utils/profiling``, while they record): each window's ``featurize``,
+keyed by its index, in whichever thread featurizes it (the ingest thread
+offline), and per huge window the counter ``memory.device_allocs``: the
+caching allocator's device allocations and frees across the window.  The
+engine's own ``timer`` spans are recorded too.
+
 Multi-device layouts (``data_shards=p``): every rank of a torch.distributed
 process group of p ranks (one per device, set up by the caller, e.g.
 ``torchrun``) runs the engine on the same stream and returns the same
@@ -98,8 +104,8 @@ from mused_tpu_torch.ops.kernels import affinity_kernel as ak
 from mused_tpu_torch.ops.kernels import blocked_select as bs
 from mused_tpu_torch.parallel import mesh as mesh_mod, sharded
 from mused_tpu_torch.utils import metrics as metrics_mod
+from mused_tpu_torch.utils import profiling
 from mused_tpu_torch.utils.config import PipelineConfig
-from mused_tpu_torch.utils.profiling import SpanTimer
 
 LARGE_WINDOW_ROWS = 32_768   # beyond this, windows take the blocked path
 LARGE_BLOCK = 2_048          # rows per rebuilt block of a huge window
@@ -561,7 +567,7 @@ class StreamingEngine:
         self.centroid_matcher = (matching.CentroidMatcher(cfg.centroid_max_dist)
                                  if cfg.matching == "centroid" else None)
         self.swfd_R: float | None = None   # recorded like reference main.py:61
-        self.timer = SpanTimer(self.device)
+        self.timer = profiling.SpanTimer(self.device)
 
     # ------------------------------------------------------------------
     def host_snapshot(self) -> dict:
@@ -614,17 +620,21 @@ class StreamingEngine:
                 "reference positional matching or the DBSCAN_centr approach")
         return stable_feature_matrix(feats_host)
 
-    def featurize(self, window_modalities, modality_types):
+    def featurize(self, window_modalities, modality_types, *, key=None,
+                  parent: str | None = None):
         """Host featurization only (runs in the ingest thread); a huge
-        window's rows are padded here with invalid rows to a block multiple."""
-        if list(modality_types) == STANDARD_TYPES:
-            wf = feat.featurize_window(*window_modalities, self.cfg.features)
-            return pad_window_features(wf, self.pad) if self.pad else wf
-        mats = tuple(np.asarray(m, np.float32) for m in window_modalities)
-        if self.pad:
-            mats = tuple(np.pad(m, ((0, self.pad), (0, 0)), constant_values=np.nan)
-                         for m in mats)
-        return mats
+        window's rows are padded here with invalid rows to a block multiple.
+        Recorded as the span ``featurize`` under ``key`` (the window index)
+        and ``parent``."""
+        with profiling.span("featurize", key=key, parent=parent):
+            if list(modality_types) == STANDARD_TYPES:
+                wf = feat.featurize_window(*window_modalities, self.cfg.features)
+                return pad_window_features(wf, self.pad) if self.pad else wf
+            mats = tuple(np.asarray(m, np.float32) for m in window_modalities)
+            if self.pad:
+                mats = tuple(np.pad(m, ((0, self.pad), (0, 0)), constant_values=np.nan)
+                             for m in mats)
+            return mats
 
     def fuse_from_features(self, feats_host, feats_dev: tuple, modality_types,
                            use_kernel: bool | None = None) -> torch.Tensor:
@@ -657,9 +667,13 @@ class StreamingEngine:
         A huge window runs to completion here (its matching needs
         ``prev_clusters``)."""
         if self.huge:
+            allocs = self._device_allocs()
             clusters = self.process_window_large(feats_host, feats_dev, modality_types,
                                                  window_true_labels, window_index,
                                                  prev_clusters)
+            after = self._device_allocs()
+            if allocs is not None and after is not None:
+                profiling.counter("memory.device_allocs", after - allocs, key=window_index)
             return _PendingWindow(window_index=window_index, clusters=clusters,
                                   state=self.state)
         cfg = self.cfg
@@ -770,6 +784,15 @@ class StreamingEngine:
         if verbose:   # reference main.py:107-112 (matched labels)
             print(f"[window {window_index}] matched clusters: {np.asarray(clusters)}")
         return np.asarray(clusters)
+
+    def _device_allocs(self) -> int | None:
+        """The caching allocator's device allocations and frees so far
+        (cudaMalloc, cudaFree), read only while spans record on a CUDA
+        device, else None.  Its peak statistics are never reset here."""
+        if self.device.type != "cuda" or not profiling.on():
+            return None
+        stats = torch.cuda.memory_stats(self.device)
+        return stats["num_device_alloc"] + stats["num_device_free"]
 
     @property
     def col_layout(self) -> bool:
@@ -940,7 +963,7 @@ def _run_batched(engine: StreamingEngine, todo: list, data_modalities, modality_
     def group_at(gpos: int) -> tuple:
         return stack_window_features([
             tuple(engine.featurize([m[i - n + 1:i + 1] for m in data_modalities],
-                                   modality_types)) for _, i in group_of(gpos)])
+                                   modality_types, key=w)) for w, i in group_of(gpos)])
 
     def finalize(group: list, n_real: int, labels, r_norms) -> None:
         nonlocal prev_clusters
@@ -1111,9 +1134,9 @@ def _run_per_window(engine: StreamingEngine, todo: list, data_modalities, modali
     window_size = cfg.window_size
 
     def featurize_at(pos: int):
-        i = todo[pos][1]
+        w, i = todo[pos]
         return engine.featurize([m[i - window_size + 1:i + 1] for m in data_modalities],
-                                modality_types)
+                                modality_types, key=w)
 
     def finish(pending: _PendingWindow) -> None:
         """Pull + match one dispatched window; checkpoint its post-state."""

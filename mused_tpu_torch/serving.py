@@ -34,7 +34,14 @@ same engine for production use:
     distance-to-centroid distribution get event id -1 ("no event"), which
     matching passes through;
   * ``save()`` / ``load()`` checkpoint the whole detector (device sketch
-    state, matcher state, the raw-record tail the next windows need).
+    state, matcher state, the raw-record tail the next windows need);
+  * while spans record (``utils/profiling``), each window's root span
+    ``serving.window`` runs from its fire to the return of its result,
+    tiled by ``serving.queue_wait`` (fire to the worker's start),
+    ``featurize``, ``engine.enqueue`` (copy and dispatch, host),
+    ``serving.held`` (enqueue end to finalize start: the ``max_lag`` hold
+    and any device tail) and ``serving.finalize`` (label pull, matching,
+    event ids), all keyed by the window index.
 
 The worker thread launches device work and the caller thread pulls labels
 on the same (the current) CUDA stream, so window order holds; readiness is
@@ -49,6 +56,7 @@ import dataclasses
 import math
 import queue
 import threading
+import time
 from typing import NamedTuple, Sequence
 
 import numpy as np
@@ -56,7 +64,10 @@ import torch
 
 from mused_tpu_torch.data.ingest import to_device
 from mused_tpu_torch.engine import streaming as engine_mod
+from mused_tpu_torch.utils import profiling
 from mused_tpu_torch.utils.config import FeatureConfig, PipelineConfig
+
+WINDOW_SPAN = "serving.window"
 
 
 class _DispatchWorker:
@@ -191,8 +202,9 @@ class StreamDetector:
             cfg, standard_types=list(self.modality_types) == engine_mod.STANDARD_TYPES,
             backend=self.engine.device.type)
         self._scan_types = engine_mod.scanned_types_for(self.modality_types, cfg.features)
-        # (row_start, window index, window rows) fired and awaiting a full group
-        self._gbuf: list[tuple[int, int, list[np.ndarray]]] = []
+        # (row_start, window index, window rows, fire time) fired and awaiting
+        # a full group
+        self._gbuf: list[tuple[int, int, list[np.ndarray], int]] = []
         # retention: per-modality lists of immutable pushed chunks covering
         # at least the last window_size rows (see push())
         self._rchunks: list[list[np.ndarray]] = [[] for _ in self.modality_types]
@@ -207,6 +219,9 @@ class StreamDetector:
         # caller thread (one producer, one consumer; deque ops are atomic)
         self._pending: collections.deque[tuple] = collections.deque()
         self._seen_events: set[int] = set()
+        # window index -> (fire time, enqueue end), both time.time_ns(): kept
+        # by the worker while spans record, for the finalize-side spans
+        self._stamps: dict[int, tuple[int, int]] = {}
         # labels are never consulted (k_estimate is label-free); this array
         # only fills the engine's signature
         self._dummy_labels = np.zeros(cfg.window_size, np.int64)
@@ -297,16 +312,17 @@ class StreamDetector:
     def _fire(self, i: int, window: list[np.ndarray]) -> list[WindowResult]:
         """Dispatch the window ending at absolute index ``i``; finalize any
         windows beyond the ``max_lag`` pipeline depth."""
+        fired = time.time_ns()
         row_start = i + 1 - self.cfg.window_size
         widx = self._window_index
         self._window_index += 1
         if self._batch_w > 1:
-            self._gbuf.append((row_start, widx, window))
+            self._gbuf.append((row_start, widx, window, fired))
             if len(self._gbuf) == self._batch_w:
                 group, self._gbuf = self._gbuf, []
                 self._submit(lambda: self._dispatch_group(group))
         else:
-            self._submit(lambda: self._dispatch_one(row_start, widx, window))
+            self._submit(lambda: self._dispatch_one(row_start, widx, window, fired))
         return self._drain_ready()
 
     def _drain_ready(self) -> list[WindowResult]:
@@ -324,16 +340,23 @@ class StreamDetector:
             out.append(self._finalize_oldest())
         return out
 
-    def _dispatch_one(self, row_start: int, widx: int, rows: list[np.ndarray]) -> None:
+    def _dispatch_one(self, row_start: int, widx: int, rows: list[np.ndarray],
+                      fired: int) -> None:
         """Featurize, copy to the device and dispatch one window (on the
         worker thread when asynchronous).  A dense dispatch reads no previous
         labels (matching is finalize-side)."""
         eng = self.engine
-        host = eng.featurize(rows, self.modality_types)
-        pending = eng.dispatch_window(host, to_device(host, eng.device),
-                                      self.modality_types, self._dummy_labels, widx,
-                                      self._prev_clusters)
-        self._pending.append((row_start, pending, self._recorded_event()))
+        profiling.interval("serving.queue_wait", fired, time.time_ns(), key=widx,
+                           parent=WINDOW_SPAN)
+        host = eng.featurize(rows, self.modality_types, key=widx, parent=WINDOW_SPAN)
+        with profiling.span("engine.enqueue", key=widx, parent=WINDOW_SPAN):
+            pending = eng.dispatch_window(host, to_device(host, eng.device),
+                                          self.modality_types, self._dummy_labels, widx,
+                                          self._prev_clusters)
+            event = self._recorded_event()
+        if profiling.on():
+            self._stamps[widx] = (fired, time.time_ns())
+        self._pending.append((row_start, pending, event))
 
     def _recorded_event(self):
         """A CUDA event recorded after the work enqueued so far (None off the card)."""
@@ -347,19 +370,45 @@ class StreamDetector:
         """Featurize a full group, move it to the device stacked and dispatch
         it as one group call (on the worker thread when asynchronous)."""
         eng = self.engine
-        host = [eng.featurize(rows, self.modality_types) for _, _, rows in group]
+        started = time.time_ns()
+        for _, widx, _, fired in group:
+            profiling.interval("serving.queue_wait", fired, started, key=widx,
+                               parent=WINDOW_SPAN)
+        host = [eng.featurize(rows, self.modality_types, key=widx, parent=WINDOW_SPAN)
+                for _, widx, rows, _ in group]
+        enqueue = time.time_ns()
         feats = to_device(engine_mod.stack_window_features([tuple(h) for h in host]),
                           eng.device)
         k, k_source = eng._k_plan(self._dummy_labels)
         labels, r_norms = engine_mod.scanned_group_dispatch(
-            eng, feats, [k] * len(group), [w for _, w, _ in group], types=self._scan_types,
-            k_source=k_source)
+            eng, feats, [k] * len(group), [w for _, w, _, _ in group],
+            types=self._scan_types, k_source=k_source)
         handle = _GroupHandle(labels, r_norms, self._recorded_event())
-        for pos, ((row_start, widx, _), h) in enumerate(zip(group, host)):
+        enqueued = time.time_ns()
+        for _, widx, _, fired in group:    # the group's enqueue, once per member
+            profiling.interval("engine.enqueue", enqueue, enqueued, key=widx,
+                               parent=WINDOW_SPAN)
+            if profiling.on():
+                self._stamps[widx] = (fired, enqueued)
+        for pos, ((row_start, widx, _, _), h) in enumerate(zip(group, host)):
             self._pending.append((row_start, widx, eng._stable_feats(h), handle, pos))
 
     def _finalize_oldest(self) -> WindowResult:
         entry = self._pending.popleft()
+        widx = entry[1].window_index if len(entry) == 3 else entry[1]
+        start = time.time_ns()
+        with profiling.span("serving.finalize", key=widx, parent=WINDOW_SPAN):
+            result = self._finalize(entry)
+        end = time.time_ns()
+        stamps = self._stamps.pop(widx, None)
+        if stamps is not None:
+            fired, enqueued = stamps
+            profiling.interval("serving.held", enqueued, start, key=widx,
+                               parent=WINDOW_SPAN)
+            profiling.interval(WINDOW_SPAN, fired, end, key=widx)
+        return result
+
+    def _finalize(self, entry) -> WindowResult:
         eng = self.engine
         if len(entry) == 3:
             row_start, pending, _ = entry
@@ -392,8 +441,8 @@ class StreamDetector:
         then a partial group dispatches window by window."""
         if self._worker is not None:
             self._worker.drain()
-        for row_start, widx, rows in self._gbuf:
-            self._dispatch_one(row_start, widx, rows)
+        for row_start, widx, rows, fired in self._gbuf:
+            self._dispatch_one(row_start, widx, rows, fired)
         self._gbuf = []
         out = []
         while self._pending:

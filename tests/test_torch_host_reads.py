@@ -1,8 +1,8 @@
 """The port's host waits that the JAX package does not have, repaired:
 
   * the default ``SpanTimer`` never calls ``torch.cuda.synchronize``, even
-    on a CUDA device (it waits only for a ``sync=`` tree, as the JAX
-    package's does); ``sync_all=True`` synchronizes at every span end;
+    on a CUDA device and while its spans are recorded
+    (``utils/profiling``); ``sync_all=True`` synchronizes at every span end;
   * Lloyd's loop (``ops/kmeans.kmeans``) reads the device, through
     ``Tensor.__bool__``, at most ceil(steps / m) times for m =
     ``CHECK_EVERY`` in {4, 8, 16}, where steps is the number of steps the
@@ -26,6 +26,7 @@ from mused_tpu.ops import kmeans as jkm
 from mused_tpu_torch.engine import streaming as ts
 from mused_tpu_torch.ops import kmeans as tkm
 from mused_tpu_torch.utils.config import PipelineConfig
+from mused_tpu_torch.utils import profiling
 from mused_tpu_torch.utils.profiling import SpanTimer
 from torch_parity import integer_kmeans_case, reference_lloyd
 
@@ -37,13 +38,16 @@ def test_default_span_timer_never_synchronizes(monkeypatch):
     for name in ("fuse", "device_step", "device_sync"):
         with timer.span(name):
             pass
-    with timer.span("tree", sync=[torch.zeros(2), {"a": torch.ones(1)}]):
-        pass
-    with timer.span("made_inside", sync=lambda: torch.zeros(1)):
-        pass
+    profiling.clear()
+    with profiling.recording():
+        for name in ("fuse", "reduce"):
+            with timer.span(name):
+                pass
+    assert [r.name for r in profiling.recorded()] == ["fuse", "reduce"]
+    profiling.clear()
     assert calls == []
     assert {k: v["count"] for k, v in timer.summary().items()} == {
-        "fuse": 1, "device_step": 1, "device_sync": 1, "tree": 1, "made_inside": 1}
+        "fuse": 2, "device_step": 1, "device_sync": 1, "reduce": 1}
     assert not ts.StreamingEngine(PipelineConfig(window_size=64), "cpu").timer.sync_all
     opted_in = SpanTimer("cuda", sync_all=True)
     with opted_in.span("fuse"):
