@@ -63,11 +63,14 @@ Phases (any failure exits non-zero; no phase is skipped):
       (tags, text) and K3 (tags + text) on the same panels and its K4 / K5
       on the same block and operands, in a subprocess, in turns (earlier,
       this, earlier), its K2 bit-equal to this tree's tensor-core route and
-      its K4 / K5 integers bit-equal;
+      its K4 / K5 integers bit-equal; the union kernel writing the block's
+      f32 rows from its candidates, bit-equal to the plain composition of
+      the same candidates, its time against the bytes it writes and reads
+      (i4 repeats it at the batch subset's shape);
   (f) ``api.process_streaming_data`` on the card over that stream at
       window 98,304: SWFDMC with the candidate-native fold (exactly 96 K2,
       48 K3, 96 K4, 48 K5 and 48 list builds per window) and sSVDMC on the binned
-      blocked SVD (576 K2 and 288 K3 per window), every K2 on the postings
+      blocked SVD (576 K2, 288 K3 and 288 union blocks per window), every K2 on the postings
       route; 2 native hasher calls per window; metrics in [0, 1]; one more
       SWFDMC window's host syncs by call site under
       ``torch.cuda.set_sync_debug_mode("warn")``, none in
@@ -804,6 +807,38 @@ def k3_check(xyz, lv, tim, tv, *, start: int, block: int, nbins: int, per_window
     return row
 
 
+def union_check(cols: ba.Columns, *, start: int, block: int, nbins: int, tag: str) -> dict:
+    """The union kernel writing one block's f32 rows (the blocked SVD's
+    operand) from its K2 / K3 candidates, bit-equal to the plain composition
+    of the same candidates (the broadcast union, the username strip, the
+    casts through bf16); times and bound (the bytes written and read; one
+    comparison per plane and the uid's per element)."""
+    n = cols.n
+    cand = ba.candidate_rowblock(cols, start, block, K_BASIS, nbins)
+    uid, valid = (x[cols.kinds.index("username")] for x in (cols.tensors, cols.valids))
+    rows = slice(start, start + block)
+    own = (start + torch.arange(block, device=uid.device))[:, None] \
+        != torch.arange(n, device=uid.device)[None, :]
+
+    def plain():
+        adj = bs.adjacency_from_candidates([s >= 0 for s in cand.slabs], list(cand.slabs), n)
+        adj = adj | ((uid[rows, None] == uid[None, :]) & valid[rows, None] & valid[None, :]
+                     & own)
+        return adj.to(torch.bfloat16).float()
+
+    planes = cand.slabs.shape[0]
+    row = {"n": n, "start": start, "nbins": nbins, "planes": planes,
+           "bit_equal": bool(torch.equal(bs.union_rowblock(cand), plain())),
+           "ms": cuda_ms(lambda: bs.union_rowblock(cand)),
+           "plain_ms": cuda_ms(plain, reps=3, warmup=1)}
+    nbytes = block * n * 4 + cand.slabs.numel() + cand.uid_cols.numel() * 4 + block * 4
+    with_bound(row, bound(block * n * (planes + 1), "fp32_instr", nbytes))
+    print(f"[{tag}] union", json.dumps(row), flush=True)
+    if not row["bit_equal"]:
+        raise AssertionError(f"the union kernel disagrees with the plain composition: {row}")
+    return row
+
+
 def phase_e(cols: ba.Columns, device, parent: str | None = None, profile: bool = False,
             feats: tuple | None = None) -> dict:
     print(f"[e] card: {nvidia_smi_line()}", flush=True)
@@ -868,6 +903,7 @@ def phase_e(cols: ba.Columns, device, parent: str | None = None, profile: bool =
     out["K3"] = k3_check(xyz, lv, tim, tv, start=start, block=block, nbins=nbins,
                          per_window={"SWFDMC": BLOCKS_PER_WINDOW,
                                      "sSVDMC": SSVD_SWEEPS * BLOCKS_PER_WINDOW})
+    out["union"] = union_check(cols, start=start, block=block, nbins=nbins, tag="e")
 
     cand = ba.candidate_rowblock(cols, start, block, K_BASIS, nbins)
     dense = cm.dense_rows_reference(cand)
@@ -1248,6 +1284,7 @@ def phase_f(mods, mtypes, labels, device, approach: str, n_records: int,
                               "K5": 0, "lists": 0})
     out = {"approach": approach, "records": n_records, "windows": windows,
            "launches": counts, "k1_launches": ak.launches,
+           "union_launches": bs.union_launches,
            "native_hasher_calls": native.calls - hashed, "seconds": secs,
            "windows_per_s": windows / secs, "rows_per_s": windows * HUGE_WINDOW / secs,
            "nmi": res["nmi_score"][0], "nmi_e": res["nmi_e_score"][0],
@@ -1258,6 +1295,9 @@ def phase_f(mods, mtypes, labels, device, approach: str, n_records: int,
     if counts != want or ak.launches:
         raise AssertionError(f"{approach}: launches {counts} (K1 {ak.launches}), "
                              f"expected {want} and no K1")
+    union = 0 if approach == "SWFDMC" else sweeps * blocks * windows   # one per swept block
+    if bs.union_launches != union:
+        raise AssertionError(f"{approach}: {bs.union_launches} union launches, expected {union}")
     if out["native_hasher_calls"] != 2 * windows:
         raise AssertionError(f"featurization did not run the native hasher: {out}")
     metric_vals = [out[k] for k in ("nmi", "nmi_e", "f1", "f1_aligned")]
@@ -1926,6 +1966,7 @@ def phase_i4(mods, mtypes, device, parent: str | None = None) -> dict:
         earlier=out["K2_per_block"].get("earlier_tree", {}).get("earlier_ms"))
     out["K3"] = k3_check(xyz, lv, tim, tv, start=start, block=block, nbins=nbins,
                          per_window=per, tag="i4")
+    out["union"] = union_check(cols, start=start, block=block, nbins=nbins, tag="i4")
     del cols, xyz, tim, tags, sums, text, by_kind, by_post
     torch.cuda.empty_cache()
 
@@ -3649,6 +3690,16 @@ def main() -> int:
         "with_products": timed([kernels_e["lists"]] + k4_main + k5_main,
                                "one block's list build and its three fold products: the "
                                "slabs read once, by the list build"),
+    }, {
+        "name": "union_rowblock", "route": "cuda",
+        "source": "mused_tpu_torch/csrc/blocked_select.cu",
+        "replaces": "no TPU kernel: the plain union of fused_rowblock "
+                    "(mused_tpu/ops/blocked_affinity.py)",
+        "launches": sum(r["union_launches"] for r in huge_runs),
+        "bit_equal": kernels_e["union"]["bit_equal"] and kernels_i["union"]["bit_equal"],
+        **timed([kernels_e["union"]], "one 2048-row block's f32 rows from its candidates"),
+        "at_batch_subset": timed([kernels_i["union"]], f"the same at n = {BATCH_PADDED_ROWS}, "
+                                                       f"nbins = {BATCH_NBINS} (phase i4)"),
     }]
     missing = [k["name"] for k in kernels if k["launches"] <= 0]
     if missing:

@@ -1,6 +1,8 @@
 // Stride-binned kNN candidates for one row block of a huge window: similarity
 // tile -> mask -> max-accumulate into nbins residue bins, keeping the winning
 // group id.  The (block, n) similarity strip never reaches device memory.
+// Beside them, the union kernel writes a rebuilt row block of the fused
+// adjacency from the kept candidates in one pass (its own section below).
 //
 // Replaces the TPU kernels mused_tpu/ops/pallas/blocked_select.py:
 // binned_candidates_pallas (K2: _kernel, _sim_tile, _stat_operands) and
@@ -1317,6 +1319,229 @@ bool postings_shape_ok(int n, int block, int nbins, int metric, int k) {
          (metric == kDot || metric == kJaccard);
 }
 
+// ---------------------------------------------------------------------------
+// the fused row block: candidate slabs + username equality, written once
+// ---------------------------------------------------------------------------
+//
+// Element (r, c = g * nbins + s) of rows [start, start+block) is
+//   OR_m (slab_m[r, s] == g) | (uid_rows[r] == uid_cols[g, s] & start + r != (g0 + g) * nbins + s)
+// (cand_matvec.dense_rows_reference), stored as 0 / 1 in bool, bf16 or f32.
+// A warp owns kUnionRows rows of 512 consecutive slots; each thread keeps
+// its 16 slots' slab bytes in registers, so each slab byte is read once,
+// then walks the groups: per group it reads its slots' uid_cols (from L2:
+// groups x nbins int32, 0.6 MB) and writes its rows' 16 columns with 16-byte
+// stores.  A thread's 16 slots are units of one store each (16 bool, 8 bf16
+// or 4 f32 slots), the warp's lanes side by side in every unit, so each
+// store instruction of a warp writes 512 consecutive bytes.  The slab test
+// takes four slots per instruction (__vcmpeq4 against g in every byte; -1
+// is no group id).  The stores stream past L2 (st.global.cs), which keeps
+// the slabs and uid_cols there.  Bounded by the bytes written: 2048 x
+// 151,552 f32 is 1.24 GB, 0.37 ms at 3.35 TB/s (0.24 ms at n = 98,304); the
+// slabs and uids read add 3%.  No (block, n) intermediate exists.
+
+constexpr int kUnionWords = 4;                          // 4 slots each: 16 slots per thread
+constexpr int kUnionWarpSlots = 32 * 4 * kUnionWords;   // 512 consecutive slots per warp
+constexpr int kUnionRows = 2;                           // rows per thread
+constexpr int kUnionThreads = 256;
+constexpr int kUnionMaxPlanes = 8;                      // slab planes held in registers
+enum UnionOut { kUnionBool = 0, kUnionBf16 = 1, kUnionF32 = 2 };
+
+struct UnionArgs {
+  const uint8_t* slabs;   // (planes, block, nbins) int8 group ids, -1 where none
+  const int* uid_rows;    // (block,), or null: no username term
+  const int* uid_cols;    // (groups, nbins)
+  uint8_t* out;           // (block, groups * nbins)
+  int planes, block, nbins, groups, start, g0;
+  bool vec;               // nbins % 16 == 0 and 16-byte aligned pointers
+};
+
+template <int OUT>
+__host__ __device__ constexpr int union_bytes() {
+  return OUT == kUnionBool ? 1 : (OUT == kUnionBf16 ? 2 : 4);
+}
+
+// Slot offset of word q (4 slots) of a lane in its warp's 512 slots: units
+// of 16 / bytes slots, a unit of every lane side by side.
+template <int OUT>
+__device__ __forceinline__ int union_word_slot(int q, int lane) {
+  constexpr int kUnit = 16 / union_bytes<OUT>();   // slots per 16-byte store
+  constexpr int kWordsPerUnit = kUnit / 4;
+  return (q / kWordsPerUnit) * 32 * kUnit + lane * kUnit + (q % kWordsPerUnit) * 4;
+}
+
+// One 16-byte store of unit k from the byte masks (0xFF or 0 per slot): 1 is
+// bool 0x01, bf16 0x3F80, f32 0x3F800000.
+template <int OUT>
+__device__ __forceinline__ uint4 union_unit(const uint32_t (&w)[kUnionWords], int k) {
+  if constexpr (OUT == kUnionBool) {
+    return make_uint4(w[0] & 0x01010101u, w[1] & 0x01010101u, w[2] & 0x01010101u,
+                      w[3] & 0x01010101u);
+  } else if constexpr (OUT == kUnionBf16) {
+    const uint32_t a = w[2 * k], b = w[2 * k + 1];
+    return make_uint4(__byte_perm(a, 0, 0x1100) & 0x3F803F80u,
+                      __byte_perm(a, 0, 0x3322) & 0x3F803F80u,
+                      __byte_perm(b, 0, 0x1100) & 0x3F803F80u,
+                      __byte_perm(b, 0, 0x3322) & 0x3F803F80u);
+  } else {
+    const uint32_t a = w[k];
+    return make_uint4(__byte_perm(a, 0, 0x0000) & 0x3F800000u,
+                      __byte_perm(a, 0, 0x1111) & 0x3F800000u,
+                      __byte_perm(a, 0, 0x2222) & 0x3F800000u,
+                      __byte_perm(a, 0, 0x3333) & 0x3F800000u);
+  }
+}
+
+template <int M, int OUT>
+__global__ void __launch_bounds__(kUnionThreads) union_rowblock_kernel(
+    const __grid_constant__ UnionArgs a) {
+  constexpr int kBytes = union_bytes<OUT>();
+  constexpr int kUnits = kUnionWords * 4 * kBytes / 16;
+  const int lane = threadIdx.x & 31;
+  const int chunks = (a.nbins + kUnionWarpSlots - 1) / kUnionWarpSlots;
+  const long long warp = (static_cast<long long>(blockIdx.x) * kUnionThreads + threadIdx.x) >> 5;
+  const int r0 = static_cast<int>(warp / chunks) * kUnionRows;
+  if (r0 >= a.block) return;
+  const int base = static_cast<int>(warp % chunks) * kUnionWarpSlots;
+  const int n = a.groups * a.nbins;
+  const bool user = a.uid_rows != nullptr;
+  int slot[kUnionWords];      // each word's first slot; a word lies wholly in or past nbins
+#pragma unroll
+  for (int q = 0; q < kUnionWords; ++q) slot[q] = base + union_word_slot<OUT>(q, lane);
+  uint32_t slab[M][kUnionRows][kUnionWords];
+  int urow[kUnionRows], self_g[kUnionRows], self_q[kUnionRows], self_b[kUnionRows];
+#pragma unroll
+  for (int rr = 0; rr < kUnionRows; ++rr) {
+    const int r = r0 + rr;
+    const bool live = r < a.block;
+#pragma unroll
+    for (int m = 0; m < M; ++m) {
+      const bool held = live && m < a.planes;   // planes past a.planes hold no group
+      const uint8_t* src = a.slabs + (static_cast<size_t>(m) * a.block + r) * a.nbins;
+#pragma unroll
+      for (int q = 0; q < kUnionWords; ++q) {
+        uint32_t word = 0xFFFFFFFFu;   // -1 in every slot: no group
+        if (held && a.vec) {
+          if (slot[q] < a.nbins) word = __ldg(reinterpret_cast<const uint32_t*>(src + slot[q]));
+        } else if (held) {
+#pragma unroll
+          for (int b = 0; b < 4; ++b)
+            if (slot[q] + b < a.nbins)
+              word = (word & ~(0xFFu << (8 * b))) |
+                     (static_cast<uint32_t>(src[slot[q] + b]) << (8 * b));
+        }
+        slab[m][rr][q] = word;
+      }
+    }
+    urow[rr] = live && user ? a.uid_rows[r] : 0;
+    // the row's own column, local to this shard's groups: (group, word, byte)
+    const int own = a.start + r - a.g0 * a.nbins;
+    const bool inside = live && own >= 0 && own < n;
+    self_g[rr] = inside ? own / a.nbins : -1;
+    self_q[rr] = -1;
+    self_b[rr] = 0;
+#pragma unroll
+    for (int q = 0; q < kUnionWords; ++q) {
+      const int d = own - self_g[rr] * a.nbins - slot[q];
+      if (inside && d >= 0 && d < 4) {
+        self_q[rr] = q;
+        self_b[rr] = d;
+      }
+    }
+  }
+  for (int g = 0; g < a.groups; ++g) {
+    const uint32_t gg = 0x01010101u * static_cast<uint32_t>(g);
+    int uc[kUnionWords][4];
+    if (user) {
+      const int* src = a.uid_cols + static_cast<size_t>(g) * a.nbins;
+#pragma unroll
+      for (int q = 0; q < kUnionWords; ++q) {
+        if (a.vec) {
+          const int4 v = slot[q] < a.nbins ? __ldg(reinterpret_cast<const int4*>(src + slot[q]))
+                                           : make_int4(0, 0, 0, 0);
+          uc[q][0] = v.x;
+          uc[q][1] = v.y;
+          uc[q][2] = v.z;
+          uc[q][3] = v.w;
+        } else {
+#pragma unroll
+          for (int b = 0; b < 4; ++b) uc[q][b] = slot[q] + b < a.nbins ? src[slot[q] + b] : 0;
+        }
+      }
+    }
+#pragma unroll
+    for (int rr = 0; rr < kUnionRows; ++rr) {
+      const int r = r0 + rr;
+      if (r >= a.block) break;
+      uint32_t w[kUnionWords];
+#pragma unroll
+      for (int q = 0; q < kUnionWords; ++q) {
+        uint32_t x = 0;
+#pragma unroll
+        for (int m = 0; m < M; ++m) x |= __vcmpeq4(slab[m][rr][q], gg);
+        if (user) {
+          uint32_t u = 0;
+#pragma unroll
+          for (int b = 0; b < 4; ++b)
+            if (uc[q][b] == urow[rr]) u |= 0xFFu << (8 * b);
+          if (g == self_g[rr] && q == self_q[rr])   // not the row's own column
+            u &= ~(0xFFu << (8 * self_b[rr]));
+          x |= u;
+        }
+        w[q] = x;
+      }
+      uint8_t* row = a.out + (static_cast<size_t>(r) * n + static_cast<size_t>(g) * a.nbins) *
+                                 kBytes;
+      if (a.vec) {
+#pragma unroll
+        for (int k = 0; k < kUnits; ++k) {
+          const int s = slot[k * kUnionWords / kUnits];   // the unit's first slot
+          if (s < a.nbins)
+            __stcs(reinterpret_cast<uint4*>(row + static_cast<size_t>(s) * kBytes),
+                   union_unit<OUT>(w, k));
+        }
+      } else {
+#pragma unroll
+        for (int q = 0; q < kUnionWords; ++q) {
+#pragma unroll
+          for (int b = 0; b < 4; ++b) {
+            const int s = slot[q] + b;
+            if (s >= a.nbins) continue;
+            const bool on = (w[q] >> (8 * b)) & 1u;
+            if constexpr (OUT == kUnionBool)
+              row[s] = on;
+            else if constexpr (OUT == kUnionBf16)
+              reinterpret_cast<uint16_t*>(row)[s] = on ? 0x3F80u : 0u;
+            else
+              reinterpret_cast<uint32_t*>(row)[s] = on ? 0x3F800000u : 0u;
+          }
+        }
+      }
+    }
+  }
+}
+
+template <int M>
+cudaError_t launch_union_planes(const UnionArgs& a, int out, dim3 grid, cudaStream_t s) {
+  if (out == kUnionBool)
+    union_rowblock_kernel<M, kUnionBool><<<grid, kUnionThreads, 0, s>>>(a);
+  else if (out == kUnionBf16)
+    union_rowblock_kernel<M, kUnionBf16><<<grid, kUnionThreads, 0, s>>>(a);
+  else
+    union_rowblock_kernel<M, kUnionF32><<<grid, kUnionThreads, 0, s>>>(a);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_union(const UnionArgs& a, int out, cudaStream_t s) {
+  const long long warps = static_cast<long long>((a.block + kUnionRows - 1) / kUnionRows) *
+                          ((a.nbins + kUnionWarpSlots - 1) / kUnionWarpSlots);
+  const dim3 grid(static_cast<unsigned>((32 * warps + kUnionThreads - 1) / kUnionThreads));
+  // planes rounded up to 1, 2, 4 or 8 held in registers: the extra hold no group
+  if (a.planes <= 2) return a.planes == 1 ? launch_union_planes<1>(a, out, grid, s)
+                                          : launch_union_planes<2>(a, out, grid, s);
+  return a.planes <= 4 ? launch_union_planes<4>(a, out, grid, s)
+                       : launch_union_planes<8>(a, out, grid, s);
+}
+
 using EncodeTiledFn = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
                                    const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
                                    const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
@@ -1663,6 +1888,28 @@ int mused_binned_postings_pair(const void* rows_a, const void* table_a, const vo
                    static_cast<float*>(vals_b), static_cast<int8_t*>(grp_b), k_b, metric_b};
   return static_cast<int>(
       launch_postings(a, b, 2, n, block, nbins, start, static_cast<cudaStream_t>(stream)));
+}
+
+
+// The fused row block (block, groups * nbins) of a candidate block: slabs
+// (planes, block, nbins) int8 (group id or -1), uid_rows (block,) int32 or
+// null (no username term), uid_cols (groups, nbins) int32; `start` is the
+// rows' global index and `g0` the global id of local group 0, both for the
+// self test only.  out_dtype: 0 bool, 1 bf16, 2 f32.  Returns
+// cudaGetLastError() after the launch.
+int mused_union_rowblock(const void* slabs, const void* uid_rows, const void* uid_cols,
+                         void* out, int planes, int block, int nbins, int groups, int start,
+                         int g0, int out_dtype, void* stream) {
+  if (planes < 1 || planes > kUnionMaxPlanes || block <= 0 || nbins <= 0 || groups <= 0 ||
+      groups > 127 || out_dtype < kUnionBool || out_dtype > kUnionF32)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const auto aligned = [](const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; };
+  const bool vec = nbins % 16 == 0 && aligned(slabs) && aligned(out) &&
+                   (uid_rows == nullptr || aligned(uid_cols));
+  const UnionArgs a{static_cast<const uint8_t*>(slabs), static_cast<const int*>(uid_rows),
+                    static_cast<const int*>(uid_cols), static_cast<uint8_t*>(out), planes,
+                    block, nbins, groups, start, g0, vec};
+  return static_cast<int>(launch_union(a, out_dtype, static_cast<cudaStream_t>(stream)));
 }
 
 }  // extern "C"

@@ -21,7 +21,12 @@ Two routes build a block's kNN candidates per modality:
 The binned route feeds either a dense (block, n) block
 (:func:`fused_rowblock`) or, for the FD fold, a candidate-form block
 (:func:`candidate_rowblock`) whose products run straight off int8 slabs
-(K4 / K5, ``ops/kernels/cand_matvec`` via ``fd.shrink_rr_cands``).
+(K4 / K5, ``ops/kernels/cand_matvec`` via ``fd.shrink_rr_cands``).  On a
+CUDA device a dense binned block whose modalities the candidate form holds
+(:func:`union_kernel_ok`) is that candidate block written out once by the
+union kernel (``blocked_select.union_rowblock``), in the consumer's dtype;
+elsewhere the block is composed in plain PyTorch.  Each sweep counts the
+blocks the kernel wrote (counter ``blocked.union_blocks``).
 
 The tags and text panels carry their postings (``Columns.postings``, built
 once per window by the column builders, or by :func:`hoist_columns` for a
@@ -56,6 +61,7 @@ from mused_tpu_torch.ops import affinity
 from mused_tpu_torch.ops.kernels import affinity_kernel as ak
 from mused_tpu_torch.ops.kernels import blocked_select as bs
 from mused_tpu_torch.ops.kernels import cand_matvec as cm
+from mused_tpu_torch.utils import profiling
 from mused_tpu_torch.utils.config import FeatureConfig
 
 
@@ -306,8 +312,14 @@ def fused_rowblock(cols: Columns, start: int, block: int, k_basis: int,
     versions instead, the reference route); ``"strip"`` takes every modality through its
     similarity strip and exact top-k (``approx`` runs exactly, see
     ``affinity.knn_adjacency_block``).  Username is an equality strip on
-    both routes.  Per-modality adjacencies are bool, cast once at the end."""
+    both routes.  Per-modality adjacencies are bool, cast once at the end.
+    Where :func:`union_kernel_ok` holds (and ``use_kernel``), the union
+    kernel writes the same block from :func:`candidate_rowblock`'s slabs in
+    ``out_dtype`` instead."""
     cols = hoist_columns(cols)          # a no-op for the column builders' kinds
+    if use_kernel and union_kernel_ok(cols, select, nbins):
+        return bs.union_rowblock(candidate_rowblock(cols, start, block, k_basis, nbins),
+                                 out_dtype)
     n = cols.n
     binned = select == "binned" and nbins > 0 and n % nbins == 0
     rows = slice(start, start + block)
@@ -360,15 +372,21 @@ def scan_blocks(cols: Columns, block: int, k_basis: int, approx: bool = False,
     counterpart of the JAX package's ``_scan_blocks``, with
     ``hoist_columns`` applied once per sweep.  The sweeps that accumulate
     over blocks (degrees, ``A^T v``) would count a clamped last block's rows
-    twice, so ``block`` must divide n: it raises otherwise."""
+    twice, so ``block`` must divide n: it raises otherwise.  A finished
+    sweep records the counter ``blocked.union_blocks``: the blocks the union
+    kernel wrote (all of them where :func:`union_kernel_ok` holds, else 0)."""
     cols = hoist_columns(cols)
     n = cols.n
     if n % block:
         raise ValueError(f"block={block} must divide n={n} (pad rows upstream): a "
                          "clamped last block would count rows twice")
+    union = union_kernel_ok(cols, select, nbins)
+    blocks = 0
     for start in (range(0, n, block) if starts is None else starts):
         yield start, fused_rowblock(cols, start, block, k_basis, approx, select, nbins,
                                     out_dtype)
+        blocks += 1
+    profiling.counter("blocked.union_blocks", blocks if union else 0)
 
 
 # ---------------------------------------------------------------------------
@@ -381,6 +399,18 @@ def cand_fold_supported(kinds, tensors, nbins: int, n: int) -> bool:
     if nbins <= 0 or n % nbins or n // nbins > 127:
         return False
     return all(kind == "username" or _binned_ok(kind, t) for kind, t in zip(kinds, tensors))
+
+
+def union_kernel_ok(cols: Columns, select: str, nbins: int) -> bool:
+    """Whether :func:`fused_rowblock` writes the hoisted ``cols``' blocks
+    through the union kernel: CUDA panels on the binned route whose every
+    modality the candidate form holds (:func:`cand_fold_supported`), with at
+    most one username panel, int32, and at most ``UNION_MAX_PLANES`` others."""
+    users = [t for kind, t in zip(cols.kinds, cols.tensors) if kind == "username"]
+    return (select == "binned" and cols.valids[0].device.type == "cuda"
+            and cand_fold_supported(cols.kinds, cols.tensors, nbins, cols.n)
+            and len(users) <= 1 and all(t.dtype == torch.int32 for t in users)
+            and len(cols.kinds) - len(users) <= bs.UNION_MAX_PLANES)
 
 
 def candidate_rowblock(cols: Columns, start: int, block: int, k_basis: int,
@@ -454,17 +484,17 @@ def blocked_fd_sketch(cols: Columns, *, ell: int, block: int, k_basis: int,
         raise ValueError("cand_fold=True needs the rr shrink, select='binned', block | "
                          "n, and every modality binned-eligible (cand_fold_supported)")
     state = fd.init(ell, n, device)
-    for start in (range(0, n, block) if starts is None else starts):
-        if cand_fold:
-            cand = candidate_rowblock(cols, start, block, k_basis, nbins)
-            b, delta, edges = fd.shrink_rr_cands(state.sketch, cand, ell)
-            state = fd.FDState(sketch=b, sq_frobenius=state.sq_frobenius + edges,
-                               shrink_loss=state.shrink_loss + delta,
-                               count=state.count + block)
-        else:
-            fused = fused_rowblock(cols, start, block, k_basis, approx_knn, select, nbins,
-                                   torch.bfloat16 if mode == "rr" else torch.float32)
+    if not cand_fold:
+        for _, fused in scan_blocks(cols, block, k_basis, approx_knn, select, nbins,
+                                    torch.bfloat16 if mode == "rr" else torch.float32,
+                                    starts=starts):
             state = fd.update_stream(state, fused, mode=mode)
+        return state.sketch, state.sq_frobenius, state.shrink_loss
+    for start in (range(0, n, block) if starts is None else starts):
+        cand = candidate_rowblock(cols, start, block, k_basis, nbins)
+        b, delta, edges = fd.shrink_rr_cands(state.sketch, cand, ell)
+        state = fd.FDState(sketch=b, sq_frobenius=state.sq_frobenius + edges,
+                           shrink_loss=state.shrink_loss + delta, count=state.count + block)
     return state.sketch, state.sq_frobenius, state.shrink_loss
 
 
@@ -509,20 +539,20 @@ def blocked_svd_reduce(cols: Columns, generator: torch.Generator | None, *, rank
     cols = hoist_columns(cols)
     n = cols.n
 
-    def blocks():          # raises where block does not divide n
-        return scan_blocks(cols, block, k_basis, approx_knn, select, nbins, torch.bfloat16,
+    def blocks():          # f32 blocks; raises where block does not divide n
+        return scan_blocks(cols, block, k_basis, approx_knn, select, nbins, torch.float32,
                            starts=starts)
 
     def mul_a(v):          # A @ v, one block of rows at a time (others' rows stay 0)
         acc = torch.zeros((n, v.shape[1]), dtype=torch.float32, device=v.device)
         for start, fused in blocks():
-            acc[start:start + block] = fused.float() @ v
+            acc[start:start + block] = fused @ v
         return allreduce(acc)
 
     def mul_at(v):         # A^T @ v, summed over blocks in order
         acc = torch.zeros((n, v.shape[1]), dtype=torch.float32, device=v.device)
         for start, fused in blocks():
-            acc += fused.float().T @ v[start:start + block]
+            acc += fused.T @ v[start:start + block]
         return allreduce(acc)
 
     return randomized_svd_from_products(mul_a, mul_at, generator, n=n, rank=rank,

@@ -50,6 +50,12 @@ plain version of the postings route, in the kernel's summation order.
 CUDA tensors and raise on anything they do not take; for tensors on the CPU
 they run :func:`binned_candidates_plain`, the same function in plain
 PyTorch (similarity strip, then :func:`binned_candidates_reference`).
+
+The union kernel (:func:`union_rowblock`) writes the (block, n) fused
+adjacency rows of a candidate block (``cand_matvec.CandBlock``: the kept
+candidates as int8 slabs, and the username operands) once, in the dtype
+its consumer reads; its plain version is
+``cand_matvec.dense_rows_reference``.
 """
 from __future__ import annotations
 
@@ -58,6 +64,7 @@ from typing import NamedTuple
 import torch
 
 from mused_tpu_torch.ops.kernels import build
+from mused_tpu_torch.ops.kernels import cand_matvec as cm
 
 NEG = -1e30
 METRICS = ("dot", "jaccard", "chord", "chord3", "l1")
@@ -76,11 +83,16 @@ launches = 0        # K2 launches so far, every route (plain-version calls not c
 pair_launches = 0   # K3 launches so far, every route
 postings_launches = 0        # of them, K2 launches on the postings route
 postings_pair_launches = 0   # and K3 launches on it
+union_launches = 0  # union kernel launches so far
+
+UNION_DTYPES = (torch.bool, torch.bfloat16, torch.float32)   # the union kernel's outputs
+UNION_MAX_PLANES = 8    # candidate slabs the union kernel holds in registers
 
 
 def reset_launches() -> None:
-    global launches, pair_launches, postings_launches, postings_pair_launches
+    global launches, pair_launches, postings_launches, postings_pair_launches, union_launches
     launches = pair_launches = postings_launches = postings_pair_launches = 0
+    union_launches = 0
 
 
 def route(metric: str, postings=None) -> str:
@@ -594,6 +606,37 @@ def adjacency_from_candidates(keeps, grps, n: int) -> torch.Tensor:
         m = keep[:, None, :] & (grp[:, None, :] == gids[None, :, None])
         adj = m if adj is None else adj | m
     return adj.reshape(block, n)
+
+
+def union_rowblock(cand, out_dtype=torch.float32) -> torch.Tensor:
+    """(block, n) fused adjacency rows of a ``cand_matvec.CandBlock``,
+    written once in ``out_dtype`` (bool, bf16 or f32) by the union kernel
+    for CUDA tensors; the plain version ``dense_rows_reference`` for CPU
+    tensors.  Element (r, g * nbins + s) is 1 where some slab keeps group g
+    at (r, s), or where the row's uid equals the column's off the row's own
+    column."""
+    if out_dtype not in UNION_DTYPES:
+        raise TypeError(f"the union kernel writes {UNION_DTYPES}, not {out_dtype}")
+    cm.check_cand(cand)
+    if cand.slabs.device.type == "cpu":
+        return cm.dense_rows_reference(cand).to(out_dtype)
+    planes = cand.slabs.shape[0]
+    if not 1 <= planes <= UNION_MAX_PLANES:
+        raise ValueError(f"the union kernel takes 1 to {UNION_MAX_PLANES} slabs, got {planes}")
+    dev = cand.slabs.device
+    out = torch.empty((cand.block, cand.groups * cand.nbins), dtype=out_dtype, device=dev)
+    lib = build.load()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        code = lib.mused_union_rowblock(
+            cand.slabs.data_ptr(), _ptr(cand.uid_rows), cand.uid_cols.data_ptr(),
+            out.data_ptr(), planes, cand.block, cand.nbins, cand.groups, int(cand.start),
+            int(cand.g0), UNION_DTYPES.index(out_dtype), stream)
+    build.check(code, f"union_rowblock block={cand.block} nbins={cand.nbins} "
+                      f"groups={cand.groups} planes={planes}")
+    global union_launches
+    union_launches += 1
+    return out
 
 
 def pad_features_128(x: torch.Tensor) -> torch.Tensor:

@@ -115,6 +115,8 @@ def _configure(lib) -> None:
     lib.mused_binned_postings.restype = i
     lib.mused_binned_postings_pair.argtypes = ([p] * 7 + [i, i]) * 2 + [p] * 4 + [i] * 4 + [p]
     lib.mused_binned_postings_pair.restype = i
+    lib.mused_union_rowblock.argtypes = [p] * 4 + [i] * 7 + [p]
+    lib.mused_union_rowblock.restype = i
     lib.mused_cand_list_names.argtypes = []
     lib.mused_cand_list_names.restype = ctypes.c_char_p
     lib.mused_cand_lists_layout.argtypes = [i] * 4 + [p] * 4

@@ -104,7 +104,7 @@ class CandBlock(NamedTuple):
 
 def pack_slab(keep: torch.Tensor, grp: torch.Tensor) -> torch.Tensor:
     """(block, nbins) int8 slab from budgeted_keep's mask + group ids."""
-    return torch.where(keep, grp, torch.tensor(-1, dtype=torch.int8, device=grp.device))
+    return grp.masked_fill(~keep, -1)     # no scalar tensor: no copy, no host wait
 
 
 def mask_uids(uid: torch.Tensor, valid: torch.Tensor, nbins: int,
@@ -226,8 +226,10 @@ def lists_reference(cand: CandBlock) -> dict:
 # kernel wrappers
 # ---------------------------------------------------------------------------
 
-def _check_cand(cand: CandBlock, operand: torch.Tensor | None = None,
-                name: str = "") -> None:
+def check_cand(cand: CandBlock, operand: torch.Tensor | None = None,
+               name: str = "") -> None:
+    """Raise on a candidate block (and bf16 ``operand``) the kernels do not
+    take: types, shapes, one device, contiguous on the card."""
     s = cand.slabs
     if s.ndim != 3 or s.dtype != torch.int8:
         raise TypeError(f"slabs must be (M, block, nbins) int8, got {s.dtype} "
@@ -287,7 +289,7 @@ def build_lists(cand: CandBlock) -> CandLists:
     kernels, counted in ``launches_lists``).  CUDA tensors only: the plain
     version is :func:`lists_reference`, and the plain products read the
     slabs."""
-    _check_cand(cand)
+    check_cand(cand)
     if cand.slabs.device.type != "cuda":
         raise ValueError("the candidate lists are the kernels' operand: build them for "
                          "CUDA tensors (the CPU runs the plain products)")
@@ -346,7 +348,7 @@ def matvec_t(cand: CandBlock, x_t: torch.Tensor):
     (r, block) bf16.  Returns (out_t (r, n) f32, edges () f32), edges the
     exact fused edge count (exact in f32 below 2**24 edges per block).  A
     block without lists gets them built first (one list launch)."""
-    _check_cand(cand, x_t, "x_t")
+    check_cand(cand, x_t, "x_t")
     if x_t.shape[1] != cand.block:
         raise ValueError(f"x_t must be (r, {cand.block}), got {tuple(x_t.shape)}")
     if x_t.device.type == "cpu":
@@ -363,7 +365,7 @@ def matvec_t(cand: CandBlock, x_t: torch.Tensor):
 def matvec(cand: CandBlock, y: torch.Tensor) -> torch.Tensor:
     """rows @ y for the implicit fused rows (K5): y (n, r) bf16 -> (block, r)
     f32, any r.  A block without lists gets them built first."""
-    _check_cand(cand, y, "y")
+    check_cand(cand, y, "y")
     n = cand.groups * cand.nbins
     if y.shape[0] != n:
         raise ValueError(f"y must be ({n}, r), got {tuple(y.shape)}")

@@ -5,6 +5,11 @@ JAX, so it runs on a machine without it; there, skip the JAX conftest:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda_blocked.py
 
+The union kernel (``bs.union_rowblock``) writes a rebuilt row block of
+the fused adjacency; it is held to its plain version and to the plain
+composition of the same candidates, and the blocked SVD through it to the
+SVD of the composed blocks.
+
 Tolerances: bit-equal.  Operands are multiples of 1/4 (dot, chord), small
 integers (K4, K5) or 0/1 counts (jaccard), whose f32 sums are exact in any
 order, and chord3 / l1 run unfused in the plain version's order; K5's live
@@ -13,11 +18,14 @@ held to f32 reassociation: |error| <= 1e-5 on values in [-1, 1].  K2's
 tensor-core metrics split the groups over the CTAs of a cluster; the ties
 case checks that the merge keeps the lowest group.
 """
+import functools
+
 import pytest
 import torch
 
 from mused_tpu_torch.ops.kernels import blocked_select as bs
 from mused_tpu_torch.ops.kernels import cand_matvec as cm
+from cand_cases import CASES as CAND_CASES, cand_case, torch_cand
 
 # (n, nbins, block, start, K): an aligned case, a ragged one, and 64-byte
 # int8 rows (narrower than one 128-byte TMA box)
@@ -533,3 +541,137 @@ def test_k2_postings_staging_paths(case, cuda):
     want = bs.binned_candidates_plain(x, rows, valid, start, **kw)
     torch.cuda.synchronize()
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+# the union kernel: (block, nbins, groups, planes, start); the two cells'
+# shapes at a middle block, then odd widths (the scalar path), eight planes,
+# a start before the shard's columns
+UNION_SHAPES = [(2048, 4096, 37, 4, 75_776), (2048, 1536, 64, 4, 49_152), (333, 40, 5, 3, 17),
+                (200, 101, 7, 8, -50), (64, 48, 3, 1, 0)]
+UNION_DTYPES = [torch.bool, torch.bfloat16, torch.float32]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_user", [True, False])
+@pytest.mark.parametrize("dims", UNION_SHAPES)
+def test_union_rowblock_matches_plain_on_cuda(dims, with_user, cuda):
+    block, nbins, groups, planes, start = dims
+    cand = _cand(cuda, block, nbins, groups, n_mod=planes, with_user=with_user)._replace(
+        start=start)
+    want = cm.dense_rows_reference(cand)
+    before = bs.union_launches
+    for dtype in UNION_DTYPES:
+        got = bs.union_rowblock(cand, dtype)
+        torch.cuda.synchronize()
+        assert got.dtype == dtype and torch.equal(got, want.to(dtype)), dtype
+    assert bs.union_launches == before + len(UNION_DTYPES)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", CAND_CASES)
+def test_union_rowblock_on_the_candidate_cases(name, cuda):
+    """Every rule of the fused tile (tests/cand_cases.py: two planes on one
+    group, uids on slab edges and on the own column, self inside and outside
+    the block, g0, one user, empty slabs) at nbins 40, and on 16-wide slots
+    from slabs at an odd address (the scalar path)."""
+    for c in (torch_cand(cm, cand_case(name), cuda),
+              torch_cand(cm, cand_case(name, nbins=48), cuda)):
+        shifted = torch.empty(c.slabs.numel() + 1, dtype=torch.int8, device=cuda)[1:]
+        odd = c._replace(slabs=shifted.view(c.slabs.shape).copy_(c.slabs))
+        for dtype in UNION_DTYPES:
+            want = cm.dense_rows_reference(c).to(dtype)
+            assert torch.equal(bs.union_rowblock(c, dtype), want), (name, dtype)
+            assert torch.equal(bs.union_rowblock(odd, dtype), want), (name, dtype, "odd")
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_union_rowblock_refuses_what_the_kernel_does_not_take(cuda):
+    cand = _cand(cuda, 64, 48, 3, n_mod=9)
+    with pytest.raises(ValueError, match="1 to 8 slabs"):
+        bs.union_rowblock(cand)
+    with pytest.raises(TypeError):
+        bs.union_rowblock(cand._replace(slabs=cand.slabs[:4]), torch.int8)
+
+
+@functools.lru_cache(maxsize=None)
+def _real_columns(n: int, device: str):
+    """The column panels of an n-row window of the synthetic stream (the
+    benchmark's records at noise 0.95), built by the engine on the card."""
+    from mused_tpu_torch.data.ingest import to_device
+    from mused_tpu_torch.data.synthetic import make_stream
+    from mused_tpu_torch.engine import streaming
+    from mused_tpu_torch.utils.config import PipelineConfig
+    dev = torch.device(device)
+    mods, _, _ = make_stream(n, noise_rate=0.95, binary=True, seed=0)
+    cfg = PipelineConfig(seed=0, subset_size=n, window_size=n, k_basis=50, approach="SWFDMC")
+    engine = streaming.StreamingEngine(cfg, dev)
+    host = engine.featurize([m[:n] for m in mods], streaming.STANDARD_TYPES)
+    return engine.columns(host, to_device(host, dev), streaming.STANDARD_TYPES)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n, nbins", [(151_552, 4096), (98_304, 1536)])
+def test_union_rowblock_equals_the_composition_on_the_real_middle_block(n, nbins, cuda):
+    """The cells' shapes: the middle 2048-row block's candidates from K2 / K3
+    written by the union kernel equal the plain composition of the same
+    candidates (the broadcast union and the username strip), and
+    ``fused_rowblock`` takes the kernel."""
+    from mused_tpu_torch.ops import blocked_affinity as ba
+    block, k_basis = 2048, 50
+    cols = _real_columns(n, str(cuda))
+    start = n // block // 2 * block
+    assert ba.union_kernel_ok(cols, "binned", nbins)
+    cand = ba.candidate_rowblock(cols, start, block, k_basis, nbins)
+    want = bs.adjacency_from_candidates([s >= 0 for s in cand.slabs], list(cand.slabs), n)
+    uid, valid = cols.tensors[2], cols.valids[2]
+    rows = slice(start, start + block)
+    own = (start + torch.arange(block, device=cuda))[:, None] != torch.arange(n, device=cuda)
+    want |= (uid[rows, None] == uid[None, :]) & valid[rows, None] & valid[None, :] & own
+    before = bs.union_launches
+    for dtype in UNION_DTYPES:
+        assert torch.equal(bs.union_rowblock(cand, dtype), want.to(dtype)), dtype
+    fused = ba.fused_rowblock(cols, start, block, k_basis, select="binned", nbins=nbins)
+    torch.cuda.synchronize()
+    assert bs.union_launches == before + len(UNION_DTYPES) + 1
+    assert torch.equal(fused, want.float())
+    assert want.sum().item() > block * k_basis
+
+
+@pytest.mark.cuda
+def test_blocked_svd_reduce_through_the_union_equals_the_composed_blocks(cuda, monkeypatch):
+    """The blocked SVD of a 98,304-row window with an injected omega: the
+    union kernel's f32 blocks give the composed blocks' result to the last
+    bit, through 6 sweeps of 48 blocks, each written by the kernel."""
+    from mused_tpu_torch.ops import blocked_affinity as ba
+    n, nbins, block, rank = 98_304, 1536, 2048, 50
+    cols = _real_columns(n, str(cuda))
+    g = torch.Generator(device=cuda).manual_seed(0)
+    omega = torch.randn((n, rank + 8), generator=g, device=cuda)
+    kw = dict(rank=rank, block=block, k_basis=50, select="binned", nbins=nbins, omega=omega)
+    before = bs.union_launches
+    got = ba.blocked_svd_reduce(cols, None, **kw)
+    torch.cuda.synchronize()
+    assert bs.union_launches - before == 6 * n // block
+    monkeypatch.setattr(ba, "union_kernel_ok", lambda *a: False)
+    want = ba.blocked_svd_reduce(cols, None, **kw)
+    torch.cuda.synchronize()
+    assert bs.union_launches - before == 6 * n // block
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_a_block_through_the_union_makes_no_host_wait(cuda):
+    """The candidates, their slabs and the union enqueue without a host
+    wait, so the sweep runs ahead of the card."""
+    from mused_tpu_torch.ops import blocked_affinity as ba
+    n, nbins, block = 98_304, 1536, 2048
+    cols = ba.hoist_columns(_real_columns(n, str(cuda)))
+    ba.fused_rowblock(cols, block, block, 50, select="binned", nbins=nbins)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        ba.fused_rowblock(cols, block, block, 50, select="binned", nbins=nbins)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
