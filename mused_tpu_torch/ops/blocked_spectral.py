@@ -20,6 +20,12 @@ probe comes from the caller's ``torch.Generator`` or is injected
 (``probe=``), and k-means is called through the module attribute
 (``kmeans_mod.kmeans``), so the parity tests can hand both sides the JAX
 package's draws.
+
+Spans (``utils/profiling``, recorded only while a profiler runs; device
+extents on a CUDA device): ``spectral.degrees`` the degree sweep,
+``spectral.sweep`` each product sweep, with the counter ``spectral.sweeps``
+(1 per sweep), and ``spectral.ritz`` the QRs, the projected ``eigh`` and
+the final rotation.
 """
 from __future__ import annotations
 
@@ -27,6 +33,7 @@ import torch
 
 from mused_tpu_torch.ops import blocked_affinity as ba
 from mused_tpu_torch.ops import kmeans as kmeans_mod
+from mused_tpu_torch.utils import profiling
 # the count lives with the dense spectral ops; the blocked path feeds it Ritz
 # values
 from mused_tpu_torch.ops.spectral import eigengap_k_from_spectrum  # noqa: F401
@@ -53,13 +60,16 @@ def _sym_matmul(cols: ba.Columns, v: torch.Tensor, *, block: int, k_basis: int,
                 starts=None, allreduce=ba.no_reduce) -> torch.Tensor:
     """((A + A^T)/2) @ v for (n, m) v in one sweep: each block is rebuilt
     once and used for both ``fused @ v`` and ``fused.T @ v_block``."""
-    av = torch.zeros_like(v)
-    atv = torch.zeros_like(v)
-    for start, fused in ba.scan_blocks(cols, block, k_basis, approx_knn, select, nbins,
-                                       starts=starts):
-        av[start:start + block] = fused @ v
-        atv += fused.T @ v[start:start + block]
-    return 0.5 * allreduce(av + atv)
+    with profiling.span("spectral.sweep", device=v.device.type == "cuda"):
+        av = torch.zeros_like(v)
+        atv = torch.zeros_like(v)
+        for start, fused in ba.scan_blocks(cols, block, k_basis, approx_knn, select, nbins,
+                                           starts=starts):
+            av[start:start + block] = fused @ v
+            atv += fused.T @ v[start:start + block]
+        out = 0.5 * allreduce(av + atv)
+    profiling.counter("spectral.sweeps", 1)
+    return out
 
 
 def ritz_from_products(sym_matmul, inv_sqrt: torch.Tensor,
@@ -75,12 +85,16 @@ def ritz_from_products(sym_matmul, inv_sqrt: torch.Tensor,
                             dtype=torch.float32)
     v = probe
     scale = inv_sqrt[:, None]
+    on_card = inv_sqrt.device.type == "cuda"
     for _ in range(n_iter):
-        v = torch.linalg.qr(sym_matmul(v * scale) * scale)[0]
+        mv = sym_matmul(v * scale) * scale
+        with profiling.span("spectral.ritz", device=on_card):
+            v = torch.linalg.qr(mv)[0]
     mv = sym_matmul(v * scale) * scale
-    t = v.T @ mv
-    lam, w = torch.linalg.eigh((0.5 * (t + t.T)).double())
-    return v @ torch.flip(w, (1,)).float(), torch.flip(lam, (0,)).float()
+    with profiling.span("spectral.ritz", device=on_card):
+        t = v.T @ mv
+        lam, w = torch.linalg.eigh((0.5 * (t + t.T)).double())
+        return v @ torch.flip(w, (1,)).float(), torch.flip(lam, (0,)).float()
 
 
 def spectral_embedding_blocked(cols: ba.Columns, generator: torch.Generator | None, *,
@@ -100,7 +114,8 @@ def spectral_embedding_blocked(cols: ba.Columns, generator: torch.Generator | No
         raise ValueError(f"block={block} must divide n={n} (pad rows upstream)")
     kw = dict(block=block, k_basis=k_basis, approx_knn=approx_knn, select=select,
               nbins=nbins, starts=starts, allreduce=allreduce)
-    deg = _degrees(cols, **kw)
+    with profiling.span("spectral.degrees", device=cols.valids[0].device.type == "cuda"):
+        deg = _degrees(cols, **kw)
     inv_sqrt = torch.where(deg > 0, torch.rsqrt(torch.clamp(deg, min=1e-12)), 0.0)
     return ritz_from_products(lambda v: _sym_matmul(cols, v, **kw), inv_sqrt, generator,
                               n=n, m=min(k_max + oversample, n), n_iter=n_iter, probe=probe)

@@ -154,6 +154,72 @@ def test_k2_ties_keep_the_lowest_group_across_splits(metric, cuda):
     assert (got[1] == 0).float().mean().item() > 0.5
 
 
+# CLIP ViT-L/14's width (K = 768 bf16 embeddings) on the tensor-core route: the
+# crisis cell's window (98,304 columns, nbins 1536, its last block) and a
+# ragged 3-group panel
+CLIP_SHAPES = [(98_304, 1536, 2048, 96_256), (8190, 2730, 2048, 1000)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", CLIP_SHAPES)
+def test_k2_dot_at_the_clip_width(shape, cuda):
+    """Integer-valued operands (multiples of 1/4): bit-equal to the plain
+    version, on one launch of the tensor-core tiles."""
+    n, nbins, block, start = shape
+    x, _ = _operands("dot", n, 768, cuda, seed=6)
+    valid = _valid(n, cuda)
+    rows = x[start:start + block]
+    before = bs.launches
+    got = bs.binned_candidates(x, rows, valid, start, metric="dot", nbins=nbins, block=block)
+    want = bs.binned_candidates_plain(x, rows, valid, start, metric="dot", nbins=nbins,
+                                      block=block)
+    torch.cuda.synchronize()
+    assert bs.launches == before + 1 and bs.route("dot") == "mma"
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.cuda
+def test_k2_dot_on_random_clip_width_unit_rows(cuda):
+    """Unit bf16 rows at K = 768, n = 98,304: f32 reassociation only."""
+    n, nbins, block, start = 98_304, 1536, 2048, 47_104
+    x = torch.randn((n, 768), generator=torch.Generator().manual_seed(7))
+    x = (x / x.norm(dim=1, keepdim=True)).to(torch.bfloat16).to(cuda)
+    valid = _valid(n, cuda)
+    rows = x[start:start + block]
+    got = bs.binned_candidates(x, rows, valid, start, metric="dot", nbins=nbins, block=block)
+    want = bs.binned_candidates_plain(x, rows, valid, start, metric="dot", nbins=nbins,
+                                      block=block)
+    assert (got[0] - want[0]).abs().max().item() <= 1e-5
+    assert (got[1] == want[1]).float().mean().item() >= 0.99
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", CLIP_SHAPES)
+def test_k3_dot_pair_at_the_clip_width_equals_two_k2_launches(shape, cuda):
+    """Two 768-wide embedding panels in one K3 launch of the tensor-core
+    tiles: each half bit-equal to its K2 launch and to the plain version."""
+    n, nbins, block, start = shape
+    a, _ = _operands("dot", n, 768, cuda, seed=8)
+    b, _ = _operands("dot", n, 768, cuda, seed=9)
+    va, vb = _valid(n, cuda), _valid(n, cuda).roll(5)
+    rows = slice(start, start + block)
+    before = bs.pair_launches
+    pair = bs.binned_candidates_pair(a, b, a[rows], b[rows], va, vb, start, metricA="dot",
+                                     metricB="dot", nbins=nbins, block=block)
+    singles = (*bs.binned_candidates(a, a[rows], va, start, metric="dot", nbins=nbins,
+                                     block=block),
+               *bs.binned_candidates(b, b[rows], vb, start, metric="dot", nbins=nbins,
+                                     block=block))
+    plain = (*bs.binned_candidates_plain(a, a[rows], va, start, metric="dot", nbins=nbins,
+                                         block=block),
+             *bs.binned_candidates_plain(b, b[rows], vb, start, metric="dot", nbins=nbins,
+                                         block=block))
+    torch.cuda.synchronize()
+    assert bs.pair_launches == before + 1 and bs.pair_route("dot", "dot") == "mma"
+    for p, s, q in zip(pair, singles, plain):
+        assert torch.equal(p, s) and torch.equal(p, q)
+
+
 def _k3_all_three(xyz, tim, va, vb, start, nbins, block):
     """(pair, two K2 singles, plain) outputs of the location + time pair."""
     rows = slice(start, start + block)
