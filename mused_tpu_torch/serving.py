@@ -16,10 +16,13 @@ same engine for production use:
     matching and surface as per-window :class:`WindowResult` events;
   * featurize + dispatch run on a background worker thread with a bounded
     queue (``dispatch_ahead``; at saturation pushes block instead of
-    buffering without bound), and up to ``max_lag`` windows stay unpulled
-    ahead of the oldest finalized one, so a push returns without waiting
-    for the device (``flush()`` drains); results may lag further by the
-    work in flight, at most ``dispatch_ahead + 1`` windows;
+    buffering without bound).  Every push, whether it fires a window or
+    not, returns oldest-first each pending window whose device work has
+    completed (its CUDA event reports done), so a result waits for no later
+    fire.  Only a push that fires a window waits on the device, and only
+    when more windows are pending than ``max_lag`` plus what the worker can
+    hold (``dispatch_ahead + 1`` windows or groups), which bounds the lag
+    and the host memory (``flush()`` drains);
   * eligible configs (``windows_per_batch`` = W > 1, by the offline
     engine's rule, ``engine.streaming.resolve_windows_per_batch``) buffer W
     fired windows and dispatch them as one group
@@ -39,9 +42,11 @@ same engine for production use:
     ``serving.window`` runs from its fire to the return of its result,
     tiled by ``serving.queue_wait`` (fire to the worker's start),
     ``featurize``, ``engine.enqueue`` (copy and dispatch, host),
-    ``serving.held`` (enqueue end to finalize start: the ``max_lag`` hold
-    and any device tail) and ``serving.finalize`` (label pull, matching,
-    event ids), all keyed by the window index.
+    ``serving.held`` (enqueue end to finalize start: the device tail and
+    the wait for the next push) and ``serving.finalize`` (label pull,
+    matching, event ids), all keyed by the window index.  The counter
+    ``serving.finalized_early`` records 1 for each window a push finalizes
+    while no more than ``max_lag`` windows are pending.
 
 The worker thread launches device work and the caller thread pulls labels
 on the same (the current) CUDA stream, so window order holds; readiness is
@@ -170,7 +175,13 @@ class StreamDetector:
     Parameters mirror :class:`PipelineConfig`; pass ``cfg`` for full
     control.  ``k_estimate`` must be label-free ("eigengap" or "fixed"):
     serving has no ground truth, so the reference's labels-derived count
-    (main.py:41) is rejected."""
+    (main.py:41) is rejected.
+
+    ``max_lag`` is the number of windows that may stay unpulled while their
+    device work runs: past it, plus what the dispatch worker holds, a push
+    waits for the oldest.  It holds nothing back: a window whose work has
+    completed is returned by the next push at any depth.  A huge window
+    completes inside its dispatch and runs with no lag."""
 
     def __init__(self, modality_types: Sequence[str], window_size: int, *,
                  approach: str = "SWFDMC", reduced_dim: int = 50,
@@ -272,6 +283,7 @@ class StreamDetector:
         for t in range(t0, end + 1, p):
             out.extend(self._fire(t - 1, self._window_rows(t - w, t)))
         self._count = end
+        out.extend(self._drain_ready(block=False))
         # drop whole chunks no future window can reach (every future window
         # starts at >= count - w + 1)
         while self._rchunks[0] and self._ret_len - len(self._rchunks[0][0]) >= w:
@@ -310,8 +322,8 @@ class StreamDetector:
         self._worker.submit(fn)
 
     def _fire(self, i: int, window: list[np.ndarray]) -> list[WindowResult]:
-        """Dispatch the window ending at absolute index ``i``; finalize any
-        windows beyond the ``max_lag`` pipeline depth."""
+        """Dispatch the window ending at absolute index ``i``; finalize the
+        completed windows, and any beyond the hard bound."""
         fired = time.time_ns()
         row_start = i + 1 - self.cfg.window_size
         widx = self._window_index
@@ -323,21 +335,26 @@ class StreamDetector:
                 self._submit(lambda: self._dispatch_group(group))
         else:
             self._submit(lambda: self._dispatch_one(row_start, widx, window, fired))
-        return self._drain_ready()
+        return self._drain_ready(block=True)
 
-    def _drain_ready(self) -> list[WindowResult]:
-        """Finalize completed windows without blocking the push path: up to
-        ``max_lag`` pending windows nothing finalizes; up to the hard bound
-        (``max_lag`` plus what the worker can hold) only windows whose device
-        work has completed; past it the pull blocks, so the lag and host
-        memory stay bounded."""
+    def _drain_ready(self, block: bool) -> list[WindowResult]:
+        """Finalize pending windows oldest-first while the oldest's device
+        work has completed, at any depth, so the pull waits for nothing.
+        With ``block``, past the hard bound (``max_lag`` plus what the
+        worker can hold) the oldest is pulled even if it has not completed,
+        so the lag and host memory stay bounded; only a push that fired a
+        window blocks."""
         hard = self.max_lag + (self._batch_w * (self._dispatch_ahead + 1)
                                if self._worker else 0)
         out = []
-        while len(self._pending) > self.max_lag:
-            if len(self._pending) <= hard and not _entry_ready(self._pending[0]):
+        while self._pending:
+            depth = len(self._pending)
+            if not (block and depth > hard) and not _entry_ready(self._pending[0]):
                 break
-            out.append(self._finalize_oldest())
+            result = self._finalize_oldest()
+            if depth <= self.max_lag:
+                profiling.counter("serving.finalized_early", 1, key=result.window_index)
+            out.append(result)
         return out
 
     def _dispatch_one(self, row_start: int, widx: int, rows: list[np.ndarray],

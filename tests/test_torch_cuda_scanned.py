@@ -16,6 +16,7 @@ groups equal its per-window results, each group's readiness a CUDA event.
 """
 import contextlib
 import io
+import threading
 
 import numpy as np
 import pytest
@@ -111,15 +112,24 @@ def test_detector_groups_on_the_card(cuda, stream):
                              label_mode="all", n_clusters_override=20, k_estimate="eigengap",
                              windows_per_batch=group)
         det = StreamDetector(mtypes, WINDOW, cfg=cfg, max_lag=8)
-        res = []
+        res, checked = [], 0
         for lo in range(0, N, 250):
-            res.extend(det.push([m[lo:lo + 250] for m in mods]))
-            if group == 4 and len(det._pending) and len(det._pending[0]) == 5:
-                det._worker.drain()
+            rows = [m[lo:lo + 250] for m in mods]
+            if group == 1:
+                res.extend(det.push(rows))
+                continue
+            gate = threading.Event()
+            det._submit(gate.wait)     # hold the worker: the push returns before its group lands
+            res.extend(det.push(rows))
+            gate.set()
+            det._worker.drain()
+            if det._pending and len(det._pending[0]) == 5:
                 handle = det._pending[0][3]
                 assert handle._event is not None
                 torch.cuda.synchronize()
                 assert _entry_ready(det._pending[0])
+                checked += 1
+        assert checked == (1 if group == 4 else 0)
         out[group] = res + det.flush()
     assert [r.window_index for r in out[4]] == [r.window_index for r in out[1]]
     for a, b in zip(out[1], out[4]):

@@ -12,8 +12,13 @@ labels bit-equal to its CPU run; the spectrum within 2e-6 of the CPU's
 (both float64 eigh, cast to float32); ``mark_background`` on >= 99.9% of
 rows (CUDA's sort / cumsum add in another order, so the Otsu threshold may
 move by an ulp); the eigengap count equal; the detector on the card equal to
-itself after save / load, its window bookkeeping equal to the CPU's.
+itself after save / load, its window bookkeeping equal to the CPU's; a
+push that fires no window returns a window once its CUDA event completes,
+and never waits for it.
 """
+import threading
+import time
+
 import numpy as np
 import pytest
 import torch
@@ -121,9 +126,51 @@ def test_detector_on_the_card(cuda, tmp_path):
     for x, y in zip(a, b):
         np.testing.assert_array_equal(x.clusters, y.clusters)
     det = StreamDetector(mtypes, 200, cfg=cfg, max_lag=4)
-    run(det, 0, 400)
+    run(det, 0, 360)
+    gate = threading.Event()
+    det._submit(gate.wait)          # hold the worker: the push that fires window 1
+    run(det, 360, 400)              # returns before its window lands
+    gate.set()
     det._worker.drain()
-    assert all(e[2] is not None for e in det._pending)          # CUDA events
+    assert det._pending and all(e[2] is not None for e in det._pending)   # CUDA events
     torch.cuda.synchronize()
     assert all(_entry_ready(e) for e in det._pending)
     det.flush()
+
+
+@pytest.mark.cuda
+def test_a_push_returns_a_window_once_its_event_completes(cuda, monkeypatch):
+    """A window whose CUDA event sits behind a device sleep: a push that
+    fires no window neither returns it nor waits for the card; after a
+    synchronize the next such push returns it."""
+    mods, mtypes, _ = crisis_embedding_stream(n_rows=600, n_events=4, noise_rate=0.3,
+                                              d_text=32, d_image=32, seed=2)
+    cfg = PipelineConfig(window_size=200, reduced_dim=16, k_basis=6, approach="sSpectral",
+                         label_mode="all", n_clusters_override=10, k_estimate="eigengap")
+    det = StreamDetector(mtypes, 200, cfg=cfg)
+    warm = det.push([m[:200] for m in mods]) + det.flush()
+    assert [r.window_index for r in warm] == [0]
+    cycles = 2_000_000_000
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    torch.cuda._sleep(cycles)
+    torch.cuda.synchronize()
+    sleep_s = time.perf_counter() - t
+    recorded_event = det._recorded_event
+
+    def behind_a_sleep():
+        torch.cuda._sleep(cycles)
+        return recorded_event()
+
+    monkeypatch.setattr(det, "_recorded_event", behind_a_sleep)
+    assert det.push([m[200:400] for m in mods]) == []              # fires window 1
+    det._worker.drain()
+    assert len(det._pending) == 1
+    t = time.perf_counter()
+    got = det.push([m[400:410] for m in mods])                     # fires nothing
+    took = time.perf_counter() - t
+    assert got == [] and not _entry_ready(det._pending[0])         # still asleep
+    assert took < sleep_s / 10, (took, sleep_s)
+    torch.cuda.synchronize()
+    got = det.push([m[410:420] for m in mods])
+    assert [r.window_index for r in got] == [1] and not det._pending

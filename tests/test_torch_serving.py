@@ -13,9 +13,15 @@ reduced_dim 8:
   * with ``windows_per_batch=4`` (groups of 4 windows, a partial group
     flushed window by window) the results equal per-window serving, do not
     depend on the pushes' sizes, resume after a save with a partly filled
-    group, and a non-batchable approach is clamped to per-window dispatch.
+    group, and a non-batchable approach is clamped to per-window dispatch;
+  * the drain rule: a push that fires no window returns the windows whose
+    device work has completed; windows that have not completed stay
+    pending until the hard bound, past which a firing push pulls them
+    oldest-first; the results equal a run that returns them only at
+    ``flush``.
 """
 import sys
+import threading
 
 import numpy as np
 import pytest
@@ -29,7 +35,7 @@ from mused_tpu_torch import api as tapi
 from mused_tpu_torch import serving
 from mused_tpu_torch.data import synthetic as tsyn
 from mused_tpu_torch.serving import StreamDetector
-from mused_tpu_torch.utils import metrics
+from mused_tpu_torch.utils import metrics, profiling
 from mused_tpu_torch.utils.config import PipelineConfig
 from torch_parity import inject_jax_draws, synthetic_window_stream
 
@@ -291,4 +297,82 @@ def test_group_serving_clamps_a_non_batchable_approach(stream):
     got = _all(det, mods, 96)
     want = _all(port(mtypes, "DBSCAN_incr", cfg=dict(eps=1.5, min_samples=2)), mods, 96)
     assert any(len(np.unique(r.clusters)) > 1 for r in want)     # real labels
+    _equal_results(got, want)
+
+
+def _never_ready(entry):
+    return False
+
+
+def test_a_push_that_fires_nothing_returns_the_landed_windows(stream, monkeypatch):
+    """Three windows land while none reports ready; once they are, the next
+    push returns them though it fires no window.  The two finalized at or
+    below ``max_lag`` pending count as early."""
+    mods, mtypes, _ = stream
+    det = port(mtypes, "SWFDMC")
+    monkeypatch.setattr(serving, "_entry_ready", _never_ready)
+    assert det.push([m[:3 * W] for m in mods]) == []
+    monkeypatch.undo()
+    det._worker.drain()
+    assert len(det._pending) == 3
+    with profiling.recording():
+        profiling.clear()
+        got = det.push([m[3 * W:3 * W + 5] for m in mods])
+        early = [r for r in profiling.recorded() if r.name == "serving.finalized_early"]
+    assert [r.window_index for r in got] == [0, 1, 2] and not det._pending
+    assert [r.key for r in early] == [1, 2]
+    want = _all(port(mtypes, "SWFDMC"), [m[:3 * W + 5] for m in mods], 3 * W)
+    _equal_results(got, want)
+
+
+def _push_held(det, rows):
+    """Push with the dispatch worker held until the push returns, so the
+    push sees only the windows that landed before it."""
+    gate = threading.Event()
+    det._submit(gate.wait)
+    try:
+        return det.push(rows)
+    finally:
+        gate.set()
+        det._worker.drain()
+
+
+@pytest.mark.parametrize("dispatch_ahead", [0, 2])
+def test_windows_not_ready_wait_for_the_hard_bound(stream, monkeypatch, dispatch_ahead):
+    """No window reports ready: pushes return nothing until more windows are
+    pending than ``max_lag`` plus what the worker holds; past that, each
+    firing push pulls the oldest, and a push that fires nothing never
+    waits."""
+    mods, mtypes, _ = stream
+    monkeypatch.setattr(serving, "_entry_ready", _never_ready)
+    det = port(mtypes, "SWFDMC", max_lag=2, dispatch_ahead=dispatch_ahead)
+    if dispatch_ahead:
+        # the worker appends a window after its fire's drain, so the depth
+        # passes the bound by one before the next fire pulls
+        push, cap = (lambda rows: _push_held(det, rows)), 2 + (dispatch_ahead + 1) + 1
+    else:
+        push, cap = det.push, 2
+    got = []
+    for k in range(8):
+        lo = k * W
+        assert push([m[lo:lo + W - 3] for m in mods]) == []
+        assert len(det._pending) == min(k, cap)
+        fired = push([m[lo + W - 3:lo + W] for m in mods])   # fires window k
+        assert [r.window_index for r in fired] == ([k - cap] if k >= cap else [])
+        got.extend(fired)
+        assert len(det._pending) == min(k + 1, cap)
+    monkeypatch.undo()
+    got.extend(det.flush())
+    _equal_results(got, _all(port(mtypes, "SWFDMC"), [m[:8 * W] for m in mods], W))
+
+
+@pytest.mark.parametrize("chunk", [32, 48, 100])
+def test_results_equal_a_run_that_returns_them_only_at_flush(stream, monkeypatch, chunk):
+    mods, mtypes, _ = stream
+    got = _all(port(mtypes, "SWFDMC"), mods, chunk)
+    monkeypatch.setattr(serving, "_entry_ready", _never_ready)
+    held = port(mtypes, "SWFDMC", max_lag=len(mods[0]))
+    assert _serve(held, mods, chunk) == []
+    want = held.flush()
+    assert [r.window_index for r in want] == list(range(len(mods[0]) // W))
     _equal_results(got, want)
