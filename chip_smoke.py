@@ -64,7 +64,7 @@ Phases (any failure exits non-zero; no phase is skipped):
       on the same block and operands, in a subprocess, in turns (earlier,
       this, earlier), its K2 bit-equal to this tree's tensor-core route and
       its K4 / K5 integers bit-equal; the union kernel writing the block's
-      f32 rows from its candidates, bit-equal to the plain composition of
+      f32 rows from its candidates, bit-equal to its plain version on
       the same candidates, its time against the bytes it writes and reads
       (i4 repeats it at the batch subset's shape);
   (f) ``api.process_streaming_data`` on the card over that stream at
@@ -79,8 +79,9 @@ Phases (any failure exits non-zero; no phase is skipped):
       of its own in turns (earlier, this, this, earlier): (f)'s windows/s
       for SWFDMC and sSVDMC and i1's SVDMC_batch seconds, NMI and F1 within
       0.01 of the earlier tree's;
-  (g) on 3 blocks of the first huge window, the kernel route's candidate
-      rows agree with the plain route's fused rows on >= 99.9% of edges,
+  (g) on 3 blocks of the first huge window, the card's fused rows (K2 / K3,
+      the union kernel) agree with the same columns' rows on the CPU (the
+      plain versions) on >= 99.9% of edges,
       and the candidate fold's sq_frobenius equals the dense binned fold's;
   (h) the dense-window surface of slice 2 through its entry points, at
       window 2000, k_basis 50, reduced_dim 50:
@@ -809,22 +810,15 @@ def k3_check(xyz, lv, tim, tv, *, start: int, block: int, nbins: int, per_window
 
 def union_check(cols: ba.Columns, *, start: int, block: int, nbins: int, tag: str) -> dict:
     """The union kernel writing one block's f32 rows (the blocked SVD's
-    operand) from its K2 / K3 candidates, bit-equal to the plain composition
-    of the same candidates (the broadcast union, the username strip, the
-    casts through bf16); times and bound (the bytes written and read; one
-    comparison per plane and the uid's per element)."""
+    operand) from its K2 / K3 candidates, bit-equal to its plain version
+    (``cm.dense_rows_reference``) of the same candidates; times and bound
+    (the bytes written and read; one comparison per plane and the uid's per
+    element)."""
     n = cols.n
     cand = ba.candidate_rowblock(cols, start, block, K_BASIS, nbins)
-    uid, valid = (x[cols.kinds.index("username")] for x in (cols.tensors, cols.valids))
-    rows = slice(start, start + block)
-    own = (start + torch.arange(block, device=uid.device))[:, None] \
-        != torch.arange(n, device=uid.device)[None, :]
 
     def plain():
-        adj = bs.adjacency_from_candidates([s >= 0 for s in cand.slabs], list(cand.slabs), n)
-        adj = adj | ((uid[rows, None] == uid[None, :]) & valid[rows, None] & valid[None, :]
-                     & own)
-        return adj.to(torch.bfloat16).float()
+        return cm.dense_rows_reference(cand).float()
 
     planes = cand.slabs.shape[0]
     row = {"n": n, "start": start, "nbins": nbins, "planes": planes,
@@ -835,7 +829,7 @@ def union_check(cols: ba.Columns, *, start: int, block: int, nbins: int, tag: st
     with_bound(row, bound(block * n * (planes + 1), "fp32_instr", nbytes))
     print(f"[{tag}] union", json.dumps(row), flush=True)
     if not row["bit_equal"]:
-        raise AssertionError(f"the union kernel disagrees with the plain composition: {row}")
+        raise AssertionError(f"the union kernel disagrees with its plain version: {row}")
     return row
 
 
@@ -1430,13 +1424,21 @@ def traced(run, what: dict, tag: str = "profile") -> dict:
 
 
 def phase_g(cols: ba.Columns) -> dict:
+    """Edge agreement of 3 rebuilt blocks on the card (K2 / K3, the union
+    kernel) with the same columns' blocks on the CPU (the plain versions),
+    and both folds' sq_frobenius."""
     n, block, nbins = cols.n, HUGE_BLOCK, HUGE_NBINS
+    host = ba.Columns(kinds=cols.kinds,
+                      tensors=tuple(tuple(x.cpu() for x in t) if isinstance(t, tuple)
+                                    else t.cpu() for t in cols.tensors),
+                      valids=tuple(v.cpu() for v in cols.valids),
+                      idf=None if cols.idf is None else cols.idf.cpu())
     agreements = []
     for start in (0, n // 2, n - block):
-        cand = ba.candidate_rowblock(cols, start, block, K_BASIS, nbins)
-        got = cm.dense_rows_reference(cand)
-        want = ba.fused_rowblock(cols, start, block, K_BASIS, select="binned", nbins=nbins,
-                                 out_dtype=torch.bool, use_kernel=False)
+        got = ba.fused_rowblock(cols, start, block, K_BASIS, select="binned", nbins=nbins,
+                                out_dtype=torch.bool).cpu()
+        want = ba.fused_rowblock(host, start, block, K_BASIS, select="binned", nbins=nbins,
+                                 out_dtype=torch.bool)
         agree = edge_agreement(got, want)
         print(f"[g] block at row {start}: edges kernel {int(got.sum())} plain "
               f"{int(want.sum())} mismatched {int((got != want).sum())} agreement "

@@ -88,9 +88,7 @@ def _blocked_reduce(data_modalities, modality_types, cfg: PipelineConfig,
     select, nbins = bs.resolve_select(cfg, cols.n, device)
     with profiling.span("engine.reduce", device=torch.device(device).type == "cuda"):
         return ba.blocked_svd_reduce(cols, generator, rank=cfg.reduced_dim, block=block,
-                                     k_basis=cfg.k_basis,
-                                     approx_knn=cfg.huge_window_approx_knn,
-                                     select=select, nbins=nbins)[:n]
+                                     k_basis=cfg.k_basis, select=select, nbins=nbins)[:n]
 
 
 def process_batch_data(results, data_modalities, modality_types, reduced_dim, k_basis,
@@ -128,8 +126,7 @@ def process_batch_data(results, data_modalities, modality_types, reduced_dim, k_
             with profiling.span("engine.cluster"):
                 labels = _host(bspec.spectral_clustering_blocked(
                     cols, int(n_clusters), gen, k_max=k_max, block=block, k_basis=k_basis,
-                    n_real=subset_size, approx_knn=cfg.huge_window_approx_knn,
-                    select=select, nbins=nbins))
+                    n_real=subset_size, select=select, nbins=nbins))
         elif blocked:
             reduced = _blocked_reduce(data_modalities, modality_types, cfg, gen, device)
             with profiling.span("engine.cluster"):

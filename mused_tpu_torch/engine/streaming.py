@@ -825,8 +825,8 @@ class StreamingEngine:
         with self.timer.span("columns"):
             cols = self.columns(feats_host, feats_dev, modality_types)
         select, nbins = bs.resolve_select(cfg, cols.n, self.device)
-        sweep = dict(block=self.block, k_basis=cfg.k_basis, mesh=self.mesh,
-                     approx_knn=cfg.huge_window_approx_knn, select=select, nbins=nbins)
+        sweep = dict(block=self.block, k_basis=cfg.k_basis, mesh=self.mesh, select=select,
+                     nbins=nbins)
         with self.timer.span("reduce"):
             if cfg.approach == "SWFDMC":
                 sketch, _, _ = sharded.sharded_blocked_fd_sketch(

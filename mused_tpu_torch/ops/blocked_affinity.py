@@ -18,15 +18,15 @@ Two routes build a block's kNN candidates per modality:
           never exists.  On CPU tensors the kernels' wrappers run their
           plain versions.
 
-The binned route feeds either a dense (block, n) block
-(:func:`fused_rowblock`) or, for the FD fold, a candidate-form block
-(:func:`candidate_rowblock`) whose products run straight off int8 slabs
-(K4 / K5, ``ops/kernels/cand_matvec`` via ``fd.shrink_rr_cands``).  On a
-CUDA device a dense binned block whose modalities the candidate form holds
-(:func:`union_kernel_ok`) is that candidate block written out once by the
-union kernel (``blocked_select.union_rowblock``), in the consumer's dtype;
-elsewhere the block is composed in plain PyTorch.  Each sweep counts the
-blocks the kernel wrote (counter ``blocked.union_blocks``).
+The binned route packs a block's kept candidates as a candidate-form block
+(:func:`candidate_rowblock`: int8 slabs + username uids).  The FD fold takes
+its products straight off the slabs (K4 / K5, ``ops/kernels/cand_matvec``
+via ``fd.shrink_rr_cands``); every other consumer takes the dense (block, n)
+rows that ``blocked_select.union_rowblock`` writes from it once, in the
+consumer's dtype (:func:`fused_rowblock`).  The modalities the candidate
+form cannot hold take their similarity strips, OR-ed into those rows.  Each
+sweep counts the blocks the union kernel wrote (counter
+``blocked.union_blocks``; 0 on the CPU).
 
 The tags and text panels carry their postings (``Columns.postings``, built
 once per window by the column builders, or by :func:`hoist_columns` for a
@@ -248,32 +248,62 @@ def _legacy_strip(kind: str, t: torch.Tensor, valid: torch.Tensor, rows: slice,
     return affinity.euclidean_sim(x[rows], x, valid[rows], valid), max(1, k_basis) - 1
 
 
+def _cand_held(kinds, tensors) -> list[bool]:
+    """Which modalities the candidate form holds: each kind with a binned
+    route (:func:`_binned_ok`), and the first username panel when its uids
+    are int32 (the union and K4 / K5 compare int32 uids).  The others take
+    their similarity strips."""
+    held, user = [], False
+    for kind, t in zip(kinds, tensors):
+        if kind == "username":
+            held.append(not user and t.dtype == torch.int32)
+            user = True
+        else:
+            held.append(_binned_ok(kind, t))
+    return held
+
+
+def _strip_adjacency(cols: Columns, i: int, start: int, block: int,
+                     k_basis: int) -> torch.Tensor:
+    """(block, n) bool adjacency of modality ``i`` from its similarity strip
+    and exact top-k (username: uid equality off the row's own column)."""
+    kind, t, valid = cols.kinds[i], cols.tensors[i], cols.valids[i]
+    n = cols.n
+    rows = slice(start, start + block)
+    vr = valid[rows]
+    if kind == "username":
+        not_self = (start + torch.arange(block, device=t.device))[:, None] \
+            != torch.arange(n, device=t.device)[None, :]
+        return (t[rows, None] == t[None, :]) & vr[:, None] & valid[None, :] & not_self
+    if kind not in _METRIC:         # a legacy kind
+        sim, k = _legacy_strip(kind, t, valid, rows, cols.idf, k_basis)
+    else:
+        metric, k = _metric_k(kind, k_basis)
+        t, stats = t if isinstance(t, tuple) else (t, None)
+        s_r, s_c = (None, None) if stats is None else (stats[rows, None], stats[None, :])
+        sim = bs.sim_strip(t, t[rows], metric, s_r, s_c)
+    return affinity.knn_adjacency_block(sim, vr, valid, k, start, out_dtype=torch.bool)
+
+
 def _modality_candidates(t, tr, valid, vr, k, metric, *, start: int, block: int,
-                         n: int, nbins: int, use_kernel: bool, row_sums=None,
-                         postings=None):
+                         n: int, nbins: int, row_sums=None, postings=None):
     """(keep, grp) binned candidates of one modality's row block (K2, on the
     postings route when the panel's ``postings`` are given and the bin count
-    takes them; or its plain version when ``use_kernel`` is False), or None
-    at k == 0 (the modality contributes no edges)."""
+    takes them), or None at k == 0 (the modality contributes no edges)."""
     k = max(0, min(k, n - 1))
     if k == 0:
         return None
-    t, tr = t.contiguous(), tr.contiguous()
-    if not use_kernel:
-        vals, grp = bs.binned_candidates_plain(t, tr, valid, start, metric=metric,
-                                               nbins=nbins, block=block, row_sums=row_sums)
-    else:
-        vals, grp = bs.binned_candidates(
-            t, tr, valid, start, metric=metric, nbins=nbins, block=block, row_sums=row_sums,
-            postings=postings if bs.takes_postings(nbins) else None)
+    vals, grp = bs.binned_candidates(
+        t.contiguous(), tr.contiguous(), valid, start, metric=metric, nbins=nbins,
+        block=block, row_sums=row_sums,
+        postings=postings if bs.takes_postings(nbins) else None)
     return bs.budgeted_keep(vals, vr, k), grp
 
 
 def _pair_loc_time(cols: Columns, start: int, block: int, n: int, nbins: int,
-                   k_basis: int, use_kernel: bool) -> dict:
-    """{kind: (vals, grp)} for location_xyz + time from ONE K3 launch (two
-    plain K2 versions when ``use_kernel`` is False); {} when either is
-    missing or clamps to k = 0."""
+                   k_basis: int) -> dict:
+    """{kind: (vals, grp)} for location_xyz + time from ONE K3 launch; {}
+    when either is missing or clamps to k = 0."""
     if "location_xyz" not in cols.kinds or "time" not in cols.kinds:
         return {}
     if min(k_basis, n - 1) <= 0:
@@ -282,16 +312,9 @@ def _pair_loc_time(cols: Columns, start: int, block: int, n: int, nbins: int,
     tL, tT = cols.tensors[iL], cols.tensors[iT]
     rows = slice(start, start + block)
     tL, tT, rL, rT = (x.contiguous() for x in (tL, tT, tL[rows], tT[rows]))
-    vL, vT = cols.valids[iL], cols.valids[iT]
-    if use_kernel:
-        vaL, grL, vaT, grT = bs.binned_candidates_pair(
-            tL, tT, rL, rT, vL, vT, start, metricA="chord3", metricB="l1", nbins=nbins,
-            block=block)
-    else:
-        vaL, grL = bs.binned_candidates_plain(tL, rL, vL, start, metric="chord3",
-                                              nbins=nbins, block=block)
-        vaT, grT = bs.binned_candidates_plain(tT, rT, vT, start, metric="l1",
-                                              nbins=nbins, block=block)
+    vaL, grL, vaT, grT = bs.binned_candidates_pair(
+        tL, tT, rL, rT, cols.valids[iL], cols.valids[iT], start, metricA="chord3",
+        metricB="l1", nbins=nbins, block=block)
     return {"location_xyz": (vaL, grL), "time": (vaT, grT)}
 
 
@@ -302,71 +325,36 @@ def _pair_keep(kind: str, pair: dict, vr, k_basis: int, n: int):
 
 
 def fused_rowblock(cols: Columns, start: int, block: int, k_basis: int,
-                   approx: bool = False, select: str = "strip", nbins: int = 0,
-                   out_dtype=torch.float32, use_kernel: bool = True) -> torch.Tensor:
+                   select: str = "strip", nbins: int = 0,
+                   out_dtype=torch.float32) -> torch.Tensor:
     """(block, n) fused adjacency rows [start, start+block), a pure function
     of the column panels.  ``select="binned"`` (with ``nbins`` from
-    ``default_nbins``) takes location + time through one K3 launch and the
-    tags / text / embedding / default panels through K2, then builds the
-    union without a scatter (``use_kernel=False`` takes the kernels' plain
-    versions instead, the reference route); ``"strip"`` takes every modality through its
-    similarity strip and exact top-k (``approx`` runs exactly, see
-    ``affinity.knn_adjacency_block``).  Username is an equality strip on
-    both routes.  Per-modality adjacencies are bool, cast once at the end.
-    Where :func:`union_kernel_ok` holds (and ``use_kernel``), the union
-    kernel writes the same block from :func:`candidate_rowblock`'s slabs in
-    ``out_dtype`` instead."""
+    ``default_nbins``) writes the modalities the candidate form holds from
+    :func:`candidate_rowblock` through ``blocked_select.union_rowblock``, in
+    ``out_dtype``; ``"strip"`` takes every modality through its similarity
+    strip and exact top-k.  On both routes the modalities the candidate
+    form does not hold (legacy kinds, panels without a 128-multiple width,
+    a username panel past the first or not int32) are OR-ed in from their
+    strips, as bool, cast once at the end."""
     cols = hoist_columns(cols)          # a no-op for the column builders' kinds
-    if use_kernel and union_kernel_ok(cols, select, nbins):
-        return bs.union_rowblock(candidate_rowblock(cols, start, block, k_basis, nbins),
-                                 out_dtype)
     n = cols.n
     binned = select == "binned" and nbins > 0 and n % nbins == 0
-    rows = slice(start, start + block)
-    pair = (_pair_loc_time(cols, start, block, n, nbins, k_basis, use_kernel)
-            if binned else {})
-    cands, mats = [], []
-    for kind, t, valid, post in zip(cols.kinds, cols.tensors, cols.valids, cols.postings_of()):
-        vr = valid[rows]
-        if kind == "username":
-            not_self = (start + torch.arange(block, device=t.device))[:, None] \
-                != torch.arange(n, device=t.device)[None, :]
-            mats.append((t[rows, None] == t[None, :]) & vr[:, None] & valid[None, :]
-                        & not_self)
-            continue
-        if kind in pair:
-            cands.append(_pair_keep(kind, pair, vr, k_basis, n))
-            continue
-        if kind not in _METRIC:         # a legacy kind: the strip only
-            sim, k = _legacy_strip(kind, t, valid, rows, cols.idf, k_basis)
-            mats.append(affinity.knn_adjacency_block(sim, vr, valid, k, start, approx,
-                                                     out_dtype=torch.bool))
-            continue
-        metric, k = _metric_k(kind, k_basis)
-        t, stats = t if isinstance(t, tuple) else (t, None)
-        if binned and _binned_ok(kind, t):
-            cands.append(_modality_candidates(t, t[rows], valid, vr, k, metric, start=start,
-                                              block=block, n=n, nbins=nbins,
-                                              use_kernel=use_kernel, row_sums=stats,
-                                              postings=post))
-            continue
-        s_r, s_c = (None, None) if stats is None else (stats[rows, None], stats[None, :])
-        sim = bs.sim_strip(t, t[rows], metric, s_r, s_c)
-        mats.append(affinity.knn_adjacency_block(sim, vr, valid, k, start, approx,
-                                                 out_dtype=torch.bool))
-    cands = [c for c in cands if c is not None]
-    fused = (bs.adjacency_from_candidates([k for k, _ in cands], [g for _, g in cands], n)
-             if cands else None)
-    for m in mats:
+    held = _cand_held(cols.kinds, cols.tensors) if binned else [False] * len(cols.kinds)
+    strips = [_strip_adjacency(cols, i, start, block, k_basis)
+              for i, h in enumerate(held) if not h]
+    fused = None
+    if any(held):
+        fused = bs.union_rowblock(candidate_rowblock(cols, start, block, k_basis, nbins),
+                                  torch.bool if strips else out_dtype)
+    for m in strips:
         fused = m if fused is None else fused | m
-    if fused is None:      # every modality clamped to k = 0 (e.g. n == 1)
+    if fused is None:      # no modality (e.g. n == 1 clamps each to k = 0)
         fused = torch.zeros((block, n), dtype=torch.bool, device=cols.valids[0].device)
     return fused.to(out_dtype)
 
 
-def scan_blocks(cols: Columns, block: int, k_basis: int, approx: bool = False,
-                select: str = "strip", nbins: int = 0, out_dtype=torch.float32,
-                starts=None):
+def scan_blocks(cols: Columns, block: int, k_basis: int, select: str = "strip",
+                nbins: int = 0, out_dtype=torch.float32, starts=None):
     """Yield ``(start, fused_rowblock(...))`` over every row block in order
     (or over the block starts ``starts``: a row-sharded sweep's share), the
     counterpart of the JAX package's ``_scan_blocks``, with
@@ -374,19 +362,16 @@ def scan_blocks(cols: Columns, block: int, k_basis: int, approx: bool = False,
     over blocks (degrees, ``A^T v``) would count a clamped last block's rows
     twice, so ``block`` must divide n: it raises otherwise.  A finished
     sweep records the counter ``blocked.union_blocks``: the blocks the union
-    kernel wrote (all of them where :func:`union_kernel_ok` holds, else 0)."""
+    kernel wrote."""
     cols = hoist_columns(cols)
     n = cols.n
     if n % block:
         raise ValueError(f"block={block} must divide n={n} (pad rows upstream): a "
                          "clamped last block would count rows twice")
-    union = union_kernel_ok(cols, select, nbins)
-    blocks = 0
+    before = bs.union_blocks_written()
     for start in (range(0, n, block) if starts is None else starts):
-        yield start, fused_rowblock(cols, start, block, k_basis, approx, select, nbins,
-                                    out_dtype)
-        blocks += 1
-    profiling.counter("blocked.union_blocks", blocks if union else 0)
+        yield start, fused_rowblock(cols, start, block, k_basis, select, nbins, out_dtype)
+    profiling.counter("blocked.union_blocks", bs.union_blocks_written() - before)
 
 
 # ---------------------------------------------------------------------------
@@ -394,50 +379,42 @@ def scan_blocks(cols: Columns, block: int, k_basis: int, approx: bool = False,
 # ---------------------------------------------------------------------------
 
 def cand_fold_supported(kinds, tensors, nbins: int, n: int) -> bool:
-    """True when every modality has a binned route or is username (taken
-    inside K4 / K5): the precondition of the candidate-native FD fold."""
+    """True when the candidate form holds every modality (:func:`_cand_held`;
+    username is taken inside K4 / K5): the precondition of the
+    candidate-native FD fold."""
     if nbins <= 0 or n % nbins or n // nbins > 127:
         return False
-    return all(kind == "username" or _binned_ok(kind, t) for kind, t in zip(kinds, tensors))
-
-
-def union_kernel_ok(cols: Columns, select: str, nbins: int) -> bool:
-    """Whether :func:`fused_rowblock` writes the hoisted ``cols``' blocks
-    through the union kernel: CUDA panels on the binned route whose every
-    modality the candidate form holds (:func:`cand_fold_supported`), with at
-    most one username panel, int32, and at most ``UNION_MAX_PLANES`` others."""
-    users = [t for kind, t in zip(cols.kinds, cols.tensors) if kind == "username"]
-    return (select == "binned" and cols.valids[0].device.type == "cuda"
-            and cand_fold_supported(cols.kinds, cols.tensors, nbins, cols.n)
-            and len(users) <= 1 and all(t.dtype == torch.int32 for t in users)
-            and len(cols.kinds) - len(users) <= bs.UNION_MAX_PLANES)
+    return all(_cand_held(kinds, tensors))
 
 
 def candidate_rowblock(cols: Columns, start: int, block: int, k_basis: int,
-                       nbins: int, use_kernel: bool = True) -> cm.CandBlock:
-    """The same edges as ``fused_rowblock(select="binned")`` packed as int8
-    candidate slabs + username uids.  Callers check
-    :func:`cand_fold_supported` first."""
+                       nbins: int) -> cm.CandBlock:
+    """The edges of the modalities the candidate form holds
+    (:func:`_cand_held`) in rows [start, start+block), packed as int8
+    candidate slabs + username uids; the others are left out.  Where
+    :func:`cand_fold_supported` holds, these are all of
+    ``fused_rowblock(select="binned")``'s edges."""
     cols = hoist_columns(cols)
     n = cols.n
     rows = slice(start, start + block)
-    pair = _pair_loc_time(cols, start, block, n, nbins, k_basis, use_kernel)
+    pair = _pair_loc_time(cols, start, block, n, nbins, k_basis)
     slabs, uid_rows, uid_cols = [], None, None
-    for kind, t, valid, post in zip(cols.kinds, cols.tensors, cols.valids, cols.postings_of()):
+    for kind, t, valid, post, held in zip(cols.kinds, cols.tensors, cols.valids,
+                                          cols.postings_of(),
+                                          _cand_held(cols.kinds, cols.tensors)):
+        if not held:
+            continue
         if kind == "username":
             uid_rows, uid_cols = cm.mask_uids(t, valid, nbins, start, block)
             continue
         if kind in pair:
             slabs.append(cm.pack_slab(*_pair_keep(kind, pair, valid[rows], k_basis, n)))
             continue
-        if not _binned_ok(kind, t):
-            raise ValueError(f"kind {kind!r} has no candidate route (a legacy strip kind, "
-                             "or the panel width)")
         metric, k = _metric_k(kind, k_basis)
         t, stats = t if isinstance(t, tuple) else (t, None)
         res = _modality_candidates(t, t[rows], valid, valid[rows], k, metric, start=start,
-                                   block=block, n=n, nbins=nbins, use_kernel=use_kernel,
-                                   row_sums=stats, postings=post)
+                                   block=block, n=n, nbins=nbins, row_sums=stats,
+                                   postings=post)
         if res is not None:
             slabs.append(cm.pack_slab(*res))
     device = cols.valids[0].device
@@ -453,8 +430,7 @@ def candidate_rowblock(cols: Columns, start: int, block: int, k_basis: int,
 # ---------------------------------------------------------------------------
 
 def blocked_fd_sketch(cols: Columns, *, ell: int, block: int, k_basis: int,
-                      mode: str = "subspace", approx_knn: bool = False,
-                      select: str = "strip", nbins: int = 0,
+                      mode: str = "subspace", select: str = "strip", nbins: int = 0,
                       cand_fold: bool | None = None, starts=None):
     """FD sketch (ell, n) of the implicit fused adjacency's rows in one
     rematerialized sweep -> (sketch, sq_frobenius, shrink_loss), the
@@ -485,7 +461,7 @@ def blocked_fd_sketch(cols: Columns, *, ell: int, block: int, k_basis: int,
                          "n, and every modality binned-eligible (cand_fold_supported)")
     state = fd.init(ell, n, device)
     if not cand_fold:
-        for _, fused in scan_blocks(cols, block, k_basis, approx_knn, select, nbins,
+        for _, fused in scan_blocks(cols, block, k_basis, select, nbins,
                                     torch.bfloat16 if mode == "rr" else torch.float32,
                                     starts=starts):
             state = fd.update_stream(state, fused, mode=mode)
@@ -528,7 +504,7 @@ def no_reduce(x: torch.Tensor) -> torch.Tensor:
 
 def blocked_svd_reduce(cols: Columns, generator: torch.Generator | None, *, rank: int,
                        block: int, k_basis: int, n_iter: int = 2, oversample: int = 8,
-                       approx_knn: bool = False, select: str = "strip", nbins: int = 0,
+                       select: str = "strip", nbins: int = 0,
                        omega: torch.Tensor | None = None, starts=None,
                        allreduce=no_reduce) -> torch.Tensor:
     """TruncatedSVD.fit_transform of the implicit fused adjacency with
@@ -540,8 +516,7 @@ def blocked_svd_reduce(cols: Columns, generator: torch.Generator | None, *, rank
     n = cols.n
 
     def blocks():          # f32 blocks; raises where block does not divide n
-        return scan_blocks(cols, block, k_basis, approx_knn, select, nbins, torch.float32,
-                           starts=starts)
+        return scan_blocks(cols, block, k_basis, select, nbins, torch.float32, starts=starts)
 
     def mul_a(v):          # A @ v, one block of rows at a time (others' rows stay 0)
         acc = torch.zeros((n, v.shape[1]), dtype=torch.float32, device=v.device)

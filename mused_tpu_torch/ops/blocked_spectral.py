@@ -39,31 +39,29 @@ from mused_tpu_torch.utils import profiling
 from mused_tpu_torch.ops.spectral import eigengap_k_from_spectrum  # noqa: F401
 
 
-def _degrees(cols: ba.Columns, *, block: int, k_basis: int, approx_knn: bool = False,
-             select: str = "strip", nbins: int = 0, starts=None,
-             allreduce=ba.no_reduce) -> torch.Tensor:
+def _degrees(cols: ba.Columns, *, block: int, k_basis: int, select: str = "strip",
+             nbins: int = 0, starts=None, allreduce=ba.no_reduce) -> torch.Tensor:
     """(n,) degrees of (A + A^T)/2: one sweep of row and column sums
     (``starts`` / ``allreduce`` as in ``blocked_affinity.blocked_svd_reduce``)."""
     n = cols.n
     device = cols.valids[0].device
     row_sums = torch.zeros(n, dtype=torch.float32, device=device)
     col_sums = torch.zeros(n, dtype=torch.float32, device=device)
-    for start, fused in ba.scan_blocks(cols, block, k_basis, approx_knn, select, nbins,
-                                       starts=starts):
+    for start, fused in ba.scan_blocks(cols, block, k_basis, select, nbins, starts=starts):
         row_sums[start:start + block] = torch.sum(fused, dim=1)
         col_sums += torch.sum(fused, dim=0)
     return 0.5 * allreduce(row_sums + col_sums)
 
 
 def _sym_matmul(cols: ba.Columns, v: torch.Tensor, *, block: int, k_basis: int,
-                approx_knn: bool = False, select: str = "strip", nbins: int = 0,
-                starts=None, allreduce=ba.no_reduce) -> torch.Tensor:
+                select: str = "strip", nbins: int = 0, starts=None,
+                allreduce=ba.no_reduce) -> torch.Tensor:
     """((A + A^T)/2) @ v for (n, m) v in one sweep: each block is rebuilt
     once and used for both ``fused @ v`` and ``fused.T @ v_block``."""
     with profiling.span("spectral.sweep", device=v.device.type == "cuda"):
         av = torch.zeros_like(v)
         atv = torch.zeros_like(v)
-        for start, fused in ba.scan_blocks(cols, block, k_basis, approx_knn, select, nbins,
+        for start, fused in ba.scan_blocks(cols, block, k_basis, select, nbins,
                                            starts=starts):
             av[start:start + block] = fused @ v
             atv += fused.T @ v[start:start + block]
@@ -99,8 +97,7 @@ def ritz_from_products(sym_matmul, inv_sqrt: torch.Tensor,
 
 def spectral_embedding_blocked(cols: ba.Columns, generator: torch.Generator | None, *,
                                k_max: int, block: int, k_basis: int, n_iter: int = 6,
-                               oversample: int = 8, approx_knn: bool = False,
-                               select: str = "strip", nbins: int = 0,
+                               oversample: int = 8, select: str = "strip", nbins: int = 0,
                                probe: torch.Tensor | None = None, starts=None,
                                allreduce=ba.no_reduce):
     """(ritz, eigenvalues) of the implicit fused adjacency's normalized-cuts
@@ -112,8 +109,8 @@ def spectral_embedding_blocked(cols: ba.Columns, generator: torch.Generator | No
     n = cols.n
     if n % block:
         raise ValueError(f"block={block} must divide n={n} (pad rows upstream)")
-    kw = dict(block=block, k_basis=k_basis, approx_knn=approx_knn, select=select,
-              nbins=nbins, starts=starts, allreduce=allreduce)
+    kw = dict(block=block, k_basis=k_basis, select=select, nbins=nbins, starts=starts,
+              allreduce=allreduce)
     with profiling.span("spectral.degrees", device=cols.valids[0].device.type == "cuda"):
         deg = _degrees(cols, **kw)
     inv_sqrt = torch.where(deg > 0, torch.rsqrt(torch.clamp(deg, min=1e-12)), 0.0)
@@ -125,15 +122,14 @@ def spectral_clustering_blocked(cols: ba.Columns, n_clusters,
                                 generator: torch.Generator | None, *, k_max: int,
                                 block: int, k_basis: int, n_real: int | None = None,
                                 n_iter: int = 6, oversample: int = 8,
-                                approx_knn: bool = False, select: str = "strip",
-                                nbins: int = 0) -> torch.Tensor:
+                                select: str = "strip", nbins: int = 0) -> torch.Tensor:
     """Labels (n_real,) by blocked normalized-cuts spectral clustering.
     ``cols`` has rows padded to a block multiple (padding rows are invalid:
     zero degree, zero embedding); ``n_real`` slices them off before k-means,
     so their blob at the origin cannot take a centroid."""
     ritz, _ = spectral_embedding_blocked(
         cols, generator, k_max=k_max, block=block, k_basis=k_basis, n_iter=n_iter,
-        oversample=oversample, approx_knn=approx_knn, select=select, nbins=nbins)
+        oversample=oversample, select=select, nbins=nbins)
     return labels_from_ritz(ritz, n_clusters, generator, k_max=k_max,
                             n_real=cols.n if n_real is None else n_real)
 

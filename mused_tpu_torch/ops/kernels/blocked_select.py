@@ -54,11 +54,15 @@ PyTorch (similarity strip, then :func:`binned_candidates_reference`).
 The union kernel (:func:`union_rowblock`) writes the (block, n) fused
 adjacency rows of a candidate block (``cand_matvec.CandBlock``: the kept
 candidates as int8 slabs, and the username operands) once, in the dtype
-its consumer reads; its plain version is
-``cand_matvec.dense_rows_reference``.
+its consumer reads, for any number of slabs (past ``UNION_MAX_PLANES``, one
+launch per group of slabs, OR-ed); its plain version,
+``cand_matvec.dense_rows_reference``, writes the blocks of CPU slabs.
+:func:`union_blocks_written` counts the blocks the kernel wrote on the
+calling thread.
 """
 from __future__ import annotations
 
+import threading
 from typing import NamedTuple
 
 import torch
@@ -84,6 +88,7 @@ pair_launches = 0   # K3 launches so far, every route
 postings_launches = 0        # of them, K2 launches on the postings route
 postings_pair_launches = 0   # and K3 launches on it
 union_launches = 0  # union kernel launches so far
+_union_written = threading.local()   # .blocks: row blocks the union kernel wrote
 
 UNION_DTYPES = (torch.bool, torch.bfloat16, torch.float32)   # the union kernel's outputs
 UNION_MAX_PLANES = 8    # candidate slabs the union kernel holds in registers
@@ -595,48 +600,59 @@ def budgeted_keep(vals: torch.Tensor, row_valid: torch.Tensor, k: int) -> torch.
     return keep & row_valid[:, None]
 
 
-def adjacency_from_candidates(keeps, grps, n: int) -> torch.Tensor:
-    """(block, n) bool adjacency from per-modality candidate masks: candidate
-    (r, slot) of group g IS column g * nbins + slot, so the union is one
-    broadcast over (block, groups, nbins), no scatter."""
-    block, nbins = keeps[0].shape
-    gids = torch.arange(n // nbins, dtype=torch.int8, device=keeps[0].device)
-    adj = None
-    for keep, grp in zip(keeps, grps):
-        m = keep[:, None, :] & (grp[:, None, :] == gids[None, :, None])
-        adj = m if adj is None else adj | m
-    return adj.reshape(block, n)
-
-
 def union_rowblock(cand, out_dtype=torch.float32) -> torch.Tensor:
-    """(block, n) fused adjacency rows of a ``cand_matvec.CandBlock``,
-    written once in ``out_dtype`` (bool, bf16 or f32) by the union kernel
-    for CUDA tensors; the plain version ``dense_rows_reference`` for CPU
-    tensors.  Element (r, g * nbins + s) is 1 where some slab keeps group g
+    """(block, n) fused adjacency rows of any ``cand_matvec.CandBlock``,
+    written once in ``out_dtype`` (bool, bf16 or f32): by the union kernel
+    for CUDA slabs (more than ``UNION_MAX_PLANES`` slabs: one launch per
+    group of them into bool rows, the username term in the first, OR-ed and
+    cast once), by the plain version ``dense_rows_reference`` for CPU
+    slabs.  Element (r, g * nbins + s) is 1 where some slab keeps group g
     at (r, s), or where the row's uid equals the column's off the row's own
-    column."""
+    column.  Raises on an output dtype or a block it cannot write."""
     if out_dtype not in UNION_DTYPES:
         raise TypeError(f"the union kernel writes {UNION_DTYPES}, not {out_dtype}")
     cm.check_cand(cand)
     if cand.slabs.device.type == "cpu":
         return cm.dense_rows_reference(cand).to(out_dtype)
+    if cand.slabs.device.type != "cuda":
+        raise ValueError(f"union_rowblock runs on cuda or cpu tensors, not "
+                         f"{cand.slabs.device}")
     planes = cand.slabs.shape[0]
-    if not 1 <= planes <= UNION_MAX_PLANES:
-        raise ValueError(f"the union kernel takes 1 to {UNION_MAX_PLANES} slabs, got {planes}")
-    dev = cand.slabs.device
+    if planes <= UNION_MAX_PLANES:
+        out = _launch_union(cand, cand.slabs, cand.uid_rows, out_dtype)
+    else:
+        out = _launch_union(cand, cand.slabs[:UNION_MAX_PLANES], cand.uid_rows, torch.bool)
+        for p in range(UNION_MAX_PLANES, planes, UNION_MAX_PLANES):
+            out |= _launch_union(cand, cand.slabs[p:p + UNION_MAX_PLANES], None, torch.bool)
+        out = out.to(out_dtype)
+    _union_written.blocks = union_blocks_written() + 1
+    return out
+
+
+def _launch_union(cand, slabs, uid_rows, out_dtype) -> torch.Tensor:
+    """One union kernel launch over 1 to ``UNION_MAX_PLANES`` of ``cand``'s
+    slabs (``uid_rows`` None: no username term)."""
+    dev = slabs.device
     out = torch.empty((cand.block, cand.groups * cand.nbins), dtype=out_dtype, device=dev)
     lib = build.load()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         code = lib.mused_union_rowblock(
-            cand.slabs.data_ptr(), _ptr(cand.uid_rows), cand.uid_cols.data_ptr(),
-            out.data_ptr(), planes, cand.block, cand.nbins, cand.groups, int(cand.start),
+            slabs.data_ptr(), _ptr(uid_rows), cand.uid_cols.data_ptr(), out.data_ptr(),
+            slabs.shape[0], cand.block, cand.nbins, cand.groups, int(cand.start),
             int(cand.g0), UNION_DTYPES.index(out_dtype), stream)
     build.check(code, f"union_rowblock block={cand.block} nbins={cand.nbins} "
-                      f"groups={cand.groups} planes={planes}")
+                      f"groups={cand.groups} planes={slabs.shape[0]}")
     global union_launches
     union_launches += 1
     return out
+
+
+def union_blocks_written() -> int:
+    """Row blocks the union kernel has written on the calling thread so far:
+    one per :func:`union_rowblock` call on CUDA slabs, whatever its
+    launches (a sweep's own count, untouched by other threads' sweeps)."""
+    return getattr(_union_written, "blocks", 0)
 
 
 def pad_features_128(x: torch.Tensor) -> torch.Tensor:

@@ -18,9 +18,9 @@ every row block against its (block, n/p) column slice:
     global candidate merge: max of the values, then min of the global group
       among the ranks that reach it (the single-device kernel's rule: the
       lowest group wins a tie)                                O(block·nbins)
-    the same exact top-k on every rank -> this rank's (block, n/p) slice of
-      the fused adjacency, or its candidate-form block (K4 / K5 with the
-      rank's global group offset g0)
+    the same exact top-k on every rank -> this rank's candidate-form block
+      (local group ids, the rank's global group offset g0): its (block, n/p)
+      slice of the fused adjacency written by the union, or K4 / K5
     column-sharded FD absorb: every contraction over the sharded axis is an
       all-reduce of a small (m2, r) product
 
@@ -182,18 +182,6 @@ def _merge_candidates(vals: torch.Tensor, grp_i8: torch.Tensor, groups_local: in
     return vmax, axis.pmin(cand)
 
 
-def _adjacency_local(keeps, gwins, groups_local: int, nbins: int, axis: Axis):
-    """(block, n/p) bool slice of the fused adjacency from the kept
-    candidates: this rank materializes only the groups it owns."""
-    block = keeps[0].shape[0]
-    gids = axis.index * groups_local + torch.arange(groups_local, device=keeps[0].device)
-    adj = None
-    for keep, gw in zip(keeps, gwins):
-        m = keep[:, None, :] & (gw[:, None, :] == gids[None, :, None])
-        adj = m if adj is None else adj | m
-    return adj.reshape(block, groups_local * nbins)
-
-
 # ---------------------------------------------------------------------------
 # per-shard column prep (blocked_affinity.standard_columns / generic_columns
 # with the text document frequencies summed over the column shards)
@@ -270,7 +258,7 @@ def _prep_generic(feat_shards: tuple, types: tuple, k_basis: int) -> list:
 # ---------------------------------------------------------------------------
 
 def _select_candidates_local(mods: list, start: int, block: int, n: int, nbins: int,
-                             use_kernel: bool, axis: Axis):
+                             axis: Axis):
     """Globally merged kNN candidates of rows [start, start+block):
     [(keep, gwin)] per kNN modality (the same (block, nbins) kept mask and
     winning global groups on every rank), and the username modality's local
@@ -292,8 +280,7 @@ def _select_candidates_local(mods: list, start: int, block: int, n: int, nbins: 
         sr = _bcast_rows(stats, start, block, axis) if stats is not None else None
         items.append((metric, t, valid, stats, k_eff, vr, tr, sr))
         postings.append(post)
-    raw = _raw_candidates(items, start_adj, nbins=nbins, block=block, use_kernel=use_kernel,
-                          postings=postings)
+    raw = _raw_candidates(items, start_adj, nbins=nbins, block=block, postings=postings)
     cands = []
     for (vals, grp), item in zip(raw, items):
         vmax, gwin = _merge_candidates(vals, grp, groups_local, axis)
@@ -302,21 +289,16 @@ def _select_candidates_local(mods: list, start: int, block: int, n: int, nbins: 
 
 
 def _raw_candidates(items: list, start_adj: int, *, nbins: int, block: int,
-                    use_kernel: bool, postings: list | None = None) -> list:
+                    postings: list | None = None) -> list:
     """Per-modality (vals, grp) of prepared items [(metric, cols, colv, stats,
-    k_eff, vr, rows, row_stats)], no collectives.  ``use_kernel``: pair
-    consecutive modalities into one K3 launch (a leftover single takes K2),
-    on the postings route where both halves have ``postings`` (per item, or
-    None) and the bin count takes them; else each modality's plain version."""
+    k_eff, vr, rows, row_stats)], no collectives: consecutive modalities
+    paired into one K3 launch (a leftover single takes K2), on the postings
+    route where both halves have ``postings`` (per item, or None) and the
+    bin count takes them.  On CPU tensors the wrappers run their plain
+    versions."""
     raw = []
     if postings is None or not bs.takes_postings(nbins):
         postings = [None] * len(items)
-    if not use_kernel:
-        for m_, t_, v_, s_, _, _, tr_, sr_ in items:
-            raw.append(bs.binned_candidates_plain(t_, tr_, v_, start_adj, metric=m_,
-                                                  nbins=nbins, block=block, row_sums=s_,
-                                                  row_stats=sr_))
-        return raw
     for i in range(0, len(items), 2):
         if i + 1 < len(items):
             ma, ta, va, sa, _, _, tra, sra = items[i]
@@ -337,41 +319,17 @@ def _raw_candidates(items: list, start_adj: int, *, nbins: int, block: int,
     return raw
 
 
-def _fused_block_local(mods: list, start: int, block: int, n: int, nbins: int,
-                       use_kernel: bool, axis: Axis) -> torch.Tensor:
-    """This rank's (block, n/p) bool slice of fused adjacency rows
-    [start, start+block): the OR of the per-modality kNN adjacencies
-    (reference matrix_operations.py:134-141) and username equality."""
-    n_local = mods[0][1].shape[0]
-    groups_local = n_local // nbins
-    cands, user = _select_candidates_local(mods, start, block, n, nbins, use_kernel, axis)
-    device = mods[0][1].device
-    if cands:
-        fused = _adjacency_local([kp for kp, _ in cands], [gw for _, gw in cands],
-                                 groups_local, nbins, axis)
-    else:       # every kNN modality clamped to k = 0: no edges
-        fused = torch.zeros((block, n_local), dtype=torch.bool, device=device)
-    if user is not None:        # username connects all same-user rows (ref :55-72)
-        uid, valid = user
-        tr = _bcast_rows(uid, start, block, axis)
-        vr = _bcast_rows(valid, start, block, axis)
-        same = (tr[:, None] == uid[None, :]) & vr[:, None] & valid[None, :]
-        not_self = ((start + torch.arange(block, device=device))[:, None]
-                    != (axis.index * n_local + torch.arange(n_local, device=device))[None, :])
-        fused = fused | (same & not_self)
-    return fused
-
-
-def _cand_block_local(cands: list, user, start: int, block: int, n_local: int, nbins: int,
+def _cand_block_local(mods: list, start: int, block: int, n: int, nbins: int,
                       axis: Axis) -> cm.CandBlock:
     """This rank's candidate-form slice of fused rows [start, start+block):
-    the winners in its column range as LOCAL int8 group ids (else -1) and
-    its global group offset g0, so K4 / K5 walk only the local groups while
-    the username self test stays global.  The implicit matrix equals
-    :func:`_fused_block_local`'s slice."""
+    the globally merged winners in its column range as LOCAL int8 group ids
+    (else -1) and its global group offset g0, so K4 / K5 and the union walk
+    only the local groups while the username self test stays global."""
+    n_local = mods[0][1].shape[0]
     groups_local = n_local // nbins
     g0 = axis.index * groups_local
-    device = user[0].device if user is not None else cands[0][0].device
+    device = mods[0][1].device
+    cands, user = _select_candidates_local(mods, start, block, n, nbins, axis)
     slabs = []
     for keep, gwin in cands:
         lg = gwin - g0
@@ -379,7 +337,7 @@ def _cand_block_local(cands: list, user, start: int, block: int, n_local: int, n
         slabs.append(torch.where(local, lg, -1).to(torch.int8))
     if not slabs:               # username-only (or all k = 0) windows
         slabs = [torch.full((block, nbins), -1, dtype=torch.int8, device=device)]
-    if user is not None:
+    if user is not None:        # username connects all same-user rows (ref :55-72)
         uid, valid = user
         urow = _bcast_rows(torch.where(valid, uid, -1).to(torch.int32), start, block, axis)
         uid_rows = urow.reshape(block, 1)
@@ -390,25 +348,35 @@ def _cand_block_local(cands: list, user, start: int, block: int, n_local: int, n
     return cm.CandBlock(torch.stack(slabs), uid_rows, uid_cols, int(start), int(g0))
 
 
+def _fused_block_local(mods: list, start: int, block: int, n: int, nbins: int, axis: Axis,
+                       out_dtype=torch.bool) -> torch.Tensor:
+    """This rank's (block, n/p) slice of fused adjacency rows
+    [start, start+block) in ``out_dtype``: the OR of the per-modality kNN
+    adjacencies (reference matrix_operations.py:134-141) and username
+    equality, written from its candidate-form slice."""
+    return bs.union_rowblock(_cand_block_local(mods, start, block, n, nbins, axis),
+                             out_dtype)
+
+
 # ---------------------------------------------------------------------------
 # entry points
 # ---------------------------------------------------------------------------
 
 def _setup(feats: tuple, types: tuple, mesh, block: int, k_basis: int, tags_dim: int,
            text_dim: int):
-    """(sweep, this rank's modality descriptors, use_kernel)."""
+    """(sweep, this rank's modality descriptors)."""
     sw = _Sweep(mesh, feats[0].shape[0], block)
     mods = _prep_local_modalities(sw.place(feats), tuple(types), k_basis, tags_dim,
                                   text_dim, sw.col)
-    return sw, mods, sw.device.type == "cuda"
+    return sw, mods
 
 
-def _fused_blocks(sw: _Sweep, mods: list, nbins: int, use_kernel: bool):
+def _fused_blocks(sw: _Sweep, mods: list, nbins: int):
     """(start, this rank's (block, n/p) f32 slice) of each row block of its
     share, in order: the SVD's and spectral's sweeps."""
     for start in sw.starts:
-        yield start, _fused_block_local(mods, start, sw.block, sw.n, nbins, use_kernel,
-                                        sw.col).to(torch.float32)
+        yield start, _fused_block_local(mods, start, sw.block, sw.n, nbins, sw.col,
+                                        torch.float32)
 
 
 def colsharded_blocked_fd_sketch(feats: tuple, types: tuple, *, ell: int, block: int,
@@ -441,22 +409,20 @@ def colsharded_blocked_fd_sketch(feats: tuple, types: tuple, *, ell: int, block:
     elif cand_fold and mode != "rr":
         raise ValueError("colsharded cand_fold=True needs the rr shrink "
                          "(mode='subspace'/'rr')")
-    sw, mods, use_kernel = _setup(feats, types, mesh, block, k_basis, tags_dim, text_dim)
+    sw, mods = _setup(feats, types, mesh, block, k_basis, tags_dim, text_dim)
     psum = sw.col.psum          # the fold's contractions over the sharded columns
     state = fd.init(ell, sw.n_local, sw.device)
     out_dt = torch.bfloat16 if mode == "rr" else torch.float32
     for start in sw.starts:
         if cand_fold:
-            cands, user = _select_candidates_local(mods, start, block, n, nbins,
-                                                   use_kernel, sw.col)
-            cand = _cand_block_local(cands, user, start, block, sw.n_local, nbins, sw.col)
+            cand = _cand_block_local(mods, start, block, n, nbins, sw.col)
             b, delta, edges = fd.shrink_rr_cands(state.sketch, cand, ell, allreduce=psum)
             state = fd.FDState(sketch=b, sq_frobenius=state.sq_frobenius + edges,
                                shrink_loss=state.shrink_loss + delta,
                                count=state.count + block)
         else:
-            fused = _fused_block_local(mods, start, block, n, nbins, use_kernel, sw.col)
-            state = fd.update_stream(state, fused.to(out_dt), mode=mode, allreduce=psum)
+            fused = _fused_block_local(mods, start, block, n, nbins, sw.col, out_dt)
+            state = fd.update_stream(state, fused, mode=mode, allreduce=psum)
     sketch, sq, loss = state.sketch, state.sq_frobenius, state.shrink_loss
     if sw.row is not None:
         # merge the pd row groups' sketches: one more shrink of the gathered
@@ -487,19 +453,19 @@ def colsharded_blocked_svd_reduce(feats: tuple, types: tuple,
     (the same on every rank for a generator seeded alike)."""
     n = feats[0].shape[0]
     nbins = _resolve_geometry(n, mesh, block, k_basis, nbins)
-    sw, mods, use_kernel = _setup(feats, types, mesh, block, k_basis, tags_dim, text_dim)
+    sw, mods = _setup(feats, types, mesh, block, k_basis, tags_dim, text_dim)
     lo = sw.me * sw.n_local
 
     def mul_a(v):           # A @ v: column-slice contractions, summed
         acc = torch.zeros((n, v.shape[1]), dtype=torch.float32, device=v.device)
         v_loc = v[lo:lo + sw.n_local]
-        for start, fused in _fused_blocks(sw, mods, nbins, use_kernel):
+        for start, fused in _fused_blocks(sw, mods, nbins):
             acc[start:start + block] = fused @ v_loc
         return sw.psum_all(acc)
 
     def mul_at(q):          # A^T @ q: column-sharded partials, gathered
         acc = torch.zeros((sw.n_local, q.shape[1]), dtype=torch.float32, device=q.device)
-        for start, fused in _fused_blocks(sw, mods, nbins, use_kernel):
+        for start, fused in _fused_blocks(sw, mods, nbins):
             acc += fused.T @ q[start:start + block]
         return sw.gather_cols(acc)
 
@@ -523,12 +489,12 @@ def colsharded_spectral_embedding(feats: tuple, types: tuple,
     from mused_tpu_torch.ops import blocked_spectral as bspec
     n = feats[0].shape[0]
     nbins = _resolve_geometry(n, mesh, block, k_basis, nbins)
-    sw, mods, use_kernel = _setup(feats, types, mesh, block, k_basis, tags_dim, text_dim)
+    sw, mods = _setup(feats, types, mesh, block, k_basis, tags_dim, text_dim)
     lo = sw.me * sw.n_local
 
     rp = torch.zeros(n, dtype=torch.float32, device=sw.device)
     cp = torch.zeros(sw.n_local, dtype=torch.float32, device=sw.device)
-    for start, fused in _fused_blocks(sw, mods, nbins, use_kernel):
+    for start, fused in _fused_blocks(sw, mods, nbins):
         rp[start:start + block] = torch.sum(fused, dim=1)
         cp += torch.sum(fused, dim=0)
     deg = 0.5 * (sw.psum_all(rp) + sw.gather_cols(cp))
@@ -538,7 +504,7 @@ def colsharded_spectral_embedding(feats: tuple, types: tuple,
         av = torch.zeros_like(v)
         atv = torch.zeros((sw.n_local, v.shape[1]), dtype=v.dtype, device=v.device)
         v_loc = v[lo:lo + sw.n_local]
-        for start, fused in _fused_blocks(sw, mods, nbins, use_kernel):
+        for start, fused in _fused_blocks(sw, mods, nbins):
             av[start:start + block] = fused @ v_loc
             atv += fused.T @ v[start:start + block]
         return 0.5 * (sw.psum_all(av) + sw.gather_cols(atv))
@@ -561,6 +527,6 @@ def colsharded_fused_rows(feats: tuple, types: tuple, *, start: int, block: int,
             f"start={start} must be a multiple of block={block}: a row "
             "range straddling a shard boundary has no single owner chip")
     nbins = _resolve_geometry(n, mesh, block, k_basis, nbins, check_row_groups=False)
-    sw, mods, use_kernel = _setup(feats, types, mesh, block, k_basis, tags_dim, text_dim)
-    fused = _fused_block_local(mods, start, block, n, nbins, use_kernel, sw.col)
+    sw, mods = _setup(feats, types, mesh, block, k_basis, tags_dim, text_dim)
+    fused = _fused_block_local(mods, start, block, n, nbins, sw.col)
     return sw.col.all_gather(fused).permute(1, 0, 2).reshape(block, n)

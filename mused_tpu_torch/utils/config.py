@@ -104,11 +104,9 @@ class PipelineConfig:
     # approach, sliding ratio, huge windows, centroid-on-standard) — see
     # engine.resolve_windows_per_batch.
     huge_window_approx_knn: bool = True
-    # huge-window (rematerialized blocked) path only: use lax.approx_max_k
-    # for the per-block kNN selections — measured 2x exact top_k at n~100k
-    # cols (the per-block wall) at ~98.5% edge recall, far below the
-    # OR-fusion/sketch noise floor.  The dense-window paths stay exact.
-    # False restores exact top_k everywhere.
+    # kept for the JAX package's config, where it selects lax.approx_max_k
+    # (a TPU partial reduction) for the huge-window kNN selections; the port
+    # runs exact top-k whatever the value.
     huge_window_fused_select: bool | None = None
     # huge-window blocked path: route the MXU modalities (text/tags) through
     # the fused stride-binned candidate kernel (ops/pallas/blocked_select.py)

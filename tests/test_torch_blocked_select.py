@@ -22,6 +22,7 @@ from mused_tpu.ops.pallas import blocked_select as jbs
 from mused_tpu.utils.config import PipelineConfig
 from mused_tpu_torch.ops import affinity as taff
 from mused_tpu_torch.ops.kernels import blocked_select as tbs
+from mused_tpu_torch.ops.kernels import cand_matvec as tcm
 from mused_tpu_torch.ops.kernels.affinity_kernel import location_to_unit_xyz
 from torch_parity import n as tonp, t
 
@@ -230,6 +231,15 @@ def test_budgeted_keep_bit_equal(k):
     np.testing.assert_array_equal(got, want)
 
 
+def _union(keeps, grps, n: int, start: int = 0) -> torch.Tensor:
+    """(block, n) bool union of per-modality kept candidates, through the
+    candidate form (no username term)."""
+    nbins = keeps[0].shape[1]
+    slabs = torch.stack([tcm.pack_slab(k, g) for k, g in zip(keeps, grps)])
+    uid_cols = torch.full((n // nbins, nbins), -2, dtype=torch.int32)
+    return tbs.union_rowblock(tcm.CandBlock(slabs, None, uid_cols, start), torch.bool)
+
+
 def test_adjacency_from_candidates_bit_equal():
     rng = np.random.default_rng(4)
     n, nbins = 256, 64
@@ -237,7 +247,7 @@ def test_adjacency_from_candidates_bit_equal():
     grps = [rng.integers(0, n // nbins, (32, nbins)).astype(np.int8) for _ in range(3)]
     want = jbs.adjacency_from_candidates([jnp.asarray(k) for k in keeps],
                                          [jnp.asarray(g) for g in grps], n)
-    got = tbs.adjacency_from_candidates([t(k) for k in keeps], [t(g) for g in grps], n)
+    got = _union([t(k) for k in keeps], [t(g) for g in grps], n)
     np.testing.assert_array_equal(tonp(got), np.asarray(want))
 
 
@@ -251,8 +261,7 @@ def test_binned_at_nbins_n_is_exact_knn():
     tx = t(x).to(torch.bfloat16)
     vals, grp = tbs.binned_candidates(tx, tx[rows], t(valid), START, metric="dot",
                                       nbins=N, block=BLOCK)
-    adj = tbs.adjacency_from_candidates([tbs.budgeted_keep(vals, t(valid[rows]), 5)],
-                                        [grp], N)
+    adj = _union([tbs.budgeted_keep(vals, t(valid[rows]), 5)], [grp], N, START)
     sim = tbs.sim_strip(tx, tx[rows], "dot")
     want = taff.knn_adjacency_block(sim, t(valid[rows]), t(valid), 5, START,
                                     out_dtype=torch.bool)

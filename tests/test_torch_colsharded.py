@@ -31,6 +31,7 @@ from mused_tpu.parallel import colsharded as jcs
 from mused_tpu.parallel.mesh import make_mesh as jmake_mesh
 from mused_tpu_torch.ops import blocked_affinity as tba
 from mused_tpu_torch.ops import fd as tfd
+from mused_tpu_torch.ops.kernels import blocked_select as tbs
 from mused_tpu_torch.parallel import colsharded as tcs
 from mused_tpu_torch.parallel import mesh as tmesh
 import torch_dist
@@ -228,13 +229,15 @@ def _items(rng, start, block=128):
 
 @pytest.mark.parametrize("start", [-128, 128, 400])
 def test_raw_candidates_pairing_equals_the_plain_route(start):
-    """The kernel route pairs consecutive modalities into K3 (a leftover
-    single takes K2); on CPU tensors the wrappers run their plain versions,
-    so the pairing's bookkeeping must give the per-modality plain route's
-    candidates exactly, and the JAX package's emulation's."""
+    """The sweep pairs consecutive modalities into K3 (a leftover single
+    takes K2); on CPU tensors the wrappers run their plain versions, so the
+    pairing's bookkeeping must give each modality's plain candidates
+    exactly, and the JAX package's emulation's."""
     items = _items(np.random.default_rng(7), start)
-    paired = tcs._raw_candidates(items, start, nbins=128, block=128, use_kernel=True)
-    plain = tcs._raw_candidates(items, start, nbins=128, block=128, use_kernel=False)
+    paired = tcs._raw_candidates(items, start, nbins=128, block=128)
+    plain = [tbs.binned_candidates_plain(c, r, cv, start, metric=m, nbins=128, block=128,
+                                         row_sums=s, row_stats=rs)
+             for m, c, cv, s, _, _, r, rs in items]
     jitems = [(m, jnp.asarray(tonp(c)), jnp.asarray(tonp(cv)),
                None if s is None else jnp.asarray(tonp(s)), k, jnp.asarray(tonp(vr)),
                jnp.asarray(tonp(r)), None if rs is None else jnp.asarray(tonp(rs)))

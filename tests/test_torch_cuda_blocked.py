@@ -6,9 +6,9 @@ JAX, so it runs on a machine without it; there, skip the JAX conftest:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda_blocked.py
 
 The union kernel (``bs.union_rowblock``) writes a rebuilt row block of
-the fused adjacency; it is held to its plain version and to the plain
-composition of the same candidates, and the blocked SVD through it to the
-SVD of the composed blocks.
+the fused adjacency; it is held to its plain version
+(``cm.dense_rows_reference``) on the same candidates, and the blocked SVD
+through it to the SVD of the plain version's blocks.
 
 Tolerances: bit-equal.  Operands are multiples of 1/4 (dot, chord), small
 integers (K4, K5) or 0/1 counts (jaccard), whose f32 sums are exact in any
@@ -653,11 +653,37 @@ def test_union_rowblock_on_the_candidate_cases(name, cuda):
 
 @pytest.mark.cuda
 def test_union_rowblock_refuses_what_the_kernel_does_not_take(cuda):
-    cand = _cand(cuda, 64, 48, 3, n_mod=9)
-    with pytest.raises(ValueError, match="1 to 8 slabs"):
-        bs.union_rowblock(cand)
+    """Past the kernel's eight slabs the wrapper launches it once per group
+    of eight, the username term in the first, and ORs the groups: 9 and 17
+    slabs (the second group at a 16-byte and at an 8-byte offset), with and
+    without uids, are bit-equal to the plain version in every dtype, each
+    call one block written.  A dtype it cannot write raises."""
+    for (block, nbins, groups, planes), with_user in [((64, 48, 3, 9), True),
+                                                      ((64, 48, 3, 9), False),
+                                                      ((63, 45, 5, 17), True)]:
+        cand = _cand(cuda, block, nbins, groups, n_mod=planes, with_user=with_user)
+        want = cm.dense_rows_reference(cand)
+        launches, written = bs.union_launches, bs.union_blocks_written()
+        for dtype in UNION_DTYPES:
+            got = bs.union_rowblock(cand, dtype)
+            torch.cuda.synchronize()
+            assert got.dtype == dtype and torch.equal(got, want.to(dtype)), (planes, dtype)
+        per_call = -(-planes // bs.UNION_MAX_PLANES)
+        assert bs.union_launches - launches == per_call * len(UNION_DTYPES)
+        assert bs.union_blocks_written() - written == len(UNION_DTYPES)
     with pytest.raises(TypeError):
         bs.union_rowblock(cand._replace(slabs=cand.slabs[:4]), torch.int8)
+
+
+def _host_columns(cols):
+    """The same column panels on the CPU, where the wrappers run their plain
+    versions (without the postings, which pick only the card's K2 route)."""
+    from mused_tpu_torch.ops import blocked_affinity as ba
+    return ba.Columns(kinds=cols.kinds,
+                      tensors=tuple(tuple(x.cpu() for x in t) if isinstance(t, tuple)
+                                    else t.cpu() for t in cols.tensors),
+                      valids=tuple(v.cpu() for v in cols.valids),
+                      idf=None if cols.idf is None else cols.idf.cpu())
 
 
 @functools.lru_cache(maxsize=None)
@@ -678,22 +704,20 @@ def _real_columns(n: int, device: str):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("n, nbins", [(151_552, 4096), (98_304, 1536)])
-def test_union_rowblock_equals_the_composition_on_the_real_middle_block(n, nbins, cuda):
+def test_union_rowblock_on_the_real_middle_block_equals_the_plain_rows_and_the_cpu_block(
+        n, nbins, cuda):
     """The cells' shapes: the middle 2048-row block's candidates from K2 / K3
-    written by the union kernel equal the plain composition of the same
-    candidates (the broadcast union and the username strip), and
-    ``fused_rowblock`` takes the kernel."""
+    written by the union kernel equal the plain version's rows of the same
+    candidates; ``fused_rowblock`` is that one kernel write, and equals
+    ``fused_rowblock`` of the same columns on the CPU (the plain K2 / K3
+    and union, held to the JAX package by test_torch_union_rowblock.py)."""
     from mused_tpu_torch.ops import blocked_affinity as ba
     block, k_basis = 2048, 50
     cols = _real_columns(n, str(cuda))
     start = n // block // 2 * block
-    assert ba.union_kernel_ok(cols, "binned", nbins)
+    assert all(ba._cand_held(cols.kinds, cols.tensors))
     cand = ba.candidate_rowblock(cols, start, block, k_basis, nbins)
-    want = bs.adjacency_from_candidates([s >= 0 for s in cand.slabs], list(cand.slabs), n)
-    uid, valid = cols.tensors[2], cols.valids[2]
-    rows = slice(start, start + block)
-    own = (start + torch.arange(block, device=cuda))[:, None] != torch.arange(n, device=cuda)
-    want |= (uid[rows, None] == uid[None, :]) & valid[rows, None] & valid[None, :] & own
+    want = cm.dense_rows_reference(cand)
     before = bs.union_launches
     for dtype in UNION_DTYPES:
         assert torch.equal(bs.union_rowblock(cand, dtype), want.to(dtype)), dtype
@@ -702,13 +726,17 @@ def test_union_rowblock_equals_the_composition_on_the_real_middle_block(n, nbins
     assert bs.union_launches == before + len(UNION_DTYPES) + 1
     assert torch.equal(fused, want.float())
     assert want.sum().item() > block * k_basis
+    host = ba.fused_rowblock(_host_columns(cols), start, block, k_basis, select="binned",
+                             nbins=nbins)
+    assert bs.union_launches == before + len(UNION_DTYPES) + 1
+    assert torch.equal(fused.cpu(), host)
 
 
 @pytest.mark.cuda
 def test_blocked_svd_reduce_through_the_union_equals_the_composed_blocks(cuda, monkeypatch):
     """The blocked SVD of a 98,304-row window with an injected omega: the
-    union kernel's f32 blocks give the composed blocks' result to the last
-    bit, through 6 sweeps of 48 blocks, each written by the kernel."""
+    union kernel's f32 blocks give the plain version's blocks' result to the
+    last bit, through 6 sweeps of 48 blocks, each written by the kernel."""
     from mused_tpu_torch.ops import blocked_affinity as ba
     n, nbins, block, rank = 98_304, 1536, 2048, 50
     cols = _real_columns(n, str(cuda))
@@ -719,7 +747,8 @@ def test_blocked_svd_reduce_through_the_union_equals_the_composed_blocks(cuda, m
     got = ba.blocked_svd_reduce(cols, None, **kw)
     torch.cuda.synchronize()
     assert bs.union_launches - before == 6 * n // block
-    monkeypatch.setattr(ba, "union_kernel_ok", lambda *a: False)
+    monkeypatch.setattr(bs, "union_rowblock",
+                        lambda cand, out_dtype: cm.dense_rows_reference(cand).to(out_dtype))
     want = ba.blocked_svd_reduce(cols, None, **kw)
     torch.cuda.synchronize()
     assert bs.union_launches - before == 6 * n // block

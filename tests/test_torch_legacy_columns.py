@@ -96,8 +96,11 @@ def test_text_kind_scales_by_the_columns_idf():
 def test_legacy_kinds_have_no_candidate_route():
     _, tcols = _columns("embedding", True, idf=False)
     assert not tba.cand_fold_supported(tcols.kinds, tcols.tensors, 32, N)
-    with pytest.raises(ValueError, match="no candidate route"):
-        tba.candidate_rowblock(tcols, 0, BLOCK, K, 32)
+    cand = tba.candidate_rowblock(tcols, 0, BLOCK, K, 32)      # the username only
+    assert torch.equal(cand.slabs, torch.full((1, BLOCK, 32), -1, dtype=torch.int8))
+    with pytest.raises(ValueError, match="cand_fold_supported"):
+        tba.blocked_fd_sketch(tcols, ell=8, block=BLOCK, k_basis=K, select="binned",
+                              nbins=32, cand_fold=True)
 
 
 def test_unknown_kind_is_raw_default_as_in_jax():

@@ -1,17 +1,22 @@
 """The union of a rebuilt row block: the fused (block, n) rows written once
-from the kept candidates (``blocked_select.union_rowblock``) against the
-plain composition of ``fused_rowblock``, on CPU tensors (the wrapper's plain
-version, ``cand_matvec.dense_rows_reference``), and the routing that gives
-the kernel its blocks.
+from the kept candidates (``blocked_select.union_rowblock``, on CPU tensors
+its plain version ``cand_matvec.dense_rows_reference``), the one route of
+``fused_rowblock(select="binned")``, against the JAX package's
+``fused_rowblock`` on the same columns; the blocks whose modalities the
+candidate form cannot all hold (their strips OR-ed in); and the per-sweep
+count of the blocks the union kernel wrote.
 
-Seeded columns of the five standard kinds, built here with torch alone,
-with invalid rows and columns in every modality.  Tolerances: bit-equal in
-bool, bf16 and f32 (0 / 1 are exact in each).  The kernel itself runs in
+Seeded columns of the five standard kinds, built here with torch, with
+invalid rows and columns in every modality.  Tolerances: bit-equal in bool,
+bf16 and f32 (0 / 1 are exact in each).  The kernel itself runs in
 ``tests/test_torch_cuda_blocked.py``.
 """
+import jax.numpy as jnp
+import numpy as np
 import pytest
 import torch
 
+from mused_tpu.ops import blocked_affinity as jba
 from mused_tpu_torch.ops import blocked_affinity as ba
 from mused_tpu_torch.ops.kernels import blocked_select as bs
 from mused_tpu_torch.ops.kernels import cand_matvec as cm
@@ -56,14 +61,32 @@ def _only(cols: ba.Columns, kinds) -> ba.Columns:
                       valids=tuple(cols.valids[i] for i in keep), idf=None)
 
 
-def _with_default(cols: ba.Columns) -> ba.Columns:
+def _with_default(cols: ba.Columns, seed: int = 7) -> ba.Columns:
     """``cols`` and a ``default_safe`` panel, which takes k_basis - 1
     neighbours: at k_basis 1 it clamps to k = 0 and adds no edge."""
-    g = torch.Generator().manual_seed(7)
+    g = torch.Generator().manual_seed(seed)
     x = (torch.randint(-3, 4, (N, 128), generator=g) / 4).to(torch.bfloat16)
     return ba.Columns(kinds=cols.kinds + ("default_safe",),
                       tensors=cols.tensors + ((x, x.float().pow(2).sum(1)),),
                       valids=cols.valids + (torch.ones(N, dtype=torch.bool),), idf=None)
+
+
+def _jnp(x):
+    """A CPU tensor (bf16 included) as a JAX array of the same dtype."""
+    if x.dtype == torch.bfloat16:
+        return jnp.asarray(x.float().numpy(), jnp.bfloat16)
+    return jnp.asarray(x.numpy())
+
+
+def _jax_rows(cols: ba.Columns, start: int, k_basis: int) -> np.ndarray:
+    """The JAX package's binned (BLOCK, n) f32 rows of the same columns."""
+    jcols = jba.Columns(
+        kinds=cols.kinds,
+        tensors=tuple(tuple(_jnp(y) for y in x) if isinstance(x, tuple) else _jnp(x)
+                      for x in cols.tensors),
+        valids=tuple(_jnp(v) for v in cols.valids), idf=None)
+    return np.asarray(jba.fused_rowblock(jcols, jnp.int32(start), BLOCK, k_basis,
+                                         select="binned", nbins=NBINS))
 
 
 # (columns, block start, k_basis)
@@ -80,16 +103,18 @@ CASES = {
 def test_union_of_the_candidates_equals_the_plain_composition(case, dtype):
     make, start, k_basis = CASES[case]
     cols = make()
-    want = ba.fused_rowblock(cols, start, BLOCK, k_basis, select="binned", nbins=NBINS,
-                             out_dtype=dtype, use_kernel=False)
-    cand = ba.candidate_rowblock(cols, start, BLOCK, k_basis, NBINS, use_kernel=False)
-    before = bs.union_launches
+    want = _jax_rows(cols, start, k_basis)
+    cand = ba.candidate_rowblock(cols, start, BLOCK, k_basis, NBINS)
+    before = bs.union_launches, bs.union_blocks_written()
     got = bs.union_rowblock(cand, dtype)
-    assert bs.union_launches == before          # the plain version on the CPU
-    assert want.dtype == got.dtype == dtype and want.shape == (BLOCK, N)
-    assert torch.equal(cm.dense_rows_reference(cand).to(dtype), want)
-    assert torch.equal(got, want)
-    assert want.float().sum() > 0               # the case holds edges
+    assert (bs.union_launches, bs.union_blocks_written()) == before   # the plain version
+    assert got.dtype == dtype and want.shape == got.shape == (BLOCK, N)
+    assert torch.equal(cm.dense_rows_reference(cand).to(dtype), got)
+    np.testing.assert_array_equal(got.float().numpy(), want)
+    fused = ba.fused_rowblock(cols, start, BLOCK, k_basis, select="binned", nbins=NBINS,
+                              out_dtype=dtype)
+    assert torch.equal(fused, got)
+    assert want.sum() > 0                       # the case holds edges
 
 
 def test_the_union_keeps_the_username_term_off_the_own_column():
@@ -109,44 +134,51 @@ def test_union_rowblock_refuses_what_it_does_not_take():
         bs.union_rowblock(cand._replace(slabs=cand.slabs.to(torch.int32)))
 
 
-class _OnCuda:
-    """A validity stand-in that reports a CUDA device (the routing reads only
-    the device of the first validity)."""
-
-    device = torch.device("cuda")
-
-
-def _on_cuda(cols: ba.Columns) -> ba.Columns:
-    return cols._replace(valids=(_OnCuda(),) + cols.valids[1:])
+def _two_users(cols: ba.Columns) -> ba.Columns:
+    uid = torch.where(cols.tensors[2] >= 0, cols.tensors[2] % 5, -1)
+    return cols._replace(kinds=cols.kinds + ("username",), tensors=cols.tensors + (uid,),
+                         valids=cols.valids + (uid >= 0,))
 
 
-def test_the_kernel_takes_only_cuda_binned_eligible_blocks():
-    cols = ba.hoist_columns(_columns(6))
-    cuda = _on_cuda(cols)
-    assert ba.union_kernel_ok(cuda, "binned", NBINS)
-    assert ba.union_kernel_ok(_on_cuda(_only(cols, ("username",))), "binned", NBINS)
-    assert not ba.union_kernel_ok(cols, "binned", NBINS)            # the CPU
-    assert not ba.union_kernel_ok(cuda, "strip", NBINS)             # the strip route
-    assert not ba.union_kernel_ok(cuda, "binned", 0)
-    assert not ba.union_kernel_ok(cuda, "binned", 96)               # nbins does not divide n
-    assert not ba.union_kernel_ok(cuda, "binned", 2)                # 128 groups: no int8 id
-    legacy = cuda._replace(kinds=cuda.kinds[:4] + ("text_norm",))
-    assert not ba.union_kernel_ok(legacy, "binned", NBINS)          # a strip-only kind
-    narrow = cuda._replace(tensors=cuda.tensors[:4] + (cuda.tensors[4][:, :96],))
-    assert not ba.union_kernel_ok(narrow, "binned", NBINS)          # no tile width
-    two_users = cuda._replace(kinds=cuda.kinds + ("username",),
-                              tensors=cuda.tensors + (cuda.tensors[2],),
-                              valids=cuda.valids + (cuda.valids[2],))
-    assert not ba.union_kernel_ok(two_users, "binned", NBINS)
-    float_users = cuda._replace(tensors=cuda.tensors[:2] + (cuda.tensors[2].float(),)
-                                + cuda.tensors[3:])
-    assert not ba.union_kernel_ok(float_users, "binned", NBINS)
-    nine = cuda._replace(kinds=cuda.kinds + ("time",) * 5, tensors=cuda.tensors
-                         + (cuda.tensors[1],) * 5, valids=cuda.valids + (cuda.valids[1],) * 5)
-    assert not ba.union_kernel_ok(nine, "binned", NBINS)            # 9 candidate slabs
+def _nine_slabs(cols: ba.Columns) -> ba.Columns:
+    for seed in range(5):
+        cols = _with_default(cols, seed=20 + seed)
+    return cols
+
+
+# blocks the candidate form cannot hold whole: (columns, the modalities it holds)
+UNHELD = {
+    "legacy_text_norm": (lambda c: c._replace(kinds=c.kinds[:4] + ("text_norm",)), 4),
+    "panel_96_wide": (lambda c: c._replace(tensors=c.tensors[:4] + (c.tensors[4][:, :96],)),
+                      4),
+    "two_username_panels": (_two_users, 5),
+    "float_uids": (lambda c: c._replace(tensors=c.tensors[:2] + (c.tensors[2].float(),)
+                                        + c.tensors[3:]), 4),
+    "nine_slabs": (_nine_slabs, 10),
+}
+
+
+@pytest.mark.parametrize("case", sorted(UNHELD))
+def test_blocks_the_candidate_form_cannot_hold_whole_equal_jax(case):
+    """The held modalities go through the union (one call per block, nine
+    slabs included: past the kernel's planes its plain version writes
+    them), the others are OR-ed in from their strips; the rows equal the
+    JAX package's bit for bit."""
+    make, held = UNHELD[case]
+    cols = make(_columns(6))
+    assert sum(ba._cand_held(cols.kinds, cols.tensors)) == held
+    assert not ba.cand_fold_supported(cols.kinds, cols.tensors, NBINS, N) \
+        or case == "nine_slabs"
+    for start in (0, 128):
+        want = _jax_rows(cols, start, 3)
+        got = ba.fused_rowblock(cols, start, BLOCK, 3, select="binned", nbins=NBINS)
+        assert got.dtype == torch.float32 and want.sum() > 0
+        np.testing.assert_array_equal(got.numpy(), want)
 
 
 def test_fused_rowblock_routes_eligible_blocks_through_the_union(monkeypatch):
+    """On the CPU too, each binned block is one union call in the consumer's
+    dtype (bool where strips are OR-ed in); the strip route makes none."""
     cols = _columns(8)
     want = ba.fused_rowblock(cols, 64, BLOCK, 3, select="binned", nbins=NBINS)
     calls = []
@@ -157,22 +189,29 @@ def test_fused_rowblock_routes_eligible_blocks_through_the_union(monkeypatch):
         return union(cand, out_dtype)
 
     monkeypatch.setattr(bs, "union_rowblock", spy)
-    assert torch.equal(ba.fused_rowblock(cols, 64, BLOCK, 3, select="binned", nbins=NBINS),
-                       want)
-    assert calls == []                                           # the CPU composes
-    monkeypatch.setattr(ba, "union_kernel_ok", lambda *a: True)
     got = ba.fused_rowblock(cols, 64, BLOCK, 3, select="binned", nbins=NBINS,
                             out_dtype=torch.bfloat16)
     assert calls == [torch.bfloat16] and torch.equal(got, want.to(torch.bfloat16))
-    ba.fused_rowblock(cols, 64, BLOCK, 3, select="binned", nbins=NBINS, use_kernel=False)
-    assert calls == [torch.bfloat16]                             # the reference route
+    legacy = cols._replace(kinds=cols.kinds[:4] + ("text_norm",))
+    ba.fused_rowblock(legacy, 64, BLOCK, 3, select="binned", nbins=NBINS)
+    assert calls == [torch.bfloat16, torch.bool]
+    strip = ba.fused_rowblock(cols, 64, BLOCK, 3, select="strip")
+    assert calls == [torch.bfloat16, torch.bool]                 # the strip route
+    assert strip.sum() > 0
 
 
 @pytest.mark.parametrize("routed", [False, True])
 def test_each_sweep_counts_the_blocks_the_union_wrote(routed, monkeypatch):
     cols = _columns(9)
-    if routed:
-        monkeypatch.setattr(ba, "union_kernel_ok", lambda *a: True)
+    if routed:          # each union call stands in for a kernel write
+        union, calls = bs.union_rowblock, [0]
+
+        def written(cand, out_dtype=torch.float32):
+            calls[0] += 1
+            return union(cand, out_dtype)
+
+        monkeypatch.setattr(bs, "union_rowblock", written)
+        monkeypatch.setattr(bs, "union_blocks_written", lambda: calls[0])
     omega = torch.randn((N, 10), generator=torch.Generator().manual_seed(0))
     profiling.clear()
     with profiling.recording():
